@@ -1,0 +1,355 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (``mp3stego_tpu_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with one CUDA card (Hopper:
+the kernels are built for sm_90a). It builds every kernel of the decode path
+from the sources in the checkout, holds each against its plain PyTorch
+version, drives the decode path through the public façade at a size users
+decode (one 240.7-second 320 kbps stereo song), checks the output against
+the bit-exact float64 host plane, and times it. Every phase raises on a
+fault; nothing is caught. The last line of standard output is
+``{"ok": true, "device": {...}}``; the line before it lists the kernels
+(launches during the main-path run, error against the plain version, times).
+
+It imports nothing of JAX and nothing of the JAX package. Without a card, or
+outside a checkout, it exits non-zero before printing any result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from mp3stego_tpu_torch import Steganography, native
+from mp3stego_tpu_torch.bitstream import decoder_host as dh
+from mp3stego_tpu_torch.bitstream.decoder_host import ParsedMP3
+from mp3stego_tpu_torch.ops import _cuda
+from mp3stego_tpu_torch.ops import decode_plane as dp
+from mp3stego_tpu_torch.ops import synth_fir as sf
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+GOLD = os.path.join(REPO, "tests", "golden")
+
+# the slice: the 320 kbps golden re-encode (36 frames), one zero byte
+# appended (its last frame is one byte short of its header's size, so
+# unpadded copies end the sync walk after the first copy), 256 copies:
+# 9,216 frames, T = 18,432 granules, 240.7 s of 44.1 kHz stereo
+SONG_COPIES = 256
+S_SLICE = 18 * 2 * 36 * SONG_COPIES          # FIR sub-steps per channel
+MAX_LSB_RATE = 1e-3                          # tests/test_precision.py contract
+# the half-second MPEG-2/2.5 tone streams: the JAX package's own float32
+# plane flips 1.4e-3 of their samples (tests/test_torch_facade.py)
+LSF_MAX_LSB_RATE = 2e-3
+
+
+def synthetic_parsed(t: int, seed: int = 0) -> ParsedMP3:
+    """A synthetic parsed-granule batch covering every block type: long,
+    short, start, one mixed granule, MS granules and one intensity
+    granule, with linbits escapes. The same construction as the JAX
+    package's ``__graft_entry__._synthetic_prep`` (the tests hold the two
+    preps equal key by key)."""
+    from types import SimpleNamespace
+    assert t % 2 == 0, "granule count must be even (2 granules per frame)"
+    f = t // 2
+    rng = np.random.default_rng(seed)
+    bt = np.zeros((f, 2, 2), np.int32)
+    bt.reshape(-1)[:: 3] = 2                          # short blocks
+    bt.reshape(-1)[1:: 5] = 1                         # start windows
+    mixed = np.zeros((f, 2, 2), np.int32)
+    mixed[0, 0, :] = (bt[0, 0, :] == 2).astype(np.int32)
+    ms = np.zeros(t, bool)
+    ms[:: 2] = True
+    is_st = np.zeros(t, bool)
+    is_st[1] = True                                   # one IS granule
+    raw = rng.integers(-140, 140, size=(f, 2, 2, 576)).astype(np.int32)
+    raw[0, 1, 1, 300:] = 0        # IS needs a zero upper right channel
+    return ParsedMP3(
+        num_frames=f,
+        header=SimpleNamespace(sr_idx=0),
+        raw_samples=raw,
+        block_type=bt,
+        mixed_block_flag=mixed,
+        global_gain=np.full((f, 2, 2), 180, np.int32),
+        scale_fac_scale=rng.integers(0, 2, size=(f, 2, 2)).astype(np.int32),
+        pre_flag=rng.integers(0, 2, size=(f, 2, 2)).astype(np.int32),
+        sub_block_gain=rng.integers(0, 3, size=(f, 2, 2, 3)).astype(np.int32),
+        scale_fac_l=rng.integers(0, 4, size=(f, 2, 2, 22)).astype(np.int32),
+        scale_fac_s=rng.integers(0, 4, size=(f, 2, 2, 3, 13)).astype(np.int32),
+        ms_stereo=ms,
+        is_stereo=is_st,
+    )
+
+
+def synthetic_prep(t: int, seed: int = 0) -> dict:
+    return dp.host_prepare(synthetic_parsed(t, seed), native_pack=False)
+
+
+def _card_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def _say(phase: str, msg: str):
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def _wav_i16(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return np.frombuffer(f.read()[44:], dtype=np.int16)
+
+
+def _lsb_contract(name: str, got: np.ndarray, want: np.ndarray,
+                  max_rate: float = MAX_LSB_RATE) -> str:
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.shape} samples vs {want.shape}")
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    rate = float((d != 0).mean())
+    if d.max() > 1 or rate >= max_rate:
+        raise AssertionError(f"{name}: max |d| {d.max()} LSB, rate {rate}")
+    return f"max |d| {int(d.max())} LSB on {rate:.3e} of {d.size} samples"
+
+
+def _fir_pair(v_ext: torch.Tensor, s: int):
+    got = sf.synth_fir(v_ext, s)
+    want = sf.synth_fir_torch(v_ext, s)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _time_ms(fn, iters: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    # ---- phase 0: card and precision
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card visible to torch: this smoke run "
+                           "needs one")
+    dev = torch.device("cuda")
+    card = _card_line()
+    _say("0 card", f"{card} | torch {torch.__version__} CUDA "
+                   f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} "
+                   f"x{torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise RuntimeError("TF32 could not be switched off")
+    _say("0 card", "TF32 off (matmul and cuDNN)")
+
+    # ---- phase 1: build the kernel (nvcc, sm_90a) and the host library
+    _cuda.load("synth_fir", sf._SIGNATURES)
+    info = _cuda.builds["synth_fir"]
+    _say("1 build", f"csrc/synth_fir.cu -> {os.path.relpath(info['path'], REPO)}"
+                    f" in {info['seconds']:.2f} s")
+    for line in info["log"].splitlines():
+        if "registers" in line or "smem" in line or "spill" in line:
+            _say("1 build", "ptxas: " + line.strip())
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise RuntimeError("the native host library did not build or load")
+    _say("1 build", f"native host library in {time.perf_counter() - t0:.2f} s")
+
+    # ---- phase 2: K1 against its plain version, bit for bit
+    rng = np.random.default_rng(0)
+    k1_err = None
+    for ch, s in ((2, S_SLICE), (2, 18), (1, 18 * 7)):
+        v = torch.from_numpy(rng.standard_normal((ch, 15 + s, 64))
+                             .astype(np.float32)).to(dev)
+        got, want = _fir_pair(v, s)
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"synth_fir != plain at {(ch, 15 + s, 64)}: "
+                                 f"max |d| {err}")
+        if s == S_SLICE:
+            k1_err = err
+        _say("2 K1", f"v_ext {(ch, 15 + s, 64)}: bitwise equal to "
+                     f"synth_fir_torch (max |d| {err})")
+    s = 512
+    v = torch.from_numpy(rng.standard_normal((1, 15 + 2 * s, 64))
+                         .astype(np.float32)).to(dev)
+    whole = sf.synth_fir(v, 2 * s)
+    halves = torch.cat([sf.synth_fir(v[:, :15 + s].contiguous(), s),
+                        sf.synth_fir(v[:, s:].contiguous(), s)], dim=1)
+    torch.cuda.synchronize()
+    if not torch.equal(whole, halves):
+        raise AssertionError("synth_fir halo continuity broken")
+    _say("2 K1", "halo continuity: two halves with a 15-row halo equal one pass")
+
+    # ---- phase 3: plane coverage (short/start/mixed/MS/intensity/linbits)
+    prep = synthetic_prep(64)
+    ref = dp.decode_granules_np(prep)
+    got = dp.decode_granules(dp.prep_to_torch(prep, dev), torch.float32)
+    got = got.cpu().numpy()
+    err = float(np.abs(got - ref).max())
+    # the synthetic batch peaks far above full scale, so the float32 bound
+    # of tests/test_precision.py (1e-5 on unit-scale audio) scales with it
+    bound = 1e-5 * max(1.0, float(np.abs(ref).max()))
+    if not err < bound:
+        raise AssertionError(f"card plane vs host float64: {err} >= {bound}")
+    _say("3 plane", f"synthetic T=64 batch: card float32 vs host float64 "
+                    f"max |d| {err:.3e} (bound {bound:.3e}, peak "
+                    f"{np.abs(ref).max():.3f})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- phase 4: the slice, a 240.7 s song through the façade
+        mp3 = np.load(os.path.join(GOLD, "encode_golden.npz"))["mp3_bytes"]
+        song = os.path.join(tmp, "song.mp3")
+        with open(song, "wb") as f:
+            f.write((mp3.tobytes() + b"\0") * SONG_COPIES)
+        s64 = Steganography(quiet=True, precision="float64")
+        t0 = time.perf_counter()
+        s64.decode_mp3_to_wav(song, os.path.join(tmp, "song64.wav"))
+        t64 = time.perf_counter() - t0
+        want = _wav_i16(os.path.join(tmp, "song64.wav"))
+        seconds = want.size / 2 / 44100
+        s32 = Steganography(quiet=True, precision="float32", device="cuda")
+        wav32 = os.path.join(tmp, "song32.wav")
+        sf.launches = 0
+        s32.decode_mp3_to_wav(song, wav32)                  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        walls, stages = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            kbps = s32.decode_mp3_to_wav(song, wav32)
+            walls.append(time.perf_counter() - t0)
+            stages.append(dict(s32._last_decoder.timer.times))
+        main_launches = sf.launches
+        peak = torch.cuda.max_memory_allocated()
+        if main_launches == 0:
+            raise AssertionError("the decode path never launched synth_fir")
+        got = _wav_i16(wav32)
+        _say("4 slice", f"{seconds:.2f} s song at {kbps} kbps: card WAV vs "
+                        f"float64 WAV {_lsb_contract('song', got, want)}")
+        wall = sorted(walls)[1]
+        _say("4 slice", f"[{card}] decode wall median {wall * 1e3:.1f} ms of "
+                        f"{[round(w * 1e3, 1) for w in walls]} -> "
+                        f"{seconds / wall:.1f}x realtime; float64 host plane "
+                        f"{t64 * 1e3:.1f} ms ({seconds / t64:.1f}x); "
+                        f"synth_fir launches {main_launches} in 4 decodes")
+        for name in stages[0]:
+            ms = sorted(st[name] * 1e3 for st in stages)
+            _say("4 slice", f"[{card}] stage {name}: median {ms[1]:.2f} ms "
+                            f"of {[round(m, 2) for m in ms]}")
+        _say("4 slice", f"[{card}] torch.cuda.max_memory_allocated "
+                        f"{peak / 2**20:.1f} MiB")
+
+        # device plane by stage, CUDA events, on the song's prep
+        with open(song, "rb") as f:
+            parsed = dh.parse_mp3(f.read())
+        prep = dp.prep_to_torch(dp.host_prepare(parsed), dev)
+        marks = []
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+        for _ in range(2):                     # the second pass is timed
+            marks.clear()
+            mark("start")
+            x = dp._requantize_stage(prep, torch.float32)
+            mark("requantize")
+            x = dp._stereo_stage(prep, x, torch.float32)
+            mark("stereo")
+            x = dp._reorder_alias_stage(prep, x, torch.float32)
+            mark("reorder_alias")
+            blk = dp._imdct_stage(prep, x, torch.float32)
+            mark("imdct")
+            pcm = dp.synth_from_blocks(blk, torch.float32)
+            mark("overlap_freqinv+synth_v+synth_fir")
+            i16 = (pcm * 32767.0).clamp(-32768.0, 32767.0).to(torch.int32)
+            i16 = i16.to(torch.int16)
+            mark("int16")
+            torch.cuda.synchronize()
+        total = marks[0][1].elapsed_time(marks[-1][1])
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            ms = a.elapsed_time(b)
+            _say("4 slice", f"[{card}] device {name}: {ms:.3f} ms "
+                            f"({ms / total * 100:.1f}%)")
+        _say("4 slice", f"[{card}] device plane total {total:.3f} ms")
+        if not torch.equal(i16, dp.decode_granules_i16(prep)):
+            raise AssertionError("staged device plane != decode_granules_i16")
+
+        # ---- phase 5: MPEG-2/2.5 through the card path. mpeg2_golden.npz
+        # holds the reference encoder's LSF layout, which no decoder reads;
+        # torch_lsf_golden.npz holds the same PCM through the JAX package's
+        # spec-valid LSF writer (pinned by tests/test_torch_host.py)
+        g2 = np.load(os.path.join(GOLD, "torch_lsf_golden.npz"))
+        for name in ("mpeg2_24k_64", "mpeg2_22k05_80", "mpeg25_8k_32"):
+            path = os.path.join(tmp, f"{name}.mp3")
+            with open(path, "wb") as f:
+                f.write(g2[name].tobytes())
+            s64.decode_mp3_to_wav(path, os.path.join(tmp, f"{name}64.wav"))
+            s32.decode_mp3_to_wav(path, os.path.join(tmp, f"{name}32.wav"))
+            line = _lsb_contract(
+                name, _wav_i16(os.path.join(tmp, f"{name}32.wav")),
+                _wav_i16(os.path.join(tmp, f"{name}64.wav")), LSF_MAX_LSB_RATE)
+            parsed = dh.parse_mp3(g2[name].tobytes())
+            err = float(np.abs(dp.decode_pcm(parsed, "float32", dev)
+                               - dp.decode_pcm(parsed, "float64")).max())
+            if not err < 1e-5:
+                raise AssertionError(f"{name}: float32 PCM off by {err}")
+            _say("5 lsf", f"{name}: {line}; float max |d| {err:.3e}")
+
+        # ---- phase 6: reveal
+        sg = np.load(os.path.join(GOLD, "stego_golden.npz"))
+        for key, msg in (("hidden_short", "ddd"),
+                         ("hidden_long", sg["msg_long"].tobytes().decode())):
+            path = os.path.join(tmp, f"{key}.mp3")
+            with open(path, "wb") as f:
+                f.write(sg[key].tobytes())
+            txt = os.path.join(tmp, f"{key}.txt")
+            s32.reveal_massage(path, txt)
+            with open(txt) as f:
+                got = f.read()
+            if got != msg:
+                raise AssertionError(f"reveal {key}: {got!r} != {msg!r}")
+            _say("6 reveal", f"{key}: {got!r}")
+
+    # ---- phase 7: K1 time against its plain version at the slice's shape
+    v = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 15 + S_SLICE, 64)).astype(np.float32)).to(dev)
+    kern = lambda: sf.synth_fir(v, S_SLICE)          # noqa: E731
+    plain = lambda: sf.synth_fir_torch(v, S_SLICE)   # noqa: E731
+    for fn in (kern, plain):
+        fn()
+    times = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        times[which].append(_time_ms(kern if which == "kernel" else plain, 20))
+    k_ms, p_ms = min(times["kernel"]), min(times["plain"])
+    _say("7 K1 time", f"[{card}] v_ext (2, {15 + S_SLICE}, 64): kernel "
+                      f"{times['kernel']} ms, plain {times['plain']} ms "
+                      f"(plain/kernel {p_ms / k_ms:.1f}x)")
+
+    print(card)
+    print(json.dumps({"kernels": [{
+        "name": "synth_fir", "route": "cuda",
+        "source": "mp3stego_tpu_torch/csrc/synth_fir.cu",
+        "replaces": "mp3stego_tpu/ops/pallas_kernels.py:42",
+        "launches": main_launches, "max_abs_err": k1_err,
+        "ms": k_ms, "plain_ms": p_ms}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

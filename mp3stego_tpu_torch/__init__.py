@@ -1,0 +1,45 @@
+"""mp3stego_tpu_torch — the PyTorch + CUDA port of mp3stego_tpu.
+
+A second package beside the JAX one, which stays the reference: each slice
+of the port is held against ``mp3stego_tpu`` on the same inputs. This
+package imports ``torch`` and never ``jax``, and imports nothing of
+``mp3stego_tpu`` (it reads two of its data files by path: the constant pack
+``tables/iso_tables.npz`` and the C++ host sources ``native/src/*.cpp``).
+
+Ported so far: the decode path (MP3 -> WAV, and reveal), with the synthesis
+FIR as a hand-written CUDA kernel for Hopper (``csrc/synth_fir.cu``).
+
+    from mp3stego_tpu_torch import Steganography, Decoder
+"""
+
+def _tune_host_allocator():
+    """Keep glibc from munmapping large buffers on free.
+
+    By default glibc serves >128 KB allocations with mmap and returns them to
+    the kernel on free, so every large NumPy temp / device-fetch destination
+    re-faults its pages. On virtualized hosts with slow page faults that can
+    dominate the whole pipeline. Raising M_MMAP_THRESHOLD / M_TRIM_THRESHOLD
+    keeps the heap warm — repeated large allocations run at memory speed.
+    Trade-off: peak RSS stays allocated; disable with MP3STEGO_TPU_MALLOC_TUNE=0.
+    """
+    import ctypes
+    import os
+    if os.environ.get("MP3STEGO_TPU_MALLOC_TUNE", "1") != "1":
+        return
+    try:
+        libc = ctypes.CDLL("libc.so.6")
+        libc.mallopt(-1, 1 << 30)   # M_TRIM_THRESHOLD
+        libc.mallopt(-3, 1 << 30)   # M_MMAP_THRESHOLD
+    except Exception:  # noqa: BLE001 - non-glibc platforms: default malloc
+        pass
+
+
+_tune_host_allocator()
+
+from mp3stego_tpu_torch.models.decoder import Decoder              # noqa: E402
+from mp3stego_tpu_torch.steganography import (Steganography,        # noqa: E402
+                                              str_to_binary_str)
+
+__version__ = "0.1.0"
+
+__all__ = ["Steganography", "Decoder", "str_to_binary_str"]

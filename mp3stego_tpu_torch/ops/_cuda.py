@@ -1,0 +1,82 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
+library with a plain C interface, at first use, into the package's
+git-ignored ``_build/`` directory, keyed by a hash of the source and the
+flags; it is then loaded with ``ctypes``. Nothing here runs at import, so
+the CPU-only test environment imports every module without a toolchain.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+# --fmad=false: no multiply-add contraction anywhere in a kernel, so a kernel
+# that rounds like its plain PyTorch version can equal it bit for bit.
+# -Xptxas -v: registers, shared memory and spills per kernel, kept in the
+# build record for the smoke run to print.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs = {}
+# name -> {"path", "seconds", "log"}: what this process built or found
+builds = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked on PATH and in "
+                       "$CUDA_HOME/bin, default /usr/local/cuda/bin)")
+
+
+def _build(name: str) -> dict:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    so = os.path.join(BUILD_DIR, f"lib{name}-{key.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return {"path": so, "seconds": 0.0, "log": "(cached build)"}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                       capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src} (exit {r.returncode}):\n"
+                           f"{r.stdout}{r.stderr}")
+    os.replace(tmp, so)
+    return {"path": so, "seconds": time.perf_counter() - t0,
+            "log": (r.stdout + r.stderr).strip()}
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded ``csrc/<name>.cu`` library, built on first use.
+
+    ``signatures`` maps each C entry point to ``(restype, argtypes)``; every
+    pointer and the stream must be ``ctypes.c_void_p`` so that 64-bit
+    addresses are not cut. Raises if the build or the load fails."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            info = _build(name)
+            lib = ctypes.CDLL(info["path"])
+            for fn, (restype, argtypes) in signatures.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = list(argtypes)
+            builds[name] = info
+            _libs[name] = lib
+        return lib

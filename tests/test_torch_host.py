@@ -1,0 +1,148 @@
+"""Host plane of the torch port against the JAX package, on the same bytes.
+
+The port copies the JAX-free host modules (tables, bitstream parse, native
+loader, ``host_prepare``); these tests hold every ``ParsedMP3`` array field,
+the stego bit string and the device-plane input dict equal to the JAX
+package's, on the 320 kbps fixture, the MPEG-2/2.5 streams and the
+multirate goldens.
+
+The streams of ``mpeg2_golden.npz`` are the reference encoder's LSF layout,
+which no decoder reads (its side info drops two fields, so frames land at
+half-byte offsets); both packages refuse them alike. The decodable MPEG-2/2.5
+streams are ``torch_lsf_golden.npz``: the same PCM inputs encoded by the JAX
+package's spec-valid LSF writer (``lsf_compliant=True``), pinned here by
+re-encoding.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from mp3stego_tpu.bitstream import decoder_host as jdh  # noqa: E402
+from mp3stego_tpu.ops import decode_plane as jdp  # noqa: E402
+from mp3stego_tpu_torch import tables as PT  # noqa: E402
+from mp3stego_tpu_torch.bitstream import decoder_host as pdh  # noqa: E402
+from mp3stego_tpu_torch.ops import decode_plane as pdp  # noqa: E402
+
+GOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+
+MPEG2 = (("mpeg2_24k_64", 24000, 64), ("mpeg2_22k05_80", 22050, 80),
+         ("mpeg25_8k_32", 8000, 32))
+MULTIRATE = ("32000_64", "32000_192", "44100_128", "48000_96", "48000_320")
+STREAMS = (("fixture",) + tuple(m[0] for m in MPEG2)
+           + tuple(f"mp3_{t}" for t in MULTIRATE))
+
+
+@pytest.fixture(scope="module")
+def goldens():
+    return {n: np.load(os.path.join(GOLD, f"{n}.npz"))
+            for n in ("mpeg2_golden", "multirate_golden", "stego_golden",
+                      "torch_lsf_golden")}
+
+
+def _stream_bytes(name, goldens, request) -> bytes:
+    if name == "fixture":
+        with open(request.getfixturevalue("fixture_mp3"), "rb") as f:
+            return f.read()
+    if name.startswith("mp3_"):
+        return goldens["multirate_golden"][name].tobytes()
+    return goldens["torch_lsf_golden"][name].tobytes()
+
+
+def _assert_same(a, b, where):
+    """Deep equality across the two packages' (distinct) classes."""
+    if isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray), where
+        assert a.dtype == b.dtype and np.array_equal(a, b), where
+    elif dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__, where
+        for f in dataclasses.fields(a):
+            _assert_same(getattr(a, f.name), getattr(b, f.name),
+                         f"{where}.{f.name}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same(x, y, f"{where}[{i}]")
+    else:
+        assert a == b, where
+
+
+@pytest.mark.parametrize("name", STREAMS)
+def test_parse_matches_jax_package(name, goldens, request):
+    data = _stream_bytes(name, goldens, request)
+    jp = jdh.parse_mp3(data, 0)
+    pp = pdh.parse_mp3(data, 0)
+    assert jp.num_frames > 0
+    _assert_same(jp, pp, name)
+    assert pdh.stego_bits(pp) == jdh.stego_bits(jp)
+
+
+@pytest.mark.parametrize("name", STREAMS)
+def test_host_prepare_matches_jax_package(name, goldens, request):
+    data = _stream_bytes(name, goldens, request)
+    jprep = jdp.host_prepare(jdh.parse_mp3(data, 0))
+    pprep = pdp.host_prepare(pdh.parse_mp3(data, 0))
+    assert set(pprep) == set(jprep) == set(pdp.ALL_KEYS) == set(jdp.ALL_KEYS)
+    for k in pdp.ALL_KEYS:
+        assert pprep[k].dtype == jprep[k].dtype, k
+        assert np.array_equal(pprep[k], jprep[k]), k
+
+
+@pytest.mark.parametrize("key", ("hidden_short", "hidden_long",
+                                 "hidden_toolong"))
+def test_stego_bits_match_jax_package(key, goldens):
+    data = goldens["stego_golden"][key].tobytes()
+    bits = pdh.stego_bits(pdh.parse_mp3(data, 0))
+    assert bits and bits == jdh.stego_bits(jdh.parse_mp3(data, 0))
+
+
+def test_python_parser_matches_native(goldens, request):
+    """Both engines of the copied parser agree (the native one is built from
+    the JAX package's C++ sources into the port's own build directory)."""
+    from mp3stego_tpu_torch import native
+    assert native.get_lib() is not None
+    assert os.path.dirname(native._SO) == native.BUILD_DIR
+    data = _stream_bytes("fixture", goldens, request)
+    a = pdh.parse_mp3(data, 0, backend="native")
+    b = pdh.parse_mp3(data, 0, backend="python")
+    for f in ("raw_samples", "block_type", "global_gain", "scale_fac_l",
+              "scale_fac_s", "table_select", "ms_stereo", "frame_sizes"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_tables_read_the_jax_package_pack():
+    from mp3stego_tpu import tables as JT
+    assert PT._PACK_PATH == os.path.join(os.path.dirname(JT.__file__),
+                                         "iso_tables.npz")
+    for name in ("HUFF_CODE", "SYNTH_WINDOW", "BAND_INDEX_ISO", "PRE_TAB",
+                 "QUAD_LUT", "TRANSFORM_HUF"):
+        assert np.array_equal(getattr(PT, name), getattr(JT, name)), name
+    assert np.array_equal(PT.sine_block(), JT.sine_block())
+    assert np.array_equal(PT.synth_filter_matrix(), JT.synth_filter_matrix())
+
+
+@pytest.mark.parametrize("name,sr,br", MPEG2)
+def test_lsf_golden_is_the_jax_compliant_encoding(name, sr, br, goldens):
+    from mp3stego_tpu.models.encoder import MP3Encoder
+    from mp3stego_tpu.utils.wav import WavFile
+    pcm = goldens["mpeg2_golden"][name + "_pcm"]
+    w = WavFile(file_path="synth.wav", bitrate=br, num_of_channels=2,
+                samplerate=sr, bits_per_sample=16,
+                num_of_samples=len(pcm) // 2, mpeg_mode=0, buffer=pcm)
+    enc = MP3Encoder(w, device_search=False, lsf_compliant=True)
+    enc.encode(quiet=True)
+    assert bytes(enc.out_buffer) == goldens["torch_lsf_golden"][name].tobytes()
+
+
+@pytest.mark.parametrize("name", [m[0] for m in MPEG2])
+def test_reference_layout_lsf_refused_alike(name, goldens):
+    data = goldens["mpeg2_golden"][name].tobytes()
+    with pytest.raises(ValueError, match="lsf_compliant") as jerr:
+        jdh.parse_mp3(data, 0)
+    with pytest.raises(ValueError, match="lsf_compliant") as perr:
+        pdh.parse_mp3(data, 0)
+    assert str(perr.value) == str(jerr.value)

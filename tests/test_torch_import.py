@@ -1,0 +1,61 @@
+"""The torch port imports and decodes with JAX and the JAX package refused.
+
+A fresh interpreter installs a ``sys.meta_path`` finder that refuses the
+top-level names ``jax``, ``jaxlib`` and ``mp3stego_tpu`` (exact match:
+``mp3stego_tpu_torch`` starts with ``mp3stego_tpu``), then imports the port
+and decodes a golden stego file with the torch plane on the CPU.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = r"""
+import importlib.abc, os, sys, tempfile
+
+BLOCKED = ("jax", "jaxlib", "mp3stego_tpu")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"refused import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+
+import numpy as np
+from mp3stego_tpu_torch import Steganography
+
+gold = np.load(os.path.join("tests", "golden", "stego_golden.npz"))
+with tempfile.TemporaryDirectory() as tmp:
+    mp3 = os.path.join(tmp, "h.mp3")
+    with open(mp3, "wb") as f:
+        f.write(gold["hidden_short"].tobytes())
+    s = Steganography(quiet=True, precision="float32", device="cpu")
+    assert s.decode_mp3_to_wav(mp3, os.path.join(tmp, "h.wav")) == 320
+    s.reveal_massage(mp3, os.path.join(tmp, "h.txt"))
+    with open(os.path.join(tmp, "h.txt")) as f:
+        assert f.read() == "ddd"
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not leaked, leaked
+print("NO_JAX_OK")
+"""
+
+
+def test_port_imports_and_decodes_without_jax():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "NO_JAX_OK" in r.stdout
+
