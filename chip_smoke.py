@@ -4,14 +4,16 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one CUDA card (Hopper:
-the kernels are built for sm_90a). It builds every kernel of the decode path
-from the sources in the checkout, holds each against its plain PyTorch
-version, drives the decode path through the public façade at a size users
-decode (one 240.7-second 320 kbps stereo song), checks the output against
-the bit-exact float64 host plane, and times it. Every phase raises on a
-fault; nothing is caught. The last line of standard output is
-``{"ok": true, "device": {...}}``; the line before it lists the kernels
-(launches during the main-path run, error against the plain version, times).
+the kernels are built for sm_90a). It builds every kernel of the decode and
+hide paths from the sources in the checkout, holds each against its plain
+PyTorch version, drives both paths through the public façade at a size users
+send (one 240.7-second 320 kbps stereo song: decode it, measure its
+capacity, hide a message of 90 % of it, reveal it, clear it), checks every
+output against the bit-exact host planes and the goldens, and times it.
+Every phase raises on a fault; nothing is caught. The last line of
+standard output is ``{"ok": true, "device": {...}}``; the line before it
+lists the kernels (launches during the main-path runs, error against the
+plain version, times).
 
 It imports nothing of JAX and nothing of the JAX package. Without a card, or
 outside a checkout, it exits non-zero before printing any result.
@@ -30,9 +32,14 @@ import torch
 from mp3stego_tpu_torch import Steganography, native
 from mp3stego_tpu_torch.bitstream import decoder_host as dh
 from mp3stego_tpu_torch.bitstream.decoder_host import ParsedMP3
+from mp3stego_tpu_torch.models.encoder import Encoder, MP3Encoder
 from mp3stego_tpu_torch.ops import _cuda
 from mp3stego_tpu_torch.ops import decode_plane as dp
+from mp3stego_tpu_torch.ops import encode_plane as EP
 from mp3stego_tpu_torch.ops import synth_fir as sf
+from mp3stego_tpu_torch.steganography import _frame_message
+from mp3stego_tpu_torch.utils.profiling import StageTimer
+from mp3stego_tpu_torch.utils.wav import WavFile, read_wav, write_wav
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLD = os.path.join(REPO, "tests", "golden")
@@ -47,6 +54,7 @@ MAX_LSB_RATE = 1e-3                          # tests/test_precision.py contract
 # the half-second MPEG-2/2.5 tone streams: the JAX package's own float32
 # plane flips 1.4e-3 of their samples (tests/test_torch_facade.py)
 LSF_MAX_LSB_RATE = 2e-3
+HIDE_SHARE = 0.9                             # message size / capacity
 
 
 def synthetic_parsed(t: int, seed: int = 0) -> ParsedMP3:
@@ -134,6 +142,259 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _median3(fn):
+    """fn() once to warm up, then three timed runs: (median s, all s, the
+    three results)."""
+    fn()
+    walls, outs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        outs.append(fn())
+        walls.append(time.perf_counter() - t0)
+    return sorted(walls)[1], walls, outs
+
+
+def _say_stages(phase, card, timers):
+    for name in timers[0]:
+        ms = sorted(t[name] * 1e3 for t in timers)
+        _say(phase, f"[{card}] stage {name}: median {ms[len(ms) // 2]:.2f} "
+                    f"ms of {[round(m, 2) for m in ms]}")
+
+
+def _encode_bytes(wav: str, dev, bits="", kbps=320, host=False):
+    """An encode of a WAV file on ``dev``, or with the host C++ engine:
+    (bytes, the MP3Encoder)."""
+    enc = MP3Encoder(read_wav(wav, kbps), hide_str=bits, device=dev)
+    if host:
+        if not enc._encode_host(enc._num_frames(), StageTimer()):
+            raise RuntimeError("the host C++ encode engine is unavailable")
+    else:
+        enc.encode()
+    return bytes(enc.out_buffer), enc
+
+
+def _scan_line(enc) -> str:
+    """The hide's cursor scan record (``MP3Encoder.hide_stats``); raises
+    when the card searched no window."""
+    st = enc.hide_stats
+    if not st["blocks"] or not st["window_lanes"]:
+        raise AssertionError(f"the hide searched no window on the card: {st}")
+    return (f"{st['window_lanes']} of {st['lanes']} lanes searched under the "
+            f"8 windows in {st['blocks']} blocks; {st['sensitive']} "
+            f"sensitive, {st['redone']} redone on the host, {st['edge']} "
+            f"at the message's end; redo {enc.redo_stats}")
+
+
+def seeded_song(path: str, seconds: float, seed: int = 10):
+    """A seeded 44.1 kHz stereo song that repeats nothing: a drifting tone
+    and its overtone, noise under a slow envelope, and half a second of
+    silence every 20 s."""
+    sr = 44100
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    phase = 2 * np.pi * np.cumsum(220 * 2 ** (2 * np.sin(t / 6.0))) / sr
+    env = np.sin(2 * np.pi * t / 11.0) ** 2
+    sig = (0.35 * np.sin(phase) + 0.15 * np.sin(3.01 * phase)
+           + 0.2 * env * rng.standard_normal(t.size))
+    sig[(t % 20.0) < 0.5] = 0.0
+    right = 0.8 * np.roll(sig, 999) + 0.05 * rng.standard_normal(t.size)
+    pcm = np.clip(np.stack([sig, right], axis=1) * 30000, -32768, 32767)
+    write_wav(path, sr, pcm.astype(np.int16))
+
+
+def _expect_equal(name, got: bytes, want: bytes):
+    if got != want:
+        diff = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b) \
+            if len(got) == len(want) else min(len(got), len(want))
+        raise AssertionError(f"{name}: {len(got)} bytes differ from the "
+                             f"expected {len(want)} at byte {diff}")
+
+
+def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
+                  s32: Steganography) -> int:
+    """Phases 8-11: the encode and hide path on the song and the goldens.
+    Returns the synth_fir launches of the float32 hide (phase 11)."""
+    # ---- phase 8: the Q31 analysis on the card against the host C++ twin
+    w = read_wav(wav64, 320)
+    seconds = w.num_of_samples / w.samplerate
+    tg = 2 * -(-w.num_of_samples // 1152)          # granules per channel
+    streams = np.stack([w.buffer[0::2], w.buffer[1::2]])
+    t0 = time.perf_counter()
+    want = EP.run_analysis_native(streams, tg)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    got = EP.run_analysis_device(streams, tg, dev)
+    card_ms = _time_ms(lambda: EP.run_analysis_device(streams, tg, dev), 3)
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError("card analysis != native encode_analysis")
+    _say("8 analysis", f"[{card}] {tuple(got.shape)} int32: bitwise equal to "
+                       f"the native encode_analysis; card {card_ms:.2f} ms "
+                       f"(CUDA events, int16 upload included), host C++ "
+                       f"{host_ms:.1f} ms")
+    del got
+
+    # ---- phase 9: encode, goldens byte for byte, then the song
+    sg = np.load(os.path.join(GOLD, "stego_golden.npz"))
+    gold_wav = os.path.join(tmp, "golden.wav")
+    with open(gold_wav, "wb") as f:
+        f.write(sg["wav_bytes"].tobytes())
+    eg = np.load(os.path.join(GOLD, "encode_golden.npz"))
+    _expect_equal("encode_golden", _encode_bytes(gold_wav, dev)[0],
+                  eg["mp3_bytes"].tobytes())
+    mr = np.load(os.path.join(GOLD, "multirate_golden.npz"))
+    for tag in ("32000_64", "32000_192", "44100_128", "48000_96",
+                "48000_320"):
+        path = os.path.join(tmp, f"wav_{tag}.wav")
+        with open(path, "wb") as f:
+            f.write(mr[f"wav_{tag}"].tobytes())
+        _expect_equal(tag, _encode_bytes(path, dev,
+                                         kbps=int(tag.split("_")[1]))[0],
+                      mr[f"mp3_{tag}"].tobytes())
+    m2 = np.load(os.path.join(GOLD, "mpeg2_golden.npz"))
+    lsf = np.load(os.path.join(GOLD, "torch_lsf_golden.npz"))
+    for name, sr, br in (("mpeg2_24k_64", 24000, 64),
+                         ("mpeg2_22k05_80", 22050, 80),
+                         ("mpeg25_8k_32", 8000, 32)):
+        pcm = m2[name + "_pcm"]
+        for compliant, want_b in ((True, lsf[name]), (False, m2[name])):
+            enc = MP3Encoder(WavFile(
+                file_path="lsf.wav", bitrate=br, num_of_channels=2,
+                samplerate=sr, bits_per_sample=16,
+                num_of_samples=len(pcm) // 2, mpeg_mode=0, buffer=pcm),
+                lsf_compliant=compliant, device=dev)
+            enc.encode()
+            _expect_equal(f"{name} lsf_compliant={compliant}",
+                          bytes(enc.out_buffer), want_b.tobytes())
+    _say("9 encode", "goldens byte for byte on the card: encode_golden, 5 "
+                     "multirate, 3 torch_lsf (lsf_compliant) and 3 mpeg2 "
+                     "(reference layout)")
+
+    t0 = time.perf_counter()
+    host_b, _ = _encode_bytes(wav64, dev, host=True)
+    host_s = time.perf_counter() - t0
+    wall, walls, outs = _median3(lambda: _encode_bytes(wav64, dev))
+    card_b, enc = outs[-1]
+    _expect_equal("song encode: card vs host C++", card_b, host_b)
+    _say("9 encode", f"[{card}] {seconds:.2f} s song at 320 kbps: card "
+                     f"bytes ({len(card_b)}) equal the host C++ engine's; "
+                     f"wall median {wall * 1e3:.1f} ms of "
+                     f"{[round(x * 1e3, 1) for x in walls]} -> "
+                     f"{seconds / wall:.1f}x realtime; host C++ engine "
+                     f"{host_s * 1e3:.1f} ms")
+    _say_stages("9 encode", card, [o[1].timer.times for o in outs])
+    _say("9 encode", f"redo lanes by flag: {enc.redo_stats} of "
+                     f"{2 * tg} lanes")
+
+    # ---- phase 10: hide, goldens byte for byte, then the song
+    msgs = {"hidden_short": "ddd", "hidden_long": sg["msg_long"].tobytes()
+            .decode(), "hidden_toolong": "ddd" * 100}
+    for key, msg in msgs.items():
+        out = os.path.join(tmp, f"{key}.mp3")
+        too_long = Encoder(gold_wav, out, 320, hide_str=_frame_message(msg),
+                           device=dev).encode()
+        if too_long is not (key == "hidden_toolong"):
+            raise AssertionError(f"{key}: too_long {too_long}")
+        with open(out, "rb") as f:
+            _expect_equal(key, f.read(), sg[key].tobytes())
+    cap = np.load(os.path.join(GOLD, "capstego_golden.npz"))
+    _expect_equal("capstego", _encode_bytes(
+        gold_wav, dev, _frame_message(cap["msg_cap"].tobytes().decode()))[0],
+        cap["hidden_cap"].tobytes())
+    _say("10 hide", "goldens byte for byte on the card: hidden_short, "
+                    "hidden_long, hidden_toolong (too_long True), capstego")
+
+    s64 = Steganography(quiet=True, precision="float64", device=dev)
+    t0 = time.perf_counter()
+    capacity = s64.message_capacity(song)
+    cap_s = time.perf_counter() - t0
+    rng = np.random.default_rng(10)
+    alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz"
+                             "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 .,"))
+    msg = "".join(rng.choice(alphabet, size=int(capacity * HIDE_SHARE)))
+    bits = _frame_message(msg)
+    _say("10 hide", f"[{card}] capacity {capacity} chars ({cap_s * 1e3:.1f} "
+                    f"ms through the façade); message {len(msg)} chars, "
+                    f"{len(bits)} bits")
+    t0 = time.perf_counter()
+    host_b, _ = _encode_bytes(wav64, dev, bits, host=True)
+    host_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    wall, walls, outs = _median3(lambda: _encode_bytes(wav64, dev, bits))
+    card_b, enc = outs[-1]
+    peak = torch.cuda.max_memory_allocated()
+    _expect_equal("song hide: card vs host C++", card_b, host_b)
+    _say("10 hide", f"[{card}] card hide bytes equal the host C++ engine's; "
+                    f"{_scan_line(enc)}")
+    _say("10 hide", f"[{card}] hide encode wall median {wall * 1e3:.1f} ms "
+                    f"of {[round(x * 1e3, 1) for x in walls]} -> "
+                    f"{seconds / wall:.1f}x realtime; host C++ engine "
+                    f"{host_s * 1e3:.1f} ms; torch.cuda.max_memory_allocated "
+                    f"{peak / 2**20:.1f} MiB")
+    _say_stages("10 hide", card, [o[1].timer.times for o in outs])
+
+    # a song of the same length that repeats nothing, hidden at 90 % of its
+    # channel: card bytes against the host C++ engine's
+    wav_s = os.path.join(tmp, "seeded.wav")
+    seeded_song(wav_s, seconds)
+    usable = _encode_bytes(wav_s, dev)[1].hide_str_offset
+    bits_s = "".join(np.random.default_rng(11).choice(
+        ["0", "1"], size=int(usable * HIDE_SHARE)))
+    t0 = time.perf_counter()
+    seeded_host, _ = _encode_bytes(wav_s, dev, bits_s, host=True)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seeded_card, seeded_enc = _encode_bytes(wav_s, dev, bits_s)
+    card_s = time.perf_counter() - t0
+    _expect_equal("seeded song hide: card vs host C++", seeded_card,
+                  seeded_host)
+    _say("10 hide", f"[{card}] seeded {seconds:.2f} s song, {len(bits_s)} of "
+                    f"{usable} channel bits: card hide bytes equal the host "
+                    f"C++ engine's; card {card_s * 1e3:.1f} ms, host C++ "
+                    f"{host_s * 1e3:.1f} ms; {_scan_line(seeded_enc)}")
+    hidden = os.path.join(tmp, "song_hidden.mp3")
+    t0 = time.perf_counter()
+    if s64.hide_message(song, hidden, msg):
+        raise AssertionError("a 90 % message did not fit")
+    facade_s = time.perf_counter() - t0
+    with open(hidden, "rb") as f:
+        _expect_equal("façade hide vs encoder hide", f.read(), card_b)
+    txt = os.path.join(tmp, "song.txt")
+    s64.reveal_massage(hidden, txt)
+    with open(txt) as f:
+        if f.read() != msg:
+            raise AssertionError("reveal of the song's message failed")
+    _say("10 hide", f"[{card}] façade hide_message (float64 decode + card "
+                    f"encode) {facade_s * 1e3:.1f} ms -> "
+                    f"{seconds / facade_s:.1f}x realtime; reveal gives "
+                    f"the {len(msg)}-char message back")
+
+    # ---- phase 11: the float32 round trip (K1 on the decode inside hide)
+    hidden32 = os.path.join(tmp, "song_hidden32.mp3")
+    sf.launches = 0
+    too_long = s32.hide_message(song, hidden32, msg)
+    hide_launches = sf.launches
+    if too_long or hide_launches == 0:
+        raise AssertionError(f"float32 hide: too_long {too_long}, "
+                             f"synth_fir launches {hide_launches}")
+    s32.reveal_massage(hidden32, txt)
+    with open(txt) as f:
+        if f.read() != msg:
+            raise AssertionError("float32 hide: reveal failed")
+    cleared = os.path.join(tmp, "song_clear32.mp3")
+    s32.clear_file(song, cleared)
+    wav32 = os.path.join(tmp, "song32b.wav")
+    s32.decode_mp3_to_wav(song, wav32)
+    plain = os.path.join(tmp, "song_plain32.mp3")
+    s32.encode_wav_to_mp3(wav32, plain, 320)
+    with open(cleared, "rb") as a, open(plain, "rb") as b:
+        _expect_equal("clear_file vs encode of the same decode", a.read(),
+                      b.read())
+    _say("11 float32", f"hide_message (float32) -> reveal gives the message "
+                       f"back; synth_fir launches in the hide {hide_launches}"
+                       f"; clear_file bytes equal a plain encode of the same "
+                       f"decode")
+    return hide_launches
 
 
 def main() -> int:
@@ -323,6 +584,10 @@ def main() -> int:
                 raise AssertionError(f"reveal {key}: {got!r} != {msg!r}")
             _say("6 reveal", f"{key}: {got!r}")
 
+        # ---- phases 8-11: the encode and hide path on the same song
+        hide_launches = encode_phases(dev, card, tmp, song,
+                                      os.path.join(tmp, "song64.wav"), s32)
+
     # ---- phase 7: K1 time against its plain version at the slice's shape
     v = torch.from_numpy(np.random.default_rng(7).standard_normal(
         (2, 15 + S_SLICE, 64)).astype(np.float32)).to(dev)
@@ -343,7 +608,7 @@ def main() -> int:
         "name": "synth_fir", "route": "cuda",
         "source": "mp3stego_tpu_torch/csrc/synth_fir.cu",
         "replaces": "mp3stego_tpu/ops/pallas_kernels.py:42",
-        "launches": main_launches, "max_abs_err": k1_err,
+        "launches": main_launches + hide_launches, "max_abs_err": k1_err,
         "ms": k_ms, "plain_ms": p_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

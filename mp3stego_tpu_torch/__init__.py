@@ -7,9 +7,11 @@ package imports ``torch`` and never ``jax``, and imports nothing of
 ``tables/iso_tables.npz`` and the C++ host sources ``native/src/*.cpp``).
 
 Ported so far: the decode path (MP3 -> WAV, and reveal), with the synthesis
-FIR as a hand-written CUDA kernel for Hopper (``csrc/synth_fir.cu``).
+FIR as a hand-written CUDA kernel for Hopper (``csrc/synth_fir.cu``), and
+the CBR encode path (WAV -> MP3, hide, clear, capacity), with the Q31
+analysis and the exact float64 rate search in torch on the device.
 
-    from mp3stego_tpu_torch import Steganography, Decoder
+    from mp3stego_tpu_torch import Steganography, Decoder, Encoder
 """
 
 def _tune_host_allocator():
@@ -37,9 +39,10 @@ def _tune_host_allocator():
 _tune_host_allocator()
 
 from mp3stego_tpu_torch.models.decoder import Decoder              # noqa: E402
+from mp3stego_tpu_torch.models.encoder import Encoder              # noqa: E402
 from mp3stego_tpu_torch.steganography import (Steganography,        # noqa: E402
                                               str_to_binary_str)
 
 __version__ = "0.1.0"
 
-__all__ = ["Steganography", "Decoder", "str_to_binary_str"]
+__all__ = ["Steganography", "Decoder", "Encoder", "str_to_binary_str"]

@@ -1,0 +1,1507 @@
+"""WAV -> MP3 encoder: the torch analysis and search planes on the device,
+exact host rate-control carries, serialization on the host.
+
+Behavioural reference (bit-for-bit): the reference's mp3stego/encoder/
+  MP3_Encoder.py (frame loop 596-650, iteration loop 760-815, scfsi 817-892,
+  reservoir 894-931/1097-1145, outer/bin-search/inner 933-996/1064-1095,
+  bitstream formatting 1266-1547) and encoder.py:8-58 (driver + too_long).
+
+The engines, all byte-identical (``MP3Encoder.encode``):
+
+* search plane (default): the whole file's Q31 analysis + MDCT
+  (``ops/encode_plane``) and the rate-control search of every granule
+  (``ops/search_plane``, exact float64) run in torch on ``device``; the host
+  redoes the few flagged granules with the exact oracle, then runs the
+  reservoir chain, scfsi and serialization.
+* hide (default with ``hide_str``): the device searches every granule
+  without the stego transform and under each of the eight 3-bit windows of
+  message bits a granule can read; one host scan in cursor order picks each
+  granule's result from its true cursor (``_encode_hide``). Exact in one
+  pass, whatever the file's length.
+* host C++ (``_encode_host``): the native analysis and sequential whole-file
+  search; the card's oracle.
+* host oracle (``device_search=False``): the sequential per-frame search of
+  the reference, native or NumPy.
+
+The stego channel injects the Huffman pair transform at table-selection time
+exactly like the reference (tables.TRANSFORM_HUF == IDX_TO_TRANSFORM_HUF,
+MP3_Encoder.py:419-449).
+"""
+
+import functools as _ft
+import os
+import sys
+
+import numpy as np
+import torch
+
+from mp3stego_tpu_torch import tables as T
+from mp3stego_tpu_torch.bitstream.bits import BitWriter
+from mp3stego_tpu_torch.ops import encode_plane as EP
+from mp3stego_tpu_torch.ops import fixedpoint as fx
+from mp3stego_tpu_torch.ops import quant as Q
+from mp3stego_tpu_torch.ops import search_plane as SP
+from mp3stego_tpu_torch.utils.profiling import StageTimer, trace
+from mp3stego_tpu_torch.utils.wav import WavFile, read_wav
+
+_LN2 = 0.69314718  # the reference's constant (encoder/util.py:13), not log(2)
+
+_VBR_NOT_PORTED = ("VBR encode is not ported to the torch package yet "
+                   "(ROADMAP.md queue 1, item 7); use mp3stego_tpu")
+
+@_ft.lru_cache(maxsize=1)
+def _huff_code_u32():
+    return np.ascontiguousarray(T.HUFF_CODE.reshape(-1).astype(np.uint32))
+
+
+@_ft.lru_cache(maxsize=1)
+def _huff_len_u8():
+    return np.ascontiguousarray(T.HUFF_LEN.reshape(-1).astype(np.uint8))
+
+
+@_ft.lru_cache(maxsize=1)
+def _linbits_i32():
+    return np.ascontiguousarray(T.HUFF_LINBITS.astype(np.int32))
+
+
+@_ft.lru_cache(maxsize=1)
+def _slen1_i32():
+    return np.ascontiguousarray(T.SLEN1_TAB.astype(np.int32))
+
+
+@_ft.lru_cache(maxsize=1)
+def _slen2_i32():
+    return np.ascontiguousarray(T.SLEN2_TAB.astype(np.int32))
+
+
+@_ft.lru_cache(maxsize=None)
+def _band_row_i32(band_row):
+    return np.ascontiguousarray(T.BAND_ALL[band_row].astype(np.int32))
+
+
+def _init_rate_tables(lib) -> bool:
+    """Initialize a loaded rate-search library's table globals."""
+    st, sti, i2i = T.loop_tables()
+    i32 = lambda a: np.ascontiguousarray(a, np.int32)  # noqa: E731
+    rc = lib.rate_tables_init(
+        np.ascontiguousarray(st, np.float64), i32(sti), i32(i2i),
+        i32(T.HUFF_LEN), i32(T.HUFF_XLEN), i32(T.HUFF_LINBITS),
+        i32(T.HUFF_LINMAX), i32(Q._QLEN0), i32(Q._QLEN1),
+        i32(T.BAND_ALL), T.BAND_ALL.size,
+        i32(T.SUBDV_TABLE), i32(T.TRANSFORM_HUF))
+    return rc == 0
+
+
+@_ft.lru_cache(maxsize=1)
+def _native_rate_lib():
+    """The native rate-search twin (native/src/rate_search.cpp) with its
+    table globals initialized, or None when the toolchain is unavailable.
+    Bit-identical to the ops/quant NumPy primitives (integer math + IEEE
+    sqrt only)."""
+    from mp3stego_tpu_torch import native
+    lib = native.get_lib()
+    if lib is None or not hasattr(lib, "rate_bin_search"):
+        return None
+    return lib if _init_rate_tables(lib) else None
+
+
+_EMPTY_HIDE = np.zeros(1, np.uint8)
+# the search flags that send a lane to the host oracle, by name
+_FLAGS = (("ADDR", SP.FLAG_ADDR), ("OOB", SP.FLAG_OOB), ("ITER", SP.FLAG_ITER))
+# lanes per hide window pass: 8 searches each, 32,768 lanes on the card
+# at once, as many as one clear pass over a 4-minute stereo song
+_HIDE_BLOCK = 4096
+
+
+def _state_of(cod_info) -> np.ndarray:
+    """GrInfo -> the int64[12] state layout shared with rate_search.cpp."""
+    s = np.empty(12, np.int64)
+    s[0] = cod_info.quantizerStepSize
+    s[1] = cod_info.address1
+    s[2] = cod_info.address2
+    s[3] = cod_info.address3
+    s[4] = cod_info.big_values
+    s[5] = cod_info.count1
+    s[6] = cod_info.count1table_select
+    s[7] = cod_info.region0_count
+    s[8] = cod_info.region1_count
+    s[9:12] = cod_info.table_select
+    return s
+
+
+def _state_back(s: np.ndarray, cod_info):
+    cod_info.quantizerStepSize = int(s[0])
+    cod_info.address1 = int(s[1])
+    cod_info.address2 = int(s[2])
+    cod_info.address3 = int(s[3])
+    cod_info.big_values = int(s[4])
+    cod_info.count1 = int(s[5])
+    cod_info.count1table_select = int(s[6])
+    cod_info.region0_count = int(s[7])
+    cod_info.region1_count = int(s[8])
+    cod_info.table_select[:] = s[9:12]
+
+
+_EN_TOT_KRIT = 10
+_EN_DIF_KRIT = 100
+_EN_SCFSI_BAND_KRIT = 10
+_XM_SCFSI_BAND_KRIT = 10
+_SCFSI_BAND_LONG = (0, 6, 11, 16, 21)
+
+
+def _find_bitrate_index(bitrate: int, mpeg_version: int) -> int:
+    for i in range(16):
+        if bitrate == int(T.BIT_RATES[i][mpeg_version]):
+            return i
+    return -1
+
+
+def _find_samplerate_index(samplerate: int) -> int:
+    for i in range(9):
+        if samplerate == int(T.SAMPLE_RATES[i]):
+            return i
+    return -1
+
+
+def _find_mpeg_version(sr_idx: int) -> int:
+    if sr_idx < 3:
+        return 3  # MPEG-I
+    if sr_idx < 6:
+        return 2  # MPEG-II
+    return 0      # MPEG-2.5
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device the search plane runs on: ``device``, or CUDA when None.
+
+    A CUDA device without a card raises: the plane never moves to the CPU
+    on its own (the CPU is reached only by asking for it)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the encoder runs its search plane on a CUDA device and torch "
+            "sees none; pass device='cpu' to run it on the CPU")
+    return dev
+
+
+class MP3Encoder:
+    """Encode a WavFile into MP3 bytes, optionally embedding a hidden bit string.
+
+    :param wav_file: parsed WAV (utils.wav.read_wav).
+    :param hide_str: bit string ('0'/'1' chars) to embed via Huffman-pair
+        steganography; empty disables embedding.
+    :param device_search: False runs the pure host oracle (no device).
+    :param lsf_compliant: MPEG-2/2.5 only; see below.
+    :param vbr: not ported; True raises ``NotImplementedError``.
+    :param device: the planes' device; None means CUDA, and a missing card
+        raises (unless ``device_search`` is False).
+
+    After ``encode``, ``timer`` holds its per-stage wall times (on a CUDA
+    device each stage boundary waits for the card), ``redo_stats`` the
+    lanes the host redid by flag, and ``hide_stats`` the hide's cursor scan
+    record (``_encode_hide``).
+    """
+
+    def __init__(self, wav_file: WavFile, hide_str: str = "",
+                 device_search: bool = True, lsf_compliant: bool = None,
+                 vbr: bool = False, device=None):
+        if vbr:
+            raise NotImplementedError(_VBR_NOT_PORTED)
+        w = wav_file
+        self.wav = w
+        self.hide_str = hide_str
+        # MPEG-2/2.5 only: write the ISO 13818-3 LSF side info correctly
+        # (scale_fac_scale + count1table_select bits, byte-aligned frames)
+        # instead of the reference's layout, which omits those 2 bits per
+        # (gr, ch) and emits half-byte-misaligned frames no decoder can
+        # fully read (count1 table choice is lost). Default stays reference-
+        # byte-identical; opt in per call or via MP3STEGO_TPU_LSF_COMPLIANT=1.
+        if lsf_compliant is None:
+            lsf_compliant = os.environ.get(
+                "MP3STEGO_TPU_LSF_COMPLIANT", "0") == "1"
+        self.lsf_compliant = lsf_compliant
+        self.hide_str_offset = 0
+        # hide bits as 0/1 bytes for the native search twin and the plane
+        self._hide_u8 = (np.frombuffer(hide_str.encode(), np.uint8)
+                         - ord('0')).astype(np.uint8) if hide_str \
+            else _EMPTY_HIDE
+        self.device_search = device_search
+        self.device = resolve_device(device) if device_search else None
+        self.timer = None
+        self.redo_stats = None
+        self.hide_stats = None
+        self._nat_ser = None
+
+        self.mode = w.mpeg_mode
+        self.bitrate = w.bitrate
+        self.emphasis = w.emphasis
+        self.copyright = w.copyright
+        self.original = w.original
+        self.layer = 1          # header code for Layer III
+        self.crc = 0
+        self.ext = 0
+        self.mode_ext = 0
+        self.bits_per_slot = 8
+
+        self.samplerate_index = _find_samplerate_index(w.samplerate)
+        self.version = _find_mpeg_version(self.samplerate_index)
+        self.bitrate_index = _find_bitrate_index(self.bitrate, self.version)
+        self.granules_per_frame = 2 if self.version == 3 else 1
+        # Band-table row for every engine (tables.BAND_ALL): the compliant
+        # LSF writer uses the ISO/ecosystem rows (+9) so third-party decoders
+        # map its serialized region counts back to the same sample
+        # boundaries (the reference rows deviate at 16/24 kHz); the
+        # reference-layout writer keeps the reference rows byte-for-byte.
+        self.band_row = self.samplerate_index + (
+            9 if (self.version != 3 and self.lsf_compliant) else 0)
+
+        if self.version != 3 and self.lsf_compliant:
+            # Exact rational slot arithmetic for the spec-valid LSF writer.
+            # The reference's float formula loses the last ulp on exact-
+            # integer slot counts (576/16000*6000 = 215.999...97), flipping
+            # the padding chain so the header promises one more byte than
+            # the frame carries — every decoder loses sync at frame 1. The
+            # same float bug is behind the reference's documented 32k/192
+            # MPEG-1 self-desync quirk, which the default layout reproduces
+            # byte-for-byte.
+            num = self.granules_per_frame * 576 * 1000 * self.bitrate
+            den = self.bits_per_slot * w.samplerate
+            self.whole_slots_per_frame = num // den
+            self.frac_slots_per_frame = (num % den) / den
+        else:
+            avg_slots_per_frame = (
+                self.granules_per_frame * 576.0 / w.samplerate) * (
+                1000.0 * self.bitrate / self.bits_per_slot)
+            self.whole_slots_per_frame = int(avg_slots_per_frame)
+            self.frac_slots_per_frame = (avg_slots_per_frame
+                                         - self.whole_slots_per_frame)
+        self.slot_lag = -self.frac_slots_per_frame
+        self.padding = 0
+
+        nch = w.num_of_channels
+        if self.granules_per_frame == 2:
+            self.side_info_len = 8 * ((4 + 17) if nch == 1 else (4 + 32))
+        else:
+            self.side_info_len = 8 * ((4 + 9) if nch == 1 else (4 + 17))
+
+        self.resv_max = 0
+        self.resv_size = 0.0
+        self.scfsi = np.zeros((2, 4), dtype=np.int32)
+        self.private_bits = 0
+        self.resv_drain = 0
+        # persistent per-(gr,ch) coding state (stale-field semantics preserved)
+        self.gr_info = [[Q.GrInfo() for _ in range(2)] for _ in range(2)]
+        self.scale_factor_l = np.zeros((2, 2, 22), dtype=np.int32)
+        self.l3_enc = np.zeros((nch, 2, 576), dtype=np.int32)
+        # per-channel scfsi energy state (reference L3Loop en/en_tot/xrmaxl)
+        self.en_tot = np.zeros(2, dtype=np.int32)
+        self.en = np.zeros((2, 21), dtype=np.int32)
+        self.xrmaxl = np.zeros(2, dtype=np.int32)
+
+        self.bw = BitWriter(4096)
+        self.out_buffer = bytearray()
+
+    # ------------------------------------------------------------------ encode
+
+    def print_info(self):
+        """Print info about the file about to be created (MP3_Encoder.py:581-594)."""
+        version_names = ["2.5", "reserved", "II", "I"]
+        mode_names = ["stereo", "joint-stereo", "dual-channel", "mono"]
+        demp_names = ["none", "50/15us", "", "CITT"]
+        print(f"MPEG-{version_names[self.version]} layer III, {mode_names[self.mode]}"
+              f" Psychoacoustic Model: Shine")
+        print(f"Bitrate: {self.bitrate} kbps ", end='')
+        print(f"De-emphasis: {demp_names[self.emphasis]}\t"
+              f"{'Original' if self.original else ''}\t"
+              f"{'(C)' if self.copyright else ''}")
+        print(f"Encoding \"{self.wav.file_path}\" to "
+              f"\"{self.wav.file_path[:-3]}mp3\"\n")
+
+    def _num_frames(self) -> int:
+        samples_per_pass = self.granules_per_frame * 576 * self.wav.num_of_channels
+        total = self.wav.num_of_samples * self.wav.num_of_channels
+        return total // samples_per_pass + (1 if total % samples_per_pass else 0)
+
+    def _channel_streams_i16(self, num_frames: int) -> np.ndarray:
+        """(nch, F*1152) raw int16 streams; the analysis plane upshifts them
+        by 16 on the device. The reference's two-cursor interleaved stepping
+        (WAV_Reader.py:160-164, buffer_pos starts {0:0,1:1}, +2 per read)
+        reduces to stream[c, t] = buffer[c + 2t].
+
+        Mono reads at stride 1: the reference's feeder steps its cursor by 2
+        regardless of channel count (WAV_Reader.py:160-164), which on mono
+        input walks past the buffer and crashes partway through the file —
+        there is no reference behavior to be byte-identical to, so mono
+        encodes the actual samples instead of every other one (deliberate
+        superset of the reference)."""
+        nch = self.wav.num_of_channels
+        need = num_frames * self.granules_per_frame * 576
+        out = np.zeros((nch, need), dtype=np.int16)
+        for c in range(nch):
+            s = (self.wav.buffer if nch == 1
+                 else self.wav.buffer[c::2])[:need]
+            out[c, :len(s)] = s
+        return out
+
+    def encode(self, quiet: bool = True):
+        """Encode the full file (MP3_Encoder.py:596-618) with the engine the
+        constructor chose (see the module docstring). ``quiet=False`` prints
+        a per-stage timing report."""
+        dev = self.device
+        sync = (lambda: torch.cuda.synchronize(dev)) \
+            if dev is not None and dev.type == "cuda" else None
+        timer = self.timer = StageTimer(sync=sync)
+        num_frames = self._num_frames()
+        if num_frames == 0:
+            return
+        with trace():
+            if not self.device_search:
+                self._encode_sequential(num_frames, timer)
+            elif self.hide_str:
+                self._encode_hide(num_frames, timer)
+            else:
+                self._encode_plane(num_frames, timer)
+        if not quiet:
+            timer.print_report()
+
+    def _encode_sequential(self, num_frames: int, timer):
+        """The host oracle: native (or torch-on-CPU) analysis, then the
+        reference's sequential per-frame search and serialization."""
+        with timer.stage("analysis+mdct (host)"):
+            streams = self._channel_streams_i16(num_frames)
+            tg = num_frames * self.granules_per_frame
+            mdct_all = EP.run_analysis_native(streams, tg)
+            if mdct_all is None:
+                mdct_all = EP.run_analysis_device(streams, tg, "cpu").numpy()
+        gpf = self.granules_per_frame
+        with timer.stage("rate control + serialize (host)"):
+            for f in range(num_frames):
+                self._encode_frame(mdct_all[:, f * gpf:(f + 1) * gpf])
+                self.out_buffer += self.bw.take_frame()
+            # final flush (MP3_Encoder.py:616-618)
+            self.out_buffer += self.bw.take_frame()
+
+    # ---------------------------------------------------------- search plane
+
+    def _analysis_device(self, num_frames: int):
+        """The resident (nch * Tg, 576) spectra; lane g = ch*tg + f*gpf + gr."""
+        streams = self._channel_streams_i16(num_frames)
+        tg = num_frames * self.granules_per_frame
+        return EP.run_analysis_device(streams, tg, self.device) \
+            .reshape(-1, 576)
+
+    def _lane_budgets(self, mean_bits_f) -> np.ndarray:
+        """(nch * Tg,) int32 per-granule bit budgets in lane order."""
+        nch = self.wav.num_of_channels
+        maxb_f = np.minimum(np.asarray(mean_bits_f, np.int64) // nch,
+                            Q.MAX_BITS_ALLOWANCE)
+        return np.tile(np.repeat(maxb_f, self.granules_per_frame),
+                       nch).astype(np.int32)
+
+    def _scfsi_host(self, xr):
+        """The scfsi energy sums of resident spectra, on the host (MPEG-1
+        only: the LSF side info has no scfsi)."""
+        if self.version != 3:
+            return None, None
+        tot, en = SP.scfsi_sums(xr, self.band_row)
+        return tot.cpu().numpy(), en.cpu().numpy()
+
+    def _encode_plane(self, num_frames: int, timer):
+        """Whole-file encode on the device planes: analysis + MDCT and the
+        rate-control search of every granule run in torch on ``device``;
+        the host redoes flagged granules with the exact oracle, applies the
+        reservoir chain and serializes."""
+        tg = num_frames * self.granules_per_frame
+        with timer.stage("analysis+mdct (device)"):
+            xr = self._analysis_device(num_frames)
+        paddings, mean_bits_f = self._plane_framing(num_frames)
+        max_bits_lanes = self._lane_budgets(mean_bits_f)
+        with timer.stage("rate search (device)"):
+            res_d = SP.search(xr, torch.from_numpy(max_bits_lanes)
+                              .to(self.device), self.band_row)
+        with timer.stage("d2h"):
+            res = SP.to_host(res_d)
+            del res_d
+        with timer.stage("scfsi sums (device)"):
+            en_tot_raw, en_raw = self._scfsi_host(xr)
+        with timer.stage("redo (host)"):
+            self._plane_redo(res, xr, max_bits_lanes, tg)
+        with timer.stage("assemble+serialize (host)"):
+            self._plane_finish(res, en_tot_raw, en_raw, num_frames, paddings,
+                               mean_bits_f, tg)
+
+    def _encode_host(self, num_frames: int, timer) -> bool:
+        """Fully-host encode engine: C++ analysis plane + C++ sequential
+        whole-file rate search (reference frame order, live stego cursor,
+        per-slot stale-address chains) + batched C serializer; byte-identical
+        to the device planes, which it is the oracle of. Returns False when
+        the native library is unavailable."""
+        lib = _native_rate_lib()
+        if lib is None or not hasattr(lib, "rate_search_file"):
+            return False
+        gpf = self.granules_per_frame
+        nch = self.wav.num_of_channels
+        tg = num_frames * gpf
+
+        with timer.stage("analysis+mdct (host C++)"):
+            streams = self._channel_streams_i16(num_frames)
+            xr = EP.run_analysis_native(streams, tg)
+            if xr is None:
+                return False
+            xr = np.ascontiguousarray(xr.reshape(-1, 576))
+
+        paddings, mean_bits_f = self._plane_framing(num_frames)
+        max_bits_lanes = self._lane_budgets(mean_bits_f)
+
+        with timer.stage("rate search (host C++)"):
+            lanes = nch * tg
+            raw = np.zeros((lanes, 12), np.int64)
+            ix = np.zeros((lanes, 576), np.int32)
+            en_tot = np.zeros(lanes, np.int32)
+            en21 = np.zeros((lanes, 21), np.int32)
+            lib.rate_search_file(
+                xr, max_bits_lanes, nch, tg, gpf,
+                self.band_row * 23,
+                self._hide_u8, len(self.hide_str), self.hide_str_offset,
+                raw, ix, en_tot, en21,
+                np.zeros(2 * 2 * 12, np.int64),
+                np.zeros(2 * 2 * 576, np.int32), 0)
+            res = {k: np.ascontiguousarray(raw[:, c]) for c, k in enumerate(
+                ("step", "bits", "bv", "c1", "cts", "r0c", "r1c",
+                 "ch0", "ch1", "ch2", "xrmax0"))}
+            res["ix"] = ix
+        with timer.stage("assemble+serialize (host)"):
+            self._plane_finish(res, en_tot if self.version == 3 else None,
+                               en21 if self.version == 3 else None,
+                               num_frames, paddings, mean_bits_f, tg)
+        return True
+
+    def _plane_framing(self, num_frames: int):
+        """Per-frame padding + mean_bits — the data-independent preamble of
+        _encode_frame (MP3_Encoder.py:630-641), run for the whole file."""
+        paddings = []
+        mean_bits_f = []
+        for _ in range(num_frames):
+            if self.frac_slots_per_frame:
+                self.padding = 1 if self.slot_lag <= (
+                    self.frac_slots_per_frame - 1.0) else 0
+                self.slot_lag += self.padding - self.frac_slots_per_frame
+            paddings.append(self.padding)
+            bits_per_frame = 8 * (self.whole_slots_per_frame + self.padding)
+            mean_bits_f.append(int((bits_per_frame - self.side_info_len)
+                                   / self.granules_per_frame))
+        return paddings, mean_bits_f
+
+    def _slot_prev(self, searched: np.ndarray, tg: int) -> np.ndarray:
+        """(nch * Tg,) the lane of the last searched granule strictly before
+        each lane in its (gr, ch) slot, or -1: where a redone lane's stale
+        addresses come from (MP3_Encoder.py:1010-1012)."""
+        gpf = self.granules_per_frame
+        shape = (self.wav.num_of_channels, tg // gpf, gpf)
+        last = np.where(searched.reshape(shape),
+                        np.arange(searched.size).reshape(shape), -1)
+        np.maximum.accumulate(last, axis=1, out=last)
+        prev = np.full(shape, -1, np.int64)
+        prev[:, 1:] = last[:, :-1]
+        return prev.reshape(-1)
+
+    def _redo_lane(self, res: dict, g: int, row, max_bits: int, prev,
+                   hide, flag: int) -> dict:
+        """Redo lane ``g`` (spectrum ``row``) with the sequential oracle from
+        the addresses of the previous searched granule of its slot
+        (``prev[g]``, zeros when there is none) and patch its rows in
+        ``res``. A lane flagged only ``FLAG_ADDR`` runs on the native search
+        twin (``_oracle_native``); any other, whose steps may leave steptab,
+        on the NumPy oracle, which raises there as the reference does.
+        Returns the oracle's result."""
+        from mp3stego_tpu_torch.ops import quant_np
+        p = prev[g]
+        addr = (0, 0, 0) if p < 0 else tuple(
+            int(res[k][p]) for k in ("a1", "a2", "a3"))
+        lib = _native_rate_lib()
+        if lib is not None and flag == SP.FLAG_ADDR:
+            r = self._oracle_native(lib, row, max_bits, addr, hide)
+        else:
+            r = quant_np.oracle_search(row, max_bits, addr, self.band_row,
+                                       hide=hide)
+        for k in ("step", "bits", "bv", "c1", "a1", "a2", "a3", "r0c", "r1c",
+                  "cts"):
+            res[k][g] = r[k]
+        res["ch0"][g], res["ch1"][g], res["ch2"][g] = r["ch"]
+        return r
+
+    def _plane_redo(self, res: dict, xr, max_bits_lanes, tg: int,
+                    hide_ctx=None) -> int:
+        """Redo the flagged lanes (``SP.FLAG_*``) with the sequential oracle,
+        carrying the true cross-granule address state per (gr, ch) slot
+        (``_redo_lane``), in lane order, so a redone lane's successors in its
+        slot read its addresses. ``hide_ctx`` = (bits_u8, per-lane cursors)
+        threads the stego transform through the oracle. Patches ``res`` in
+        place; returns the number of lanes redone."""
+        flags = res["flags"]
+        lanes = np.flatnonzero(flags != 0)
+        self.redo_stats = {
+            "lanes": int(len(lanes)),
+            **{name: int(((flags & bit) != 0).sum()) for name, bit in _FLAGS}}
+        if len(lanes) == 0:
+            return 0
+        rows = xr[torch.from_numpy(lanes).to(xr.device)].cpu().numpy()
+        prev = self._slot_prev(res["xrmax0"] == 0, tg)
+        for i, g in enumerate(lanes):
+            hide = None if hide_ctx is None else \
+                (hide_ctx[0], int(hide_ctx[1][g]))
+            r = self._redo_lane(res, g, rows[i], int(max_bits_lanes[g]), prev,
+                                hide, int(flags[g]))
+            res["ix"][g] = r["ix"]
+        return len(lanes)
+
+    def _oracle_native(self, lib, row, max_bits: int, addr, hide) -> dict:
+        """``quant_np.oracle_search`` on the native twin (rate_bin_search +
+        rate_inner_loop of rate_search.cpp, bit-identical to ops/quant):
+        the same result dict, ~40x faster. ``row`` must keep every step
+        inside steptab (the native quantizer does not check)."""
+        state = np.zeros(12, np.int64)
+        state[1:4] = addr
+        ix = np.zeros(576, np.int32)
+        row = np.ascontiguousarray(row, np.int32)
+        xrabs = np.abs(row)                     # int32 wrap, like the ref
+        xrmax = int(max(0, xrabs.max()))
+        bits_u8, cur = (_EMPTY_HIDE, 0) if hide is None else hide
+        n_bits = len(bits_u8) if hide is not None else 0
+        if n_bits == 0:
+            bits_u8 = _EMPTY_HIDE
+        args = (self.band_row * 23, np.ascontiguousarray(bits_u8, np.uint8),
+                n_bits, int(cur))
+        state[0] = lib.rate_bin_search(row, xrabs, xrmax, max_bits, *args,
+                                       state, ix)
+        bits = lib.rate_inner_loop(row, xrabs, xrmax, max_bits, *args,
+                                   state, ix)
+        return dict(step=int(state[0]), bits=int(bits), bv=int(state[4]),
+                    c1=int(state[5]), a1=int(state[1]), a2=int(state[2]),
+                    a3=int(state[3]), r0c=int(state[7]), r1c=int(state[8]),
+                    ch=tuple(int(t) for t in state[9:12]),
+                    cts=int(state[6]),
+                    ix=np.where((row < 0) & (ix > 0), -ix, ix))
+
+    def _plane_scfsi(self, tot_raw, en_raw, searched, nf: int, tg: int):
+        """Vectorized _calc_scfsi (MP3_Encoder.py:817-892) from the device's
+        int32 energy sums: the int-truncated log2 energies and the four
+        band criteria, per (frame, ch). Returns (nf, ch, 4) int32."""
+        gpf = self.granules_per_frame
+        nch = self.wav.num_of_channels
+        with np.errstate(all="ignore"):
+            vals = np.log(tot_raw.astype(np.float64) * 4.768371584e-7) / _LN2
+            en_tot = np.where(tot_raw != 0, vals, 0.0).astype(np.int32)
+            vv = np.log(en_raw.astype(np.float64) * 4.768371584e-7) / _LN2
+            en = np.where(en_raw != 0, vv, 0.0).astype(np.int32)
+        et = en_tot.reshape(nch, nf, gpf)
+        eb = en.reshape(nch, nf, gpf, 21)
+        xm = searched.reshape(nch, nf, gpf)
+        cond = (2 + xm[..., 0].astype(np.int64) + xm[..., 1].astype(np.int64)
+                + (np.abs(et[..., 0].astype(np.int64) - et[..., 1])
+                   < _EN_TOT_KRIT)
+                + (np.abs(eb[..., 0, :].astype(np.int64)
+                          - eb[..., 1, :]).sum(-1) < _EN_DIF_KRIT))
+        scfsi = np.zeros((nch, nf, 4), np.int32)
+        for b in range(4):
+            s, e = _SCFSI_BAND_LONG[b], _SCFSI_BAND_LONG[b + 1]
+            d = np.abs(eb[..., 0, s:e].astype(np.int64)
+                       - eb[..., 1, s:e]).sum(-1)
+            scfsi[..., b] = d < _EN_SCFSI_BAND_KRIT
+        scfsi = np.where((cond == 6)[..., None], scfsi, 0)
+        return scfsi.transpose(1, 0, 2)
+
+    def _plane_finish(self, res: dict, en_tot_raw, en_raw, nf: int, paddings,
+                      mean_bits_f, tg: int):
+        """Reservoir chain, stuffing, scfsi, global-gain slot chain and frame
+        serialization from the plane's per-granule results."""
+        gpf = self.granules_per_frame
+        nch = self.wav.num_of_channels
+        searched = res["xrmax0"] == 0
+
+        # the stego cursor advances even when not hiding (MP3_Encoder.py:808)
+        self.hide_str_offset += int(
+            (res["ch0"][searched] > 0).sum() + (res["ch1"][searched] > 0).sum()
+            + (res["ch2"][searched] > 0).sum())
+
+        scfsi_f = None
+        if self.version == 3:
+            scfsi_f = self._plane_scfsi(en_tot_raw, en_raw, searched, nf, tg)
+
+        # global_gain: quantizerStepSize persists per (gr, ch) slot across
+        # frames, so skipped (xrmax==0) granules reuse the last searched step
+        steps = res["step"].reshape(nch, nf, gpf)
+        smask = searched.reshape(nch, nf, gpf)
+        last = np.where(smask, np.arange(nf)[None, :, None], -1)
+        np.maximum.accumulate(last, axis=1, out=last)
+        carried = np.where(
+            last >= 0,
+            np.take_along_axis(steps, np.maximum(last, 0), axis=1), 0)
+        gg = carried + 210
+
+        # reservoir chain + stuffing (exact float order, MP3_Encoder.py:812,
+        # 1097-1145); stuffing mutates the serialized part2_3_length
+        p23 = res["bits"].astype(np.float64)
+        for f in range(nf):
+            mb = mean_bits_f[f]
+            self.mean_bits = mb
+            for ch in range(nch):
+                for gr in range(gpf):
+                    g = ch * tg + f * gpf + gr
+                    self.resv_size += (mb / nch) - float(res["bits"][g])
+            if nch == 2 and (mb & 1):
+                self.resv_size += 1
+            over = max(0.0, self.resv_size - self.resv_max)
+            self.resv_size -= over
+            stuffing = over
+            over = self.resv_size % 8
+            if over:
+                stuffing += over
+                self.resv_size -= over
+            if stuffing:
+                g00 = f * gpf
+                if p23[g00] + stuffing < Q.MAX_BITS_ALLOWANCE:
+                    p23[g00] += stuffing
+                else:
+                    for gr in range(gpf):
+                        for ch in range(nch):
+                            g = ch * tg + f * gpf + gr
+                            if not stuffing:
+                                break
+                            extra = Q.MAX_BITS_ALLOWANCE - p23[g]
+                            bits_this = min(extra, stuffing)
+                            p23[g] += bits_this
+                            stuffing -= bits_this
+                    self.resv_drain = stuffing  # never serialized (ref quirk)
+
+        # serialize: one batched native call for the whole file when the C
+        # library is available, else the per-frame python writers
+        ix_l = res["ix"].reshape(nch, nf, gpf, 576)
+        from mp3stego_tpu_torch import native
+        lib = native.get_lib()
+        if (lib is not None and hasattr(lib, "mp3_format_frames")
+                and not (self.version != 3 and self.lsf_compliant)):
+            # (the C serializer writes the reference's LSF layout; compliant
+            # LSF mode uses the python writers)
+            self._plane_serialize_native(lib, res, p23, gg, scfsi_f, paddings,
+                                         ix_l, nf, tg)
+            return
+
+        zeros_mdct = np.zeros((nch, gpf, 576), np.int32)
+        for f in range(nf):
+            self.padding = int(paddings[f])
+            if self.version == 3:
+                for ch in range(nch):
+                    self.scfsi[ch, :4] = scfsi_f[f, ch]
+            for gr in range(gpf):
+                for ch in range(nch):
+                    g = ch * tg + f * gpf + gr
+                    gi = self.gr_info[gr][ch]
+                    gi.part2_3_length = p23[g]
+                    gi.big_values = int(res["bv"][g])
+                    gi.count1 = int(res["c1"][g])
+                    gi.global_gain = int(gg[ch, f, gr])
+                    gi.scale_fac_compress = 0
+                    gi.region0_count = int(res["r0c"][g])
+                    gi.region1_count = int(res["r1c"][g])
+                    gi.preflag = 0
+                    gi.scale_fac_scale = 0
+                    gi.count1table_select = int(res["cts"][g])
+                    gi.part2_length = 0
+                    gi.table_select[0] = int(res["ch0"][g])
+                    gi.table_select[1] = int(res["ch1"][g])
+                    gi.table_select[2] = int(res["ch2"][g])
+            # l3_enc always carries 2 granule slots: the serializer indexes
+            # (ch*2+gr)*576 regardless of granules_per_frame (C twin layout)
+            l3 = np.zeros((nch, 2, 576), np.int32)
+            l3[:, :gpf] = ix_l[:, f]
+            self.l3_enc = l3
+            self._format_bitstream(zeros_mdct)
+            self.out_buffer += self.bw.take_frame()
+        self.out_buffer += self.bw.take_frame()
+
+    def _plane_serialize_native(self, lib, res, p23, gg, scfsi_f, paddings,
+                                ix_l, nf, tg):
+        """Whole-file serialization in ONE C call (mp3_format_frames): all
+        per-frame side info is assembled as vectorized arrays, so no Python
+        per-frame loop remains on the encode path."""
+        gpf = self.granules_per_frame
+        nch = self.wav.num_of_channels
+
+        def lanes_to_fgc(a):
+            # (nch*tg,) lane layout -> (nf, gpf, nch)
+            return np.moveaxis(a.reshape(nch, nf, gpf), 0, 2)
+
+        gi = np.zeros((nf, 2, 2, 11), np.int64)
+        gi[:, :gpf, :nch, 0] = lanes_to_fgc(p23).astype(np.int64)
+        gi[:, :gpf, :nch, 1] = lanes_to_fgc(res["bv"])
+        gi[:, :gpf, :nch, 2] = np.moveaxis(gg, 0, 2)
+        gi[:, :gpf, :nch, 4] = lanes_to_fgc(res["r0c"])
+        gi[:, :gpf, :nch, 5] = lanes_to_fgc(res["r1c"])
+        gi[:, :gpf, :nch, 8] = lanes_to_fgc(res["cts"])
+        gi[:, :gpf, :nch, 9] = lanes_to_fgc(res["c1"])
+
+        ts = np.zeros((nf, 2, 2, 3), np.int32)
+        for r, key in enumerate(("ch0", "ch1", "ch2")):
+            ts[:, :gpf, :nch, r] = lanes_to_fgc(res[key])
+        sfl = np.zeros((nf, 2, 2, 22), np.int32)
+        scfsi = np.zeros((nf, 2, 4), np.int32)
+        if self.version == 3 and scfsi_f is not None:
+            scfsi[:, :nch] = scfsi_f[:, :nch]
+        l3 = np.zeros((nf, 2, 2, 576), np.int32)
+        l3[:, :nch, :gpf] = np.moveaxis(ix_l, 0, 1)
+
+        out = np.zeros(nf * 2016 + 4096, np.uint8)
+        # residual bits at EOF are dropped, as the reference's __flush does
+        # (MP3_Encoder.py:1549-1552)
+        cache = np.zeros(1, dtype=np.uint32)
+        cache_bits = np.full(1, 32, dtype=np.int32)
+        written = lib.mp3_format_frames(
+            cache, cache_bits, out, len(out), nf,
+            self.version, self.layer, self.crc,
+            np.full(nf, self.bitrate_index, np.int32),
+            self.samplerate_index % 3,
+            np.ascontiguousarray(np.asarray(paddings, np.int32)),
+            self.ext, self.mode, self.mode_ext, self.copyright,
+            self.original, self.emphasis, self.private_bits, nch, gpf,
+            np.ascontiguousarray(scfsi.reshape(-1)),
+            np.ascontiguousarray(gi.reshape(-1)),
+            np.ascontiguousarray(ts.reshape(-1)),
+            np.ascontiguousarray(sfl.reshape(-1)),
+            _slen1_i32(), _slen2_i32(),
+            np.ascontiguousarray(l3.reshape(-1)),
+            _huff_code_u32(), _huff_len_u8(), _linbits_i32(),
+            _band_row_i32(self.band_row))
+        if written < 0:
+            raise RuntimeError("native serializer buffer overflow")
+        self.out_buffer += out[:written].tobytes()
+
+    def _encode_hide(self, num_frames: int, timer):
+        """Hide on the device planes, exact in one pass over the file.
+
+        The stego cursor couples the granules: a granule embeds from the
+        count of nonzero table selections in every granule before it, in the
+        reference's order f ▸ ch ▸ gr (MP3_Encoder.py:808-809). A granule's
+        search reads at most 3 message bits, at its cursor and the two after
+        it, so the device searches every granule with the transform off
+        (its result past the message's end) and, block by block in cursor
+        order, under each of the 8 windows of 3 bits
+        (``SP.search_windows``). A host scan in cursor order then gives each
+        granule the window at its true cursor. Where all 8 windows agree on
+        the granule's count and none is flagged, the scan needs no cursor
+        to move past it; elsewhere it reads the window at the cursor, and
+        redoes on the host (``_redo_lane``) a granule whose window is
+        flagged and each granule whose 3 bits run past the message's end.
+        ``hide_stats`` records the lanes, window lanes, blocks, sensitive
+        lanes and host redos."""
+        st = timer.stage
+        gpf = self.granules_per_frame
+        nch = self.wav.num_of_channels
+        tg = num_frames * gpf
+        n = nch * tg
+        bits = self._hide_u8
+        n_bits = len(self.hide_str)
+
+        with st("analysis+mdct (device)"):
+            xr = self._analysis_device(num_frames)
+        paddings, mean_bits_f = self._plane_framing(num_frames)
+        max_bits_lanes = self._lane_budgets(mean_bits_f)
+        mb = torch.from_numpy(max_bits_lanes).to(self.device)
+        with st("hide clear pass (device)"):
+            clear = SP.search(xr, mb, self.band_row)
+        with st("d2h"):
+            rows = SP.rows_to_host(clear)
+        # the final rows, one (15, n) matrix the dict's rows are views of
+        res_mat = np.stack([rows[k] for k in SP.ROWS])
+        res = dict(zip(SP.ROWS, res_mat))
+        ix_d = clear["ix"]                # the final ix; windows gather in
+        del clear
+
+        # lanes in the reference's cursor order (lane g = ch*tg + f*gpf + gr)
+        order = (np.arange(num_frames)[:, None, None] * gpf
+                 + np.arange(nch)[None, :, None] * tg
+                 + np.arange(gpf)[None, None, :]).reshape(-1)
+        clear_sum = np.concatenate(
+            [[0], np.cumsum(SP.region_counts(res)[order])])
+        prev = self._slot_prev(res["xrmax0"] == 0, tg)
+        redone = {}                       # lane -> host ix
+        stats = dict(lanes=n, window_lanes=0, blocks=0, sensitive=0,
+                     redone=0, edge=0)
+        flagged = {name: 0 for name, _ in _FLAGS}
+
+        def redo(g, row, c, flag):
+            r = self._redo_lane(res, g, row, int(max_bits_lanes[g]), prev,
+                                (bits, c), flag)
+            res["flags"][g] = 0
+            redone[g] = r["ix"]
+            for name, bit in _FLAGS:
+                flagged[name] += bool(flag & bit)
+            return len([t for t in r["ch"] if t > 0])
+
+        c = self.hide_str_offset
+        q = 0                             # position in cursor order
+        while q < n and c < n_bits:
+            if c + 3 > n_bits:            # the window runs past the end
+                g = int(order[q])
+                if res["xrmax0"][g] == 0:
+                    row = xr[g].cpu().numpy()
+                    with st("redo (host)"):
+                        c += redo(g, row, c, 0)
+                    stats["edge"] += 1
+                q += 1
+                continue
+            # a block up to the clear counts' guess of the message's end
+            end = int(np.searchsorted(clear_sum, clear_sum[q] + n_bits - c))
+            j = min(n, max(end + 64, q + 1), q + _HIDE_BLOCK)
+            lanes = order[q:j]
+            lanes_d = torch.from_numpy(lanes).to(self.device)
+            with st("hide window pass (device)"):
+                win = SP.search_windows(xr[lanes_d], mb[lanes_d],
+                                        self.band_row)
+            with st("d2h"):
+                w_rows = SP.rows_to_host(win)
+            with st("hide scan (host)"):
+                c, k, wsel = self._scan_block(
+                    w_rows, lanes, c, res_mat, redo, xr, stats)
+            with st("hide window pass (device)"):
+                i = np.flatnonzero(wsel >= 0)
+                ix_d[torch.from_numpy(lanes[i]).to(self.device)] = \
+                    win["ix"][torch.from_numpy(wsel[i] * len(lanes) + i)
+                              .to(self.device)]
+            del win
+            stats["window_lanes"] += len(lanes)
+            stats["blocks"] += 1
+            q += k
+        with st("d2h"):
+            res["ix"] = ix_d.cpu().numpy()
+            del ix_d
+        for g, ix in redone.items():
+            res["ix"][g] = ix
+        # past the message's end every lane keeps its transform-free search
+        with st("redo (host)"):
+            self._plane_redo(res, xr, max_bits_lanes, tg)
+        self.redo_stats["lanes"] += stats["redone"] + stats["edge"]
+        for name, v in flagged.items():
+            self.redo_stats[name] += v
+        self.hide_stats = stats
+        with st("scfsi sums (device)"):
+            en_tot_raw, en_raw = self._scfsi_host(xr)
+        with st("assemble+serialize (host)"):
+            self._plane_finish(res, en_tot_raw, en_raw, num_frames, paddings,
+                               mean_bits_f, tg)
+
+    def _scan_block(self, w_rows, lanes, c: int, res_mat, redo, xr, stats):
+        """Walk one block's lanes (``lanes``, in cursor order, from cursor
+        ``c``) through their window results ``w_rows`` (8 * m rows,
+        window-major): write each lane's ``SP.ROWS`` at its true window into
+        ``res_mat`` (15, n), redoing flagged windows on the host (``redo``,
+        which writes its own rows). Stops at the
+        block's end or before the first lane whose 3 bits run past the
+        message's end. Returns (cursor, lanes walked, (m,) window chosen per
+        lane, -1 where redone)."""
+        m = len(lanes)
+        bits = self._hide_u8
+        n_bits = len(self.hide_str)
+        w_mat = np.stack([w_rows[k] for k in SP.ROWS]).reshape(-1, 8, m)
+        w_rows = dict(zip(SP.ROWS, w_mat))
+        cnt = SP.region_counts(w_rows)                          # (8, m)
+        uniform = (cnt == cnt[0]).all(0) & (w_rows["flags"] == 0).all(0)
+        cnt_blk = np.where(uniform, cnt[0], 0)
+        u_sum = np.concatenate([[0], np.cumsum(cnt_blk)])
+        sens = np.flatnonzero(~uniform)
+        stats["sensitive"] += len(sens)
+        wsel = np.full(m, -1, np.int64)
+        redone = np.zeros(m, bool)
+        c0, done = c, 0
+        # the spectra of every lane a window flags, in one copy
+        fl = np.flatnonzero((w_rows["flags"] != 0).any(0))
+        spectra = dict(zip(fl, xr[torch.from_numpy(lanes[fl]).to(xr.device)]
+                           .cpu().numpy())) if len(fl) else {}
+
+        def commit(b):
+            """Rows of the window at the true cursor for lanes [done, b)."""
+            nonlocal done
+            cur = c0 + np.concatenate([[0], np.cumsum(cnt_blk[:b])])
+            i = np.arange(done, b)[~redone[done:b]]
+            w = SP.window_of(bits, cur[i])
+            res_mat[:, lanes[i]] = w_mat[:, w, i]
+            wsel[i] = w
+            done = b
+
+        k = 0
+        for s in list(sens) + [m]:
+            # lanes k..s-1 move the cursor by their (window-free) counts;
+            # stop at the first whose 3 bits run past the end
+            lim = n_bits - 3 - c + u_sum[k]
+            r = k + int(np.searchsorted(u_sum[k:s + 1], lim, side="right"))
+            if r <= s:
+                c += int(u_sum[r] - u_sum[k])
+                k = r
+                break
+            c += int(u_sum[s] - u_sum[k])
+            k = s
+            if s == m:
+                break
+            w = 4 * int(bits[c]) + 2 * int(bits[c + 1]) + int(bits[c + 2])
+            flag = int(w_rows["flags"][w, s])
+            if flag:
+                commit(s)                 # its slot's chain is final
+                cnt_blk[s] = redo(int(lanes[s]), spectra[s], c, flag)
+                redone[s] = True
+                stats["redone"] += 1
+            else:
+                cnt_blk[s] = cnt[w, s]
+            c += int(cnt_blk[s])
+            k = s + 1
+        commit(k)
+        return c, k, wsel
+
+    # ------------------------------------------------------------- frame logic
+
+    def _encode_frame(self, mdct_frame: np.ndarray):
+        if self.frac_slots_per_frame:
+            self.padding = 1 if self.slot_lag <= (
+                self.frac_slots_per_frame - 1.0) else 0
+            self.slot_lag += self.padding - self.frac_slots_per_frame
+        self.bits_per_frame = 8 * (self.whole_slots_per_frame + self.padding)
+        self.mean_bits = int((self.bits_per_frame - self.side_info_len)
+                             / self.granules_per_frame)
+
+        self._iteration_loop(mdct_frame)
+        self._format_bitstream(mdct_frame)
+
+    def _iteration_loop(self, mdct_frame: np.ndarray):
+        """Bit allocation + rate control (MP3_Encoder.py:760-815)."""
+        nch = self.wav.num_of_channels
+        for ch in range(nch):
+            for gr in range(self.granules_per_frame):
+                xr = mdct_frame[ch, gr]
+                xrabs = np.abs(xr)            # int32 wrap on INT32_MIN, like ref
+                xrmax = int(max(0, xrabs.max()))
+                cod_info = self.gr_info[gr][ch]
+                cod_info.sfb_lmax = 21
+
+                if self.version == 3:
+                    self._calc_scfsi(ch, gr, xr, xrmax)
+
+                max_bits = self._max_reservoir_bits()
+
+                self.scale_factor_l[gr][ch][:] = 0
+                cod_info.s_len[:] = 0
+                cod_info.part2_3_length = 0
+                cod_info.big_values = 0
+                cod_info.count1 = 0
+                cod_info.scale_fac_compress = 0
+                cod_info.table_select[:] = 0
+                cod_info.region0_count = 0
+                cod_info.region1_count = 0
+                cod_info.part2_length = 0
+                cod_info.preflag = 0
+                cod_info.scale_fac_scale = 0
+                cod_info.count1table_select = 0
+
+                if xrmax:
+                    cod_info.part2_3_length = self._outer_loop(
+                        max_bits, xr, xrabs, xrmax, gr, ch)
+                    self.hide_str_offset += int(cod_info.table_select[0] > 0) \
+                        + int(cod_info.table_select[1] > 0) \
+                        + int(cod_info.table_select[2] > 0)
+
+                self.resv_size += (self.mean_bits / nch) - cod_info.part2_3_length
+                cod_info.global_gain = cod_info.quantizerStepSize + 210
+
+        self._resv_frame_end()
+
+    def _calc_scfsi(self, ch, gr, xr, xrmax):
+        """Scalefactor-select-information (MP3_Encoder.py:817-892). en/en_tot are
+        int32 arrays in the reference, so every energy is truncated to int."""
+        terms = fx.mulsr(xr, xr) >> 10
+        self.xrmaxl[gr] = xrmax
+
+        band = T.BAND_ALL[self.band_row]
+        with np.errstate(all="ignore"):
+            temp = int(terms.sum(dtype=np.int32))
+            if temp:
+                self.en_tot[gr] = np.float64(
+                    np.log(np.float64(temp * 4.768371584e-7)) / _LN2)
+            else:
+                self.en_tot[gr] = 0
+            for sfb in range(20, -1, -1):
+                t = int(terms[int(band[sfb]):int(band[sfb + 1])].sum(dtype=np.int32))
+                if t:
+                    self.en[gr][sfb] = np.float64(
+                        np.log(np.float64(t * 4.768371584e-7)) / _LN2)
+                else:
+                    self.en[gr][sfb] = 0
+
+        if gr == 1:
+            condition = 2 + int(self.xrmaxl[0] != 0) + int(self.xrmaxl[1] != 0)
+            if abs(int(self.en_tot[0]) - int(self.en_tot[1])) < _EN_TOT_KRIT:
+                condition += 1
+            tp = int(np.abs(self.en[0].astype(np.int64)
+                            - self.en[1].astype(np.int64)).sum())
+            if tp < _EN_DIF_KRIT:
+                condition += 1
+
+            if condition == 6:
+                for scfsi_band in range(4):
+                    start = _SCFSI_BAND_LONG[scfsi_band]
+                    end = _SCFSI_BAND_LONG[scfsi_band + 1]
+                    sum0 = int(np.abs(self.en[0][start:end].astype(np.int64)
+                                      - self.en[1][start:end].astype(np.int64)).sum())
+                    sum1 = 0  # xm stays all-zero in the reference
+                    if sum0 < _EN_SCFSI_BAND_KRIT and sum1 < _XM_SCFSI_BAND_KRIT:
+                        self.scfsi[ch][scfsi_band] = 1
+                    else:
+                        self.scfsi[ch][scfsi_band] = 0
+            else:
+                self.scfsi[ch, :] = 0
+
+    def _max_reservoir_bits(self) -> int:
+        """MP3_Encoder.py:894-931. resv_max is never raised above 0 in the
+        reference, so the perceptual-entropy branch is dead code there and here."""
+        mean_bits = self.mean_bits // self.wav.num_of_channels
+        max_bits = min(mean_bits, Q.MAX_BITS_ALLOWANCE)
+        if not self.resv_max:
+            return max_bits
+        return max_bits  # unreachable with resv_max == 0
+
+    # --------------------------------------------------------------- the search
+
+    def _eval(self, ix, cod_info):
+        """calc_run_len -> count1 bits -> subdivide -> table select (with stego
+        transform) -> big-values bits; the shared body of both search loops."""
+        Q.calc_run_len(ix, cod_info)
+        bits = Q.count1_bit_count(ix, cod_info)
+        Q.subdivide(cod_info, self.band_row)
+        self._big_v_tab_select(ix, cod_info)
+        bits += Q.big_v_bit_count(ix, cod_info)
+        return bits
+
+    def _big_v_tab_select(self, ix, cod_info):
+        """Table choice per region + stego pair transform
+        (MP3_Encoder.py:1147-1264). The message-bit cursor within a granule
+        advances only over regions whose chosen table is nonzero."""
+        idx = self.hide_str_offset
+        cod_info.table_select[0] = 0 if cod_info.address1 <= 0 else \
+            self._choose(ix, 0, cod_info.address1, self.hide_str_offset)
+        if cod_info.table_select[0] > 0:
+            idx += 1
+        cod_info.table_select[1] = 0 if cod_info.address2 <= cod_info.address1 else \
+            self._choose(ix, cod_info.address1, cod_info.address2, idx)
+        if cod_info.table_select[1] > 0:
+            idx += 1
+        cod_info.table_select[2] = 0 if (cod_info.big_values << 1) <= cod_info.address2 \
+            else self._choose(ix, cod_info.address2, cod_info.big_values << 1, idx)
+
+    def _choose(self, ix, begin, end, idx):
+        choice = Q.choose_table(ix, begin, end)
+        if self.hide_str != "":
+            if idx < len(self.hide_str):
+                bit = int(self.hide_str[idx])
+                return int(T.TRANSFORM_HUF[choice, bit])
+            return choice
+        return choice
+
+    def _outer_loop(self, max_bits, xr, xrabs, xrmax, gr, ch):
+        """MP3_Encoder.py:933-956."""
+        cod_info = self.gr_info[gr][ch]
+        cod_info.quantizerStepSize = self._bin_search_step_size(
+            max_bits, xr, xrabs, xrmax, gr, ch, cod_info)
+        cod_info.part2_length = self._part2_length(gr, ch)
+        huff_bits = max_bits - cod_info.part2_length
+        bits = self._inner_loop(xr, xrabs, xrmax, huff_bits, gr, ch, cod_info)
+        cod_info.part2_3_length = cod_info.part2_length + bits
+        return cod_info.part2_3_length
+
+    def _rate_native_call(self, fn_name, xr, xrabs, xrmax, arg, gr, ch,
+                          cod_info):
+        """One native rate_search.cpp call with GrInfo<->state[12] sync;
+        the granule's l3_enc slice is the shared inout ix buffer."""
+        lib = _native_rate_lib()
+        state = _state_of(cod_info)
+        r = getattr(lib, fn_name)(
+            np.ascontiguousarray(xr, np.int32),
+            np.ascontiguousarray(xrabs, np.int32),
+            xrmax, arg, self.band_row * 23,
+            self._hide_u8, len(self.hide_str), self.hide_str_offset,
+            state, self.l3_enc[ch][gr])
+        _state_back(state, cod_info)
+        return int(r)
+
+    def _bin_search_step_size(self, desired_rate, xr, xrabs, xrmax, gr, ch, cod_info):
+        """MP3_Encoder.py:958-996."""
+        if _native_rate_lib() is not None:
+            return self._rate_native_call("rate_bin_search", xr, xrabs,
+                                          xrmax, desired_rate, gr, ch,
+                                          cod_info)
+        nxt = -120
+        count = 120
+        while True:
+            half = count // 2
+            ix, ix_max = Q.quantize(xr, xrabs, xrmax, nxt + half)
+            if ix_max > Q.MAX_QUANTIZE_STEP:
+                bit = 100000
+            else:
+                self.l3_enc[ch][gr] = ix
+                bit = self._eval(self.l3_enc[ch][gr], cod_info)
+            if bit < desired_rate:
+                count = half
+            else:
+                nxt += half
+                count -= half
+            if count <= 1:
+                break
+        return nxt
+
+    def _part2_length(self, gr, ch) -> int:
+        """Scalefactor bits (MP3_Encoder.py:1038-1062); always 0 with
+        scale_fac_compress==0 since slen tables start at 0, kept for parity."""
+        gi = self.gr_info[gr][ch]
+        slen1 = int(T.SLEN1_TAB[gi.scale_fac_compress])
+        slen2 = int(T.SLEN2_TAB[gi.scale_fac_compress])
+        bits = 0
+        if gr == 0 or self.scfsi[ch][0] == 0:
+            bits += 6 * slen1
+        if gr == 0 or self.scfsi[ch][1] == 0:
+            bits += 5 * slen1
+        if gr == 0 or self.scfsi[ch][2] == 0:
+            bits += 5 * slen2
+        if gr == 0 or self.scfsi[ch][3] == 0:
+            bits += 5 * slen2
+        return bits
+
+    def _inner_loop(self, xr, xrabs, xrmax, max_bits, gr, ch, cod_info):
+        """MP3_Encoder.py:1064-1095."""
+        if _native_rate_lib() is not None:
+            return self._rate_native_call("rate_inner_loop", xr, xrabs,
+                                          xrmax, max_bits, gr, ch, cod_info)
+        if max_bits < 0:
+            cod_info.quantizerStepSize -= 1
+        while True:
+            while True:
+                ix, ix_max = Q.quantize(xr, xrabs, xrmax,
+                                        cod_info.quantizerStepSize + 1)
+                if ix is not None:
+                    self.l3_enc[ch][gr] = ix
+                if ix_max <= Q.MAX_QUANTIZE_STEP:
+                    break
+                cod_info.quantizerStepSize += 1
+            cod_info.quantizerStepSize += 1
+            bits = self._eval(self.l3_enc[ch][gr], cod_info)
+            if bits <= max_bits:
+                return bits
+
+    def _resv_frame_end(self):
+        """Reservoir drain + stuffing-bit planning (MP3_Encoder.py:1097-1145)."""
+        if self.wav.num_of_channels == 2 and (self.mean_bits & 1):
+            self.resv_size += 1
+        over_bits = max(0.0, self.resv_size - self.resv_max)
+        self.resv_size -= over_bits
+        stuffing_bits = over_bits
+
+        over_bits = self.resv_size % 8
+        if over_bits:
+            stuffing_bits += over_bits
+            self.resv_size -= over_bits
+
+        if stuffing_bits:
+            gi = self.gr_info[0][0]
+            if gi.part2_3_length + stuffing_bits < Q.MAX_BITS_ALLOWANCE:
+                gi.part2_3_length += stuffing_bits
+            else:
+                for gr in range(self.granules_per_frame):
+                    for ch in range(self.wav.num_of_channels):
+                        gi = self.gr_info[gr][ch]
+                        if not stuffing_bits:
+                            break
+                        extra_bits = Q.MAX_BITS_ALLOWANCE - gi.part2_3_length
+                        bits_this_gr = min(extra_bits, stuffing_bits)
+                        gi.part2_3_length += bits_this_gr
+                        stuffing_bits -= bits_this_gr
+                self.resv_drain = stuffing_bits  # never serialized (ref quirk)
+
+    # ----------------------------------------------------------- serialization
+
+    def _format_bitstream(self, mdct_frame):
+        """MP3_Encoder.py:1266-1360. Uses the native C serializer when the
+        library is available; the python BitWriter path below is the
+        fallback/oracle (identical bytes)."""
+        for ch in range(self.wav.num_of_channels):
+            for gr in range(self.granules_per_frame):
+                neg = (mdct_frame[ch][gr] < 0) & (self.l3_enc[ch][gr] > 0)
+                self.l3_enc[ch][gr][neg] *= -1
+
+        if self._nat_ser is None:
+            from mp3stego_tpu_torch import native
+            lib = native.get_lib()
+            use = (lib is not None and hasattr(lib, "mp3_format_frame")
+                   and not (self.version != 3 and self.lsf_compliant))
+            self._nat_ser = lib if use else False
+            if use:
+                self._nat_cache = np.zeros(1, dtype=np.uint32)
+                self._nat_cache_bits = np.full(1, 32, dtype=np.int32)
+                self._nat_out = np.zeros(1 << 16, dtype=np.uint8)
+        if self._nat_ser:
+            self._format_bitstream_native()
+        else:
+            self._encode_side_info()
+            self._encode_main_data()
+
+    def _format_bitstream_native(self):
+        gi = np.zeros((2, 2, 11), dtype=np.int64)
+        for gr in range(2):
+            for ch in range(2):
+                g = self.gr_info[gr][ch]
+                gi[gr, ch] = (int(g.part2_3_length), int(g.big_values),
+                              int(g.global_gain), int(g.scale_fac_compress),
+                              int(g.region0_count), int(g.region1_count),
+                              int(g.preflag), int(g.scale_fac_scale),
+                              int(g.count1table_select), int(g.count1),
+                              int(g.part2_length))
+        ts = np.stack([[self.gr_info[gr][ch].table_select for ch in range(2)]
+                       for gr in range(2)]).astype(np.int32)
+        written = self._nat_ser.mp3_format_frame(
+            self._nat_cache, self._nat_cache_bits, self._nat_out,
+            len(self._nat_out),
+            self.version, self.layer, self.crc, self.bitrate_index,
+            self.samplerate_index % 3, self.padding, self.ext, self.mode,
+            self.mode_ext, self.copyright, self.original, self.emphasis,
+            self.private_bits, self.wav.num_of_channels,
+            self.granules_per_frame,
+            np.ascontiguousarray(self.scfsi), gi.reshape(-1),
+            np.ascontiguousarray(ts.reshape(-1)),
+            np.ascontiguousarray(self.scale_factor_l.reshape(-1)),
+            _slen1_i32(), _slen2_i32(),
+            np.ascontiguousarray(self.l3_enc.reshape(-1)),
+            _huff_code_u32(), _huff_len_u8(), _linbits_i32(),
+            _band_row_i32(self.band_row))
+        if written < 0:
+            raise RuntimeError("native serializer buffer overflow")
+        self.out_buffer += self._nat_out[:written].tobytes()
+
+    def _encode_side_info(self):
+        bw = self.bw
+        bw.put(0x7FF, 11)
+        bw.put(self.version, 2)
+        bw.put(self.layer, 2)
+        bw.put(0 if self.crc else 1, 1)
+        bw.put(self.bitrate_index, 4)
+        bw.put(self.samplerate_index % 3, 2)
+        bw.put(self.padding, 1)
+        bw.put(self.ext, 1)
+        bw.put(self.mode, 2)
+        bw.put(self.mode_ext, 2)
+        bw.put(self.copyright, 1)
+        bw.put(self.original, 1)
+        bw.put(self.emphasis, 2)
+
+        nch = self.wav.num_of_channels
+        if self.version == 3:
+            bw.put(0, 9)
+            bw.put(self.private_bits, 3 if nch == 2 else 5)
+            for ch in range(nch):
+                for band in range(4):
+                    bw.put(int(self.scfsi[ch][band]), 1)
+        else:
+            bw.put(0, 8)
+            bw.put(self.private_bits, 2 if nch == 2 else 1)
+
+        for gr in range(self.granules_per_frame):
+            for ch in range(nch):
+                gi = self.gr_info[gr][ch]
+                bw.put(int(gi.part2_3_length), 12)
+                bw.put(int(gi.big_values), 9)
+                bw.put(int(gi.global_gain), 8)
+                bw.put(int(gi.scale_fac_compress), 4 if self.version == 3 else 9)
+                bw.put(0, 1)  # window_switching_flag
+                for region in range(3):
+                    bw.put(int(gi.table_select[region]), 5)
+                bw.put(int(gi.region0_count), 4)
+                bw.put(int(gi.region1_count), 3)
+                if self.version == 3:
+                    bw.put(int(gi.preflag), 1)
+                    bw.put(int(gi.scale_fac_scale), 1)
+                    bw.put(int(gi.count1table_select), 1)
+                elif self.lsf_compliant:
+                    # ISO 13818-3 LSF: these two bits ARE in the stream; the
+                    # reference omits them (MP3_Encoder.py:1335-1337 guard)
+                    bw.put(int(gi.scale_fac_scale), 1)
+                    bw.put(int(gi.count1table_select), 1)
+
+    def _encode_main_data(self):
+        bw = self.bw
+        for gr in range(self.granules_per_frame):
+            for ch in range(self.wav.num_of_channels):
+                gi = self.gr_info[gr][ch]
+                slen1 = int(T.SLEN1_TAB[gi.scale_fac_compress])
+                slen2 = int(T.SLEN2_TAB[gi.scale_fac_compress])
+                sfl = self.scale_factor_l[gr][ch]
+                if gr == 0 or self.scfsi[ch][0] == 0:
+                    for sfb in range(6):
+                        bw.put(int(sfl[sfb]), slen1)
+                if gr == 0 or self.scfsi[ch][1] == 0:
+                    for sfb in range(6, 11):
+                        bw.put(int(sfl[sfb]), slen1)
+                if gr == 0 or self.scfsi[ch][2] == 0:
+                    for sfb in range(11, 16):
+                        bw.put(int(sfl[sfb]), slen2)
+                if gr == 0 or self.scfsi[ch][3] == 0:
+                    for sfb in range(16, 21):
+                        bw.put(int(sfl[sfb]), slen2)
+                self._huffman_code_bits(gr, ch)
+
+    def _huffman_code_bits(self, gr, ch):
+        """MP3_Encoder.py:1394-1446, incl. the all-ones stuffing padding."""
+        bw = self.bw
+        gi = self.gr_info[gr][ch]
+        scale_fac = T.BAND_ALL[self.band_row]
+        bits_before = bw.bits_count()
+
+        big_values = int(gi.big_values) << 1
+        idx0 = gi.region0_count + 1
+        region1_start = int(scale_fac[idx0])
+        region2_start = int(scale_fac[idx0 + gi.region1_count + 1])
+
+        enc = self.l3_enc[ch][gr]
+        for i in range(0, big_values, 2):
+            region = (i >= region1_start) + (i >= region2_start)
+            table_index = int(gi.table_select[region])
+            if table_index != 0:
+                self._huffman_code(table_index, int(enc[i]), int(enc[i + 1]))
+
+        count1_table = 32 + gi.count1table_select
+        count1_end = big_values + (gi.count1 << 2)
+        for i in range(big_values, count1_end, 4):
+            self._huffman_coder_count1(
+                count1_table, int(enc[i]), int(enc[i + 1]),
+                int(enc[i + 2]), int(enc[i + 3]))
+
+        written = bw.bits_count() - bits_before
+        stuff = int(gi.part2_3_length - gi.part2_length - written)
+        if stuff:
+            for _ in range(stuff // 32):
+                bw.put(0xFFFFFFFF, 32)
+            rem = stuff % 32
+            if rem:
+                bw.put((1 << rem) - 1, rem)
+
+    def _huffman_code(self, table_select, x, y):
+        """MP3_Encoder.py:1448-1513."""
+        bw = self.bw
+        sign_x = 1 if x <= 0 and x != 0 else 0
+        sign_y = 1 if y <= 0 and y != 0 else 0
+        x = abs(x)
+        y = abs(y)
+        y_len = 16  # all pair tables are stored on the 16x16 grid
+        if table_select > 15:
+            lin_bits = int(T.HUFF_LINBITS[table_select])
+            lin_bits_x = lin_bits_y = 0
+            if x > 14:
+                lin_bits_x = x - 15
+                x = 15
+            if y > 14:
+                lin_bits_y = y - 15
+                y = 15
+            code = int(T.HUFF_CODE[table_select, x, y])
+            c_bits = int(T.HUFF_LEN[table_select, x, y])
+            ext = 0
+            x_bits = 0
+            if x > 14:
+                ext |= lin_bits_x
+                x_bits += lin_bits
+            if x != 0:
+                ext = (ext << 1) | sign_x
+                x_bits += 1
+            if y > 14:
+                ext = (ext << lin_bits) | lin_bits_y
+                x_bits += lin_bits
+            if y != 0:
+                ext = (ext << 1) | sign_y
+                x_bits += 1
+            bw.put(code, c_bits)
+            bw.put(ext, x_bits)
+        else:
+            code = int(T.HUFF_CODE[table_select, x, y])
+            c_bits = int(T.HUFF_LEN[table_select, x, y])
+            if x != 0:
+                code = (code << 1) | sign_x
+                c_bits += 1
+            if y != 0:
+                code = (code << 1) | sign_y
+                c_bits += 1
+            bw.put(code, c_bits)
+        _ = y_len
+
+    def _huffman_coder_count1(self, table, v, w, x, y):
+        """MP3_Encoder.py:1515-1547."""
+        bw = self.bw
+        sv, sw, sx, sy = (1 if t < 0 else 0 for t in (v, w, x, y))
+        v, w, x, y = abs(v), abs(w), abs(x), abs(y)
+        p = v + (w << 1) + (x << 2) + (y << 3)
+        bw.put(int(T.HUFF_CODE[table, 0, p]), int(T.HUFF_LEN[table, 0, p]))
+        code = 0
+        cbits = 0
+        if v:
+            code = sv
+            cbits = 1
+        if w:
+            code = (code << 1) | sw
+            cbits += 1
+        if x:
+            code = (code << 1) | sx
+            cbits += 1
+        if y:
+            code = (code << 1) | sy
+            cbits += 1
+        bw.put(code, cbits)
+
+    def write_mp3_file(self, output_file: str):
+        """Write the accumulated MP3 bytes (MP3_Encoder.py:1554-1563)."""
+        with open(output_file, "wb") as f:
+            f.write(bytes(self.out_buffer))
+
+
+class Encoder:
+    """Driver wrapping MP3Encoder (reference encoder/encoder.py:8-58).
+
+    :param file_path: the wav file path.
+    :param output_file_path: the mp3 output file path.
+    :param bitrate: bitrate in kbps.
+    :param hide_str: bit string to embed (empty = no embedding).
+    :param vbr: not ported; True raises ``NotImplementedError``.
+    :param device: the search plane's device; None means CUDA, and a missing
+        card raises.
+
+    ``mp3_encoder`` is the wrapped MP3Encoder (its ``timer``, ``redo_stats``
+    and ``hide_stats`` describe the last ``encode``).
+    """
+
+    def __init__(self, file_path: str, output_file_path: str, bitrate: int = 320,
+                 hide_str: str = '', vbr: bool = None, device=None):
+        self.__file_path = file_path
+        self.__output_file_path = output_file_path
+        if vbr:
+            raise NotImplementedError(_VBR_NOT_PORTED)
+        if not os.path.exists(self.__file_path):
+            sys.exit(f'File {self.__file_path} not found.')
+        self.__wav_file = read_wav(self.__file_path, bitrate)
+        self.__hide_str = hide_str
+        self.mp3_encoder = MP3Encoder(self.__wav_file, hide_str=hide_str,
+                                      device=device)
+
+    def encode(self, quiet: bool = True) -> bool:
+        """Encode; returns True if the message was too long to embed fully
+        (the reference's off-by-one contract at encoder.py:49-51 included)."""
+        enc = self.mp3_encoder
+        if not quiet:
+            enc.print_info()
+        enc.encode(quiet=quiet)
+        enc.write_mp3_file(self.__output_file_path)
+        too_long = enc.hide_str_offset < len(self.__hide_str) - 1
+        if not quiet:
+            if too_long:
+                print("File too short for this message length, your message has "
+                      "been trimmed.")
+            print(f"MP3 file created on {self.__output_file_path}")
+        return too_long

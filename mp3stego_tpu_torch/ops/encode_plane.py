@@ -1,0 +1,144 @@
+"""Encode numeric plane in torch: polyphase analysis filterbank, forward MDCT
+and alias butterflies, in exact Q31 fixed point.
+
+The reference feeds a 512-sample ring buffer 32 samples at a time
+(MP3_Encoder.py:321-370, 751-758); the ring arithmetic reduces to a sliding
+window over each channel's PCM stream:
+
+    tmp_t[i]  = sum_k mul(s[32t + 31 - i - 64k], enwindow[i + 64k])   k<8, i<64
+    sb_t[b]   = sum_j mul(fl[b][j], tmp_t[j])                          j<64
+
+The MDCT input of granule g is [subband(g-1) ; subband(g)] per band
+(MP3_Encoder.py:681-701), and the alias butterflies (MP3_Encoder.py:703-744)
+read only unmodified MDCT outputs, so the whole file is dense elementwise
+products and reductions. Every product is int64 shifted and narrowed to int32
+(``ops/fixedpoint``); every sum wraps mod 2^32, so any reduction order is
+bit-exact against the sequential reference and against the host C++ twin
+(``run_analysis_native``, ``mp3stego_tpu/native/src/encode_plane.cpp``).
+
+A whole song does not fit the int64 product tensors at once (the filter step
+alone is (ch, steps, 32, 64) int64), so ``run_analysis_device`` runs it in
+granule chunks, each with one granule of MDCT context and 480 samples of
+filterbank history in front.
+"""
+
+import functools
+
+import numpy as np
+import torch
+
+from mp3stego_tpu_torch import tables as T
+from mp3stego_tpu_torch.ops import fixedpoint as fx
+
+_PAST = 480          # deepest lookback of the window: 31 - 63 - 448 = -480
+CHUNK_G = 1024       # granules per chunk of run_analysis_device
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(device: torch.device):
+    """(window (8, 64), filter (32, 64), MDCT cosines (18, 36), alias cs
+    (8,), alias ca (8,)), int64 on ``device``."""
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int64),  # noqa: E731
+                                  device=device)
+    return (t(T.ENWINDOW.reshape(8, 64)), t(T.subband_filter_fixed()),
+            t(T.mdct_cos_fixed()), t(T.MDCT_CS_FIX), t(T.MDCT_CA_FIX))
+
+
+def analysis_mdct(pcm: torch.Tensor) -> torch.Tensor:
+    """PCM (ch, N) int32 (already << 16) -> mdct_freq (ch, Tg, 576) int32.
+
+    ``pcm`` carries 480 samples of history in front (zeros at the start of
+    a file); N - 480 must be a multiple of 576 (18 steps of 32), and
+    Tg = (N - 480) // 576. Granule 0's MDCT reads a zero previous granule.
+    """
+    win, fl, cos_l, cs, ca = _tables(pcm.device)
+    ch, n = pcm.shape
+    ts = (n - _PAST) // 32                     # window steps
+    tg = ts // 18                              # granules
+
+    # window: W[t, j] = pcm[32t + j] (j < 512) from 16 shifted slices; the
+    # sample for (k, i) is pcm[32t + 511 - i - 64k], so reversing W and
+    # reshaping to (8, 64) lines it up with the window table
+    z = pcm.reshape(ch, n // 32, 32)
+    w = torch.cat([z[:, r:r + ts] for r in range(16)], dim=2)    # (ch,ts,512)
+    v = w.flip(-1).reshape(ch, ts, 8, 64)
+    tmp = fx.mul(v, win).sum(dim=2, dtype=torch.int32)           # (ch,ts,64)
+
+    # 32-band filter, then the analysis inversion (odd step, odd band)
+    sb = fx.mul(fl, tmp[:, :, None, :]).sum(dim=-1, dtype=torch.int32)
+    odd = torch.arange(ts, device=pcm.device) % 18 % 2 == 1
+    band_odd = torch.arange(32, device=pcm.device) % 2 == 1
+    sb = torch.where(odd[:, None] & band_odd[None], -sb, sb)     # (ch,ts,32)
+    sbg = sb.reshape(ch, tg, 18, 32)
+
+    # MDCT over [previous granule ; this granule] per band
+    prev = torch.cat([torch.zeros_like(sbg[:, :1]), sbg[:, :-1]], dim=1)
+    mdct_in = torch.cat([prev, sbg], dim=2).transpose(2, 3)      # (ch,tg,32,36)
+    freq = fx.mul(mdct_in[:, :, :, None, :], cos_l).sum(
+        dim=-1, dtype=torch.int32)                               # (ch,tg,32,18)
+
+    # alias butterflies: band b slot i ("bu") with band b-1 slot 17-i ("bd")
+    up = freq[:, :, 1:, :8]
+    dn = freq[:, :, :-1, 10:18].flip(-1)
+    bu, bd = fx.cmuls(up, dn, cs, ca)
+    freq[:, :, 1:, :8] = bu
+    freq[:, :, :-1, 10:18] = bd.flip(-1)
+    return freq.reshape(ch, tg, 576)
+
+
+def _padded_streams(pcm_i16: np.ndarray, num_granules: int) -> np.ndarray:
+    """(ch, n) int16 -> (ch, 480 + Tg*576) int16: zero history in front,
+    cut or zero-filled to whole granules behind."""
+    ch, n = pcm_i16.shape
+    need = num_granules * 576
+    full = np.zeros((ch, _PAST + need), np.int16)
+    full[:, _PAST:_PAST + min(n, need)] = pcm_i16[:, :need]
+    return full
+
+
+def run_analysis_device(pcm_i16: np.ndarray, num_granules: int, device,
+                        chunk_g: int = CHUNK_G) -> torch.Tensor:
+    """Raw int16 streams (ch, n) -> resident (ch, Tg, 576) int32 spectra on
+    ``device``.
+
+    The int16 PCM crosses to the device once and is upshifted there; the
+    plane runs in chunks of ``chunk_g`` granules, each reading one granule
+    of MDCT context and 480 samples of history before it, so the result is
+    the same for every chunk size."""
+    full = torch.from_numpy(_padded_streams(pcm_i16, num_granules)).to(device)
+    parts = []
+    a = 0
+    while a < num_granules:
+        s = max(0, a - 1)                      # 1 granule of MDCT context
+        e = min(num_granules, s + chunk_g + 1)
+        sl = full[:, s * 576: e * 576 + _PAST].to(torch.int32) << 16
+        parts.append(analysis_mdct(sl)[:, a - s:])
+        a = e
+    if not parts:
+        return torch.zeros((full.shape[0], 0, 576), dtype=torch.int32,
+                           device=device)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+@functools.lru_cache(maxsize=1)
+def _native_tables():
+    cc = lambda a, d: np.ascontiguousarray(a, d)  # noqa: E731
+    return (cc(T.ENWINDOW, np.int64),
+            cc(T.subband_filter_fixed(), np.int32),
+            cc(T.mdct_cos_fixed(), np.int32),
+            cc(T.MDCT_CS_FIX, np.int32), cc(T.MDCT_CA_FIX, np.int32))
+
+
+def run_analysis_native(pcm_i16: np.ndarray, num_granules: int):
+    """Host C++ twin of :func:`analysis_mdct` (``encode_analysis`` of the
+    native library): raw int16 streams -> (ch, Tg, 576) int32 spectra,
+    bit-identical to the torch plane. None when the library is missing."""
+    from mp3stego_tpu_torch.native import get_lib
+    lib = get_lib()
+    if lib is None:
+        return None
+    full = _padded_streams(pcm_i16, num_granules)
+    out = np.empty((full.shape[0], num_granules, 576), np.int32)
+    lib.encode_analysis(full, full.shape[0], num_granules,
+                        *_native_tables(), out)
+    return out

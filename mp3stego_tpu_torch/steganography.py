@@ -1,33 +1,40 @@
-"""Steganography façade — decode and reveal.
+"""Steganography façade — the public operations.
 
 API-compatible with the reference mp3stego.steganography (steganography.py:10-183),
-including the ``reveal_massage`` spelling, sys.exit path validation, and the
-always-delete temporary-WAV behaviour of reveal. Built on the port's Decoder.
+including the ``reveal_massage`` spelling, the ``len#message`` framing, sys.exit
+path validation, and the always-delete temporary-WAV behaviour of
+hide/reveal/clear. Built on the port's Decoder and Encoder.
 
 Beyond the reference surface, the constructor takes ``precision`` and
-``device``: ``"float64"`` (default) is the bit-exact parity mode (the host
-C++/NumPy plane, byte-identical WAVs); ``"float32"`` runs the decode plane in
-torch on ``device`` (CUDA when None; a missing card raises), within 1 int16
-LSB of the parity mode on fewer than 1e-3 of samples.
-
-Encoding, hiding, clearing and capacity need the encoder, which is not
-ported yet: those methods raise ``NotImplementedError``.
+``device``. ``precision="float64"`` (default) is the bit-exact parity decode
+(the host C++/NumPy plane, byte-identical WAVs); ``"float32"`` runs the
+decode plane in torch on ``device``, within 1 int16 LSB of the parity mode on
+fewer than 1e-3 of samples. Encoding (and so hide, clear and capacity) runs
+the analysis and search planes in torch on ``device`` whatever the
+precision, with bytes identical to the JAX package's. ``device`` None means
+CUDA; a missing card raises when a plane that needs it runs.
 """
 
 import os
 import sys
+import tempfile
 from contextlib import contextmanager
 
+from mp3stego_tpu_torch.bitstream import decoder_host as dh
+from mp3stego_tpu_torch.bitstream.id3 import parse_id3, syncsafe
 from mp3stego_tpu_torch.models.decoder import Decoder, check_precision
-
-_NEEDS_ENCODER = ("needs the encoder, which the torch port does not have yet "
-                  "(ROADMAP.md queue 1, item {item}); use mp3stego_tpu")
+from mp3stego_tpu_torch.models.encoder import Encoder
 
 
 def str_to_binary_str(string: str) -> str:
     """UTF-8 string -> MSB-first bit string (reference steganography.py:10-24)."""
     data = string.encode("utf-8")
     return "".join(format(b, "08b") for b in data)
+
+
+def _frame_message(message: str) -> str:
+    """Length-prefix framing used by hide: ``"{len}#{msg}"`` -> bit string."""
+    return str_to_binary_str(f"{len(message)}#{message}")
 
 
 def _exists_or_exit(path: str):
@@ -49,17 +56,27 @@ def _mp3_to_wav_paths(input_file_path: str, wav_file_path: str = "") -> str:
     return wav_file_path
 
 
+def _wav_to_mp3_paths(wav_file_path: str, output_file_path: str):
+    """Validate a (wav in, mp3 out) pair (reference steganography.py:75-78)."""
+    _exists_or_exit(wav_file_path)
+    if output_file_path[-4:] != '.mp3' or wav_file_path[-4:] != '.wav':
+        sys.exit("wav_file_path must be wav file, output_file_path must be mp3 file.")
+
+
 class Steganography:
-    """Façade for decode/reveal over MP3 files.
+    """Façade for encode/decode/hide/reveal/clear over MP3 files.
 
     :param quiet: if False, prints information about the processes and the files.
     :param precision: decode numeric plane mode — "float64" (bit-exact parity,
         host) or "float32" (torch plane on ``device``).
-    :param keep_id3: accepted for API parity with ``mp3stego_tpu``; it only
-        affects hide/clear, which are not ported. Default from
+    :param keep_id3: carry the input's leading ID3v2 tag over to the output
+        of ``hide_message``/``clear_file`` (the reference's re-encode drops
+        tags — reference decoder.py skips ID3 and its encoder writes bare
+        frames, so the default stays off for parity). Default from
         ``MP3STEGO_TPU_KEEP_ID3``.
-    :param device: the float32 plane's device; None means CUDA, and a missing
-        card raises here rather than running on the CPU.
+    :param device: the planes' device: the encoder's always, the decoder's
+        with ``precision="float32"``. None means CUDA, and a missing card
+        raises.
     """
 
     def __init__(self, quiet: bool = True, precision: str = "float64",
@@ -67,11 +84,13 @@ class Steganography:
         self.quiet = quiet
         self.precision = precision
         self.device = check_precision(precision, device)
+        self.encode_device = device
         if keep_id3 is None:
             keep_id3 = os.environ.get("MP3STEGO_TPU_KEEP_ID3", "0") == "1"
         self.keep_id3 = keep_id3
         self._last_bitrate = 0
         self._last_decoder = None
+        self._last_encoder = None
 
     @contextmanager
     def _banner(self, start: str, finish: str):
@@ -90,12 +109,100 @@ class Steganography:
         self._last_bitrate = self._last_decoder.decode(
             self.quiet, reveal=reveal, txt_file_path=txt_file_path)
 
+    def _encode(self, wav_file_path, output_file_path, bitrate, hide_bits="",
+                vbr=None):
+        self._last_encoder = Encoder(wav_file_path, output_file_path,
+                                     bitrate=bitrate, hide_str=hide_bits,
+                                     vbr=vbr, device=self.encode_device)
+        return self._last_encoder.encode(quiet=self.quiet)
+
     def _drop_temp_wav(self):
         self._last_decoder.delete_wav_file()
         if not self.quiet:
             print("Wav file has been deleted.")
 
+    def _id3_block(self, path: str) -> bytes:
+        """The file's leading ID3v2 tag bytes (header + frames + footer),
+        or b"" when absent/invalid or ``keep_id3`` is off."""
+        if not self.keep_id3:
+            return b""
+        try:
+            with open(path, "rb") as f:
+                head = f.read(14)
+                if len(head) < 14 or head[:3] != b"ID3":
+                    return b""
+                f.seek(0)
+                # the tag's total extent is in the first 14 bytes; read just
+                # the block and re-validate through the real parser
+                total = syncsafe(head[6:10]) + (20 if head[5] & 0x10 else 10)
+                block = f.read(total)
+        except OSError:
+            return b""
+        tag = parse_id3(block)
+        return block if tag.is_valid and len(block) == tag.offset else b""
+
+    def _restore_id3(self, tag_block: bytes, output_file_path: str):
+        if not tag_block:
+            return
+        with open(output_file_path, "rb") as f:
+            body = f.read()
+        with open(output_file_path, "wb") as f:
+            f.write(tag_block)
+            f.write(body)
+        if not self.quiet:
+            print(f"ID3v2 tag ({len(tag_block)} bytes) carried over.")
+
     # ------------------------------------------------------------------- public
+
+    def encode_wav_to_mp3(self, wav_file_path: str, output_file_path: str,
+                          bitrate: int = 320, vbr: bool = None):
+        """Encode a wav file into an mp3 file.
+
+        :param wav_file_path: the wav file path.
+        :param output_file_path: the output mp3 file desired path.
+        :param bitrate: the bitrate of the wav file.
+        :param vbr: VBR is not ported; True raises ``NotImplementedError``.
+        """
+        with self._banner(f"Start Encoding {wav_file_path} to  "
+                          f"{output_file_path}.", "Encoding"):
+            _wav_to_mp3_paths(wav_file_path, output_file_path)
+            self._encode(wav_file_path, output_file_path, bitrate, vbr=vbr)
+
+    def message_capacity(self, input_file_path: str) -> int:
+        """Largest message (chars) ``hide_message`` can embed in this file.
+
+        Beyond the reference, whose only capacity signal is the ``too_long``
+        bool after a full hide. The stego channel carries one bit per
+        nonzero Huffman table selection of the RE-ENCODE (reference
+        MP3_Encoder.py:808-809), and the pair transform neither zeroes nor
+        un-zeroes a table — so a clear re-encode's extractable bit count is
+        the channel capacity. The ``"{len}#{msg}"`` framing overhead (which
+        itself grows with the message length) is solved for, honouring the
+        reference's off-by-one (the final usable bit never embeds —
+        ``too_long`` tests ``offset < len-1``, encoder.py parity).
+        """
+        with self._banner(f"Start Measuring capacity of {input_file_path}.",
+                          "Measuring"):
+            wav_file_path = _mp3_to_wav_paths(input_file_path)
+            self._decode(input_file_path, wav_file_path)
+            with tempfile.NamedTemporaryFile(suffix=".mp3",
+                                             delete=False) as tmp:
+                tmp_mp3 = tmp.name
+            try:
+                self._encode(wav_file_path, tmp_mp3,
+                             bitrate=self._last_bitrate)
+                with open(tmp_mp3, "rb") as f:
+                    usable = len(dh.stego_bits(dh.parse_mp3(f.read(), 0)))
+            finally:
+                os.remove(tmp_mp3)
+                self._drop_temp_wav()
+        # largest c with bits("{c}#{'x'*c}") - 1 <= usable - 1, i.e.
+        # 8*(digits(c) + 1 + c) <= usable + 1 (off-by-one: the last framed
+        # bit need not land)
+        c = max(0, (usable + 1) // 8 - 1)
+        while c > 0 and 8 * (len(str(c)) + 1 + c) > usable + 1:
+            c -= 1
+        return c
 
     def decode_mp3_to_wav(self, input_file_path: str, wav_file_path: str = "") -> int:
         """Decode an mp3 file into a wav file; returns the bitrate in kbps.
@@ -124,23 +231,40 @@ class Steganography:
                          txt_file_path=txt_file_path)
             self._drop_temp_wav()
 
-    def encode_wav_to_mp3(self, wav_file_path: str, output_file_path: str,
-                          bitrate: int = 320, vbr: bool = None):
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError("encode_wav_to_mp3 "
-                                  + _NEEDS_ENCODER.format(item=6))
-
     def hide_message(self, input_file_path: str, output_file_path: str,
                      message: str) -> bool:
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError("hide_message "
-                                  + _NEEDS_ENCODER.format(item=6))
+        """Hide a string in an mp3 file; returns True if it was too long to fit.
+
+        :param input_file_path: the input mp3 file path.
+        :param output_file_path: the output mp3 desired path.
+        :param message: the message to hide in the mp3 file.
+        """
+        with self._banner(f"Start Hiding {message} in {output_file_path}.",
+                          "Hiding"):
+            tag = self._id3_block(input_file_path)
+            wav_file_path = _mp3_to_wav_paths(input_file_path)
+            self._decode(input_file_path, wav_file_path)
+            _wav_to_mp3_paths(wav_file_path, output_file_path)
+            too_long = self._encode(wav_file_path, output_file_path,
+                                    bitrate=self._last_bitrate,
+                                    hide_bits=_frame_message(message))
+            self._restore_id3(tag, output_file_path)
+            self._drop_temp_wav()
+        return too_long
 
     def clear_file(self, input_file_path: str, output_file_path: str):
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError("clear_file " + _NEEDS_ENCODER.format(item=6))
+        """Re-encode an mp3 file without any hidden string.
 
-    def message_capacity(self, input_file_path: str) -> int:
-        """Not ported yet: raises ``NotImplementedError``."""
-        raise NotImplementedError("message_capacity "
-                                  + _NEEDS_ENCODER.format(item=6))
+        :param input_file_path: the input mp3 file path.
+        :param output_file_path: the output mp3 desired path.
+        """
+        with self._banner(f"Start Cleaning {input_file_path} into "
+                          f"{output_file_path}.", "Cleaning"):
+            tag = self._id3_block(input_file_path)
+            wav_file_path = _mp3_to_wav_paths(input_file_path)
+            self._decode(input_file_path, wav_file_path)
+            _wav_to_mp3_paths(wav_file_path, output_file_path)
+            self._encode(wav_file_path, output_file_path,
+                         bitrate=self._last_bitrate)
+            self._restore_id3(tag, output_file_path)
+            self._drop_temp_wav()

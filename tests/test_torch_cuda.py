@@ -1,5 +1,7 @@
-"""Card tests of the torch port: the hand-written CUDA kernel and the device
-decode plane. Marked ``cuda``; without a card every test skips.
+"""Card tests of the torch port: the hand-written CUDA kernel, the device
+decode plane, and the encode planes (Q31 analysis, exact search, golden hide
+bytes), each equal to the CPU torch result. Marked ``cuda``; without a card
+every test skips.
 
 This file imports no JAX and uses no conftest fixture (tests/conftest.py
 imports JAX, which the card's machine does not have). Run it there with
@@ -90,3 +92,69 @@ def test_card_plane_refuses_float64(card):
     prep = dp.prep_to_torch(synthetic_prep(4), card)
     with pytest.raises(ValueError, match="float32"):
         dp.decode_granules(prep, torch.float64)
+
+
+def _square_noise_pcm(n, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    sq = np.where((t // 50) % 2 == 0, 32767, -32768)
+    pcm = np.stack([sq, np.roll(sq, 17)]).astype(np.int16)
+    pcm[:, ::3] = rng.integers(-32768, 32768, size=pcm[:, ::3].shape)
+    return pcm
+
+
+def test_card_analysis_equals_cpu(card):
+    """Full-scale input (the Q31 sums wrap), chunked as on a song."""
+    from mp3stego_tpu_torch.ops import encode_plane as EP
+    pcm = _square_noise_pcm(300 * 576, 8)
+    got = EP.run_analysis_device(pcm, 300, card, chunk_g=128)
+    want = EP.run_analysis_device(pcm, 300, "cpu")
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("mode", ["clear", "hide"])
+def test_card_search_rows_equal_cpu(card, mode):
+    """The golden fixture's spectra plus loud seeded lanes (float64-fallback
+    cells, escapes): every row and the ix plane, bit for bit."""
+    import os
+    from mp3stego_tpu_torch.ops import search_plane as SP
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    mdct = np.load(os.path.join(gold, "encode_golden.npz"))["mdct_freq"]
+    rng = np.random.default_rng(12)
+    loud = rng.integers(-2 ** 30, 2 ** 30, size=(48, 576)) \
+        >> rng.integers(0, 24, size=(48, 1))
+    xr = np.concatenate([mdct.transpose(1, 0, 2, 3).reshape(-1, 576),
+                         loud]).astype(np.int32)
+    mb = rng.integers(300, 4095, size=len(xr)).astype(np.int32)
+    hide = {}
+    if mode == "hide":
+        hide = dict(hide_bits=rng.integers(0, 2, 300).astype(np.uint8),
+                    hide_cur=np.cumsum(rng.integers(0, 3, len(xr))))
+    got = SP.search_all(torch.from_numpy(xr).to(card), mb, 0, **hide)
+    want = SP.search_all(torch.from_numpy(xr), mb, 0, **hide)
+    for k in SP.ROWS + ("ix",):
+        assert np.array_equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("key", ["hidden_short", "hidden_long",
+                                 "hidden_toolong"])
+def test_card_golden_hide_bytes(card, key, tmp_path):
+    import os
+    from mp3stego_tpu_torch import Encoder
+    from mp3stego_tpu_torch.steganography import _frame_message
+    gold = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "golden", "stego_golden.npz"))
+    wav = tmp_path / "g.wav"
+    wav.write_bytes(gold["wav_bytes"].tobytes())
+    msg = {"hidden_short": "ddd", "hidden_toolong": "ddd" * 100,
+           "hidden_long": gold["msg_long"].tobytes().decode()}[key]
+    outs = {}
+    for dev in (card, "cpu"):
+        out = str(tmp_path / f"{torch.device(dev).type}.mp3")
+        too_long = Encoder(str(wav), out, 320, hide_str=_frame_message(msg),
+                           device=dev).encode()
+        assert too_long is (key == "hidden_toolong")
+        with open(out, "rb") as f:
+            outs[torch.device(dev).type] = f.read()
+    assert outs["cuda"] == outs["cpu"] == gold[key].tobytes()

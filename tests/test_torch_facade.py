@@ -9,6 +9,8 @@ package's, on the CPU.
   of ~2e-7 on a loud stationary signal crosses more truncation boundaries);
   its float PCM stays within 1e-5 of float64 on all of them.
 * ``precision="float64"``: WAV bytes equal the JAX package's exactly.
+* Encode, hide (then reveal), clear, capacity and the ID3 carry-over with
+  ``device="cpu"``: bytes equal the JAX façade's.
 
 Both sides convert through the saturating int16 form. The golden
 ``wav_bytes`` are not used: they belong to the reference's original fixture,
@@ -21,6 +23,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the CPU planes run many small ops: with several test workers on the
+# machine, intra-op threads only contend (one worker's run is ~10x slower)
+torch.set_num_threads(1)
 
 from mp3stego_tpu import Steganography as JaxSteganography  # noqa: E402
 from mp3stego_tpu_torch import Steganography  # noqa: E402
@@ -136,14 +141,113 @@ def test_unknown_precision_rejected():
 
 
 @pytest.mark.parametrize("call", [
-    lambda s: s.encode_wav_to_mp3("a.wav", "b.mp3"),
-    lambda s: s.hide_message("a.mp3", "b.mp3", "m"),
-    lambda s: s.clear_file("a.mp3", "b.mp3"),
-    lambda s: s.message_capacity("a.mp3"),
+    lambda s, w: s.encode_wav_to_mp3(w, w[:-4] + ".mp3", vbr=True),
+    lambda s, w: s.encode_wav_to_mp3(w, w[:-4] + ".mp3", 128, True),
+    lambda s, w: s._encode(w, w[:-4] + ".mp3", 320, vbr=True),
+    lambda s, w: s._encode(w, w[:-4] + ".mp3", 320, hide_bits="01",
+                           vbr=True),
 ])
-def test_encoder_paths_not_ported(call):
+def test_encoder_paths_not_ported(call, fixture_wav):
+    """VBR is the one encode path the port leaves out (ROADMAP.md queue 1,
+    item 7): it raises before any output is written."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(Steganography(quiet=True))
+        call(Steganography(quiet=True, device="cpu"), fixture_wav)
+    assert not os.path.exists(fixture_wav[:-4] + ".mp3")
+
+
+@pytest.fixture(scope="module")
+def fixture_wav(tmp_path_factory, fixture_mp3):
+    """The fixture decoded (float64, the parity WAV)."""
+    wav = str(tmp_path_factory.mktemp("fwav") / "fixture.wav")
+    JaxSteganography(quiet=True).decode_mp3_to_wav(fixture_mp3, wav)
+    return wav
+
+
+def _bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("kbps", [320, 128])
+def test_encode_wav_to_mp3_equals_jax(kbps, fixture_wav, tmp_path):
+    j, p = str(tmp_path / "j.mp3"), str(tmp_path / "p.mp3")
+    JaxSteganography(quiet=True).encode_wav_to_mp3(fixture_wav, j, kbps)
+    Steganography(quiet=True, device="cpu").encode_wav_to_mp3(fixture_wav, p,
+                                                              kbps)
+    assert _bytes(p) == _bytes(j)
+
+
+@pytest.mark.parametrize("precision", ["float64", "float32"])
+@pytest.mark.parametrize("message", ["ddd", "the port hides, too"])
+def test_hide_then_reveal(message, precision, fixture_mp3, tmp_path):
+    """float64: the hidden bytes equal the JAX façade's. float32 (the torch
+    decode plane): the WAV may differ by 1 LSB, so the bytes may too; the
+    message still reads back."""
+    out = str(tmp_path / "h.mp3")
+    s = Steganography(quiet=True, precision=precision, device="cpu")
+    too_long = s.hide_message(fixture_mp3, out, message)
+    if precision == "float64":
+        j = str(tmp_path / "j.mp3")
+        assert too_long == JaxSteganography(quiet=True).hide_message(
+            fixture_mp3, j, message)
+        assert _bytes(out) == _bytes(j)
+    assert too_long is False
+    txt = str(tmp_path / "r.txt")
+    s.reveal_massage(out, txt)
+    with open(txt) as f:
+        assert f.read() == message
+
+
+def test_clear_file_equals_jax(fixture_mp3, tmp_path):
+    j, p = str(tmp_path / "j.mp3"), str(tmp_path / "p.mp3")
+    JaxSteganography(quiet=True).clear_file(fixture_mp3, j)
+    Steganography(quiet=True, device="cpu").clear_file(fixture_mp3, p)
+    assert _bytes(p) == _bytes(j)
+
+
+def test_message_capacity_equals_jax_and_is_exact(fixture_mp3, tmp_path):
+    s = Steganography(quiet=True, device="cpu")
+    c = s.message_capacity(fixture_mp3)
+    assert c == JaxSteganography(quiet=True).message_capacity(fixture_mp3)
+    assert c > 0
+    assert s.hide_message(fixture_mp3, str(tmp_path / "fit.mp3"),
+                          "x" * c) is False
+    assert s.hide_message(fixture_mp3, str(tmp_path / "over.mp3"),
+                          "x" * (c + 1)) is True
+
+
+@pytest.mark.parametrize("keep_id3", [False, True])
+def test_keep_id3_equals_jax(keep_id3, fixture_mp3, tmp_path):
+    """With keep_id3 the input's ID3v2 tag is carried over to the hidden
+    and the cleared file, byte for byte as the JAX façade does."""
+    tag = (b"ID3\x03\x00\x00\x00\x00\x00\x15"
+           b"TIT2\x00\x00\x00\x0b\x00\x00\x00port title")
+    tagged = str(tmp_path / "tagged.mp3")
+    with open(tagged, "wb") as f:
+        f.write(tag + _bytes(fixture_mp3))
+    s = Steganography(quiet=True, keep_id3=keep_id3, device="cpu")
+    js = JaxSteganography(quiet=True, keep_id3=keep_id3)
+    for op in ("hide", "clear"):
+        p, j = str(tmp_path / f"p_{op}.mp3"), str(tmp_path / f"j_{op}.mp3")
+        if op == "hide":
+            s.hide_message(tagged, p, "id3")
+            js.hide_message(tagged, j, "id3")
+        else:
+            s.clear_file(tagged, p)
+            js.clear_file(tagged, j)
+        assert _bytes(p) == _bytes(j)
+        assert _bytes(p).startswith(tag) is keep_id3
+
+
+def test_encoder_default_device_raises_without_a_card(fixture_wav, tmp_path,
+                                                      monkeypatch):
+    """No silent CPU fallback for the encoder either: with the default
+    device and no card, encoding raises (decoding in float64 does not need
+    the card)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    s = Steganography(quiet=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        s.encode_wav_to_mp3(fixture_wav, str(tmp_path / "o.mp3"))
 
 
 def test_path_checks_exit_like_the_reference(stream_path, tmp_path):

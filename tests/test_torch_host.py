@@ -146,3 +146,29 @@ def test_reference_layout_lsf_refused_alike(name, goldens):
     with pytest.raises(ValueError, match="lsf_compliant") as perr:
         pdh.parse_mp3(data, 0)
     assert str(perr.value) == str(jerr.value)
+
+
+ENCODER_TABLES = {
+    "ENWINDOW": lambda T: T.ENWINDOW,
+    "subband_filter_fixed": lambda T: T.subband_filter_fixed(),
+    "mdct_cos_fixed": lambda T: T.mdct_cos_fixed(),
+    "MDCT_CS_FIX": lambda T: T.MDCT_CS_FIX,
+    "MDCT_CA_FIX": lambda T: T.MDCT_CA_FIX,
+    "loop_tables": lambda T: np.concatenate(
+        [np.asarray(a, np.float64).ravel() for a in T.loop_tables()]),
+    "SUBDV_TABLE": lambda T: T.SUBDV_TABLE,
+    "BAND_ALL": lambda T: T.BAND_ALL,
+    "HUFF_LINMAX": lambda T: T.HUFF_LINMAX,
+    "SLEN1_TAB": lambda T: T.SLEN1_TAB,
+}
+
+
+@pytest.mark.parametrize("name", list(ENCODER_TABLES))
+def test_encoder_tables_equal_jax_package(name):
+    """The encoder's constant state (this system has no trained weights):
+    the Q31 analysis tables, the quantizer's step/LUT tables and the band
+    and region tables equal the JAX package's, dtype and all."""
+    from mp3stego_tpu import tables as JT
+    got, want = ENCODER_TABLES[name](PT), ENCODER_TABLES[name](JT)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.array_equal(got, want)

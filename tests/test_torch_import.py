@@ -1,9 +1,11 @@
-"""The torch port imports and decodes with JAX and the JAX package refused.
+"""The torch port imports, decodes, encodes and hides with JAX and the JAX
+package refused.
 
 A fresh interpreter installs a ``sys.meta_path`` finder that refuses the
 top-level names ``jax``, ``jaxlib`` and ``mp3stego_tpu`` (exact match:
-``mp3stego_tpu_torch`` starts with ``mp3stego_tpu``), then imports the port
-and decodes a golden stego file with the torch plane on the CPU.
+``mp3stego_tpu_torch`` starts with ``mp3stego_tpu``), then imports the port,
+decodes a golden stego file with the torch plane on the CPU, re-encodes the
+golden WAV and hides a message with the torch planes on the CPU.
 """
 
 import os
@@ -45,6 +47,17 @@ with tempfile.TemporaryDirectory() as tmp:
     s.reveal_massage(mp3, os.path.join(tmp, "h.txt"))
     with open(os.path.join(tmp, "h.txt")) as f:
         assert f.read() == "ddd"
+    wav = os.path.join(tmp, "g.wav")
+    with open(wav, "wb") as f:
+        f.write(gold["wav_bytes"].tobytes())
+    s.encode_wav_to_mp3(wav, os.path.join(tmp, "e.mp3"))
+    enc = np.load(os.path.join("tests", "golden", "encode_golden.npz"))
+    with open(os.path.join(tmp, "e.mp3"), "rb") as f:
+        assert f.read() == enc["mp3_bytes"].tobytes()
+    assert s.hide_message(mp3, os.path.join(tmp, "h2.mp3"), "no jax") is False
+    s.reveal_massage(os.path.join(tmp, "h2.mp3"), os.path.join(tmp, "h2.txt"))
+    with open(os.path.join(tmp, "h2.txt")) as f:
+        assert f.read() == "no jax"
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("NO_JAX_OK")
@@ -54,6 +67,7 @@ print("NO_JAX_OK")
 def test_port_imports_and_decodes_without_jax():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
+    env["OMP_NUM_THREADS"] = "1"     # see tests/test_torch_encoder.py
     r = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
