@@ -4,16 +4,20 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one CUDA card (Hopper:
-the kernels are built for sm_90a). It builds every kernel of the decode and
-hide paths from the sources in the checkout, holds each against its plain
-PyTorch version, drives both paths through the public façade at a size users
-send (one 240.7-second 320 kbps stereo song: decode it, measure its
-capacity, hide a message of 90 % of it, reveal it, clear it), checks every
-output against the bit-exact host planes and the goldens, and times it.
-Every phase raises on a fault; nothing is caught. The last line of
-standard output is ``{"ok": true, "device": {...}}``; the line before it
-lists the kernels (launches during the main-path runs, error against the
-plain version, times).
+the kernels are built for sm_90a). It builds every kernel of the port's
+paths from the sources in the checkout, holds each against its plain
+PyTorch version (and times a library call that computes the same function),
+drives every entry point at a size users send (one 240.7-second 320 kbps
+stereo song through the façade: decode it, measure its capacity, hide a
+message of 90 % of it, reveal it, clear it; a batched decode of 32 files
+and a batched encode of 9; a VBR encode and the streaming decode and encode
+of the song; a hide and reveal through the CLI), checks every output
+against the bit-exact host planes, the single-file paths and the goldens,
+and times it. Every phase raises on a fault; nothing is caught. The last
+line of standard output is ``{"ok": true, "device": {...}}``; the line
+before it lists the kernels (launches during the main-path runs, error
+against the plain version, times, bound, library time), and the one before
+that the card's name and power limit.
 
 It imports nothing of JAX and nothing of the JAX package. Without a card, or
 outside a checkout, it exits non-zero before printing any result.
@@ -25,6 +29,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -51,10 +56,13 @@ GOLD = os.path.join(REPO, "tests", "golden")
 SONG_COPIES = 256
 S_SLICE = 18 * 2 * 36 * SONG_COPIES          # FIR sub-steps per channel
 MAX_LSB_RATE = 1e-3                          # tests/test_precision.py contract
-# the half-second MPEG-2/2.5 tone streams: the JAX package's own float32
-# plane flips 1.4e-3 of their samples (tests/test_torch_facade.py)
-LSF_MAX_LSB_RATE = 2e-3
+# the half-second tone streams of the goldens (MPEG-2/2.5 and multirate):
+# the JAX package's own float32 plane flips 1.4e-3 of the LSF ones' samples
+# (tests/test_torch_facade.py), the port's CPU plane 0.8e-3 to 1.5e-3 of
+# them all (a loud stationary tone crosses more truncation boundaries)
+TONE_MAX_LSB_RATE = 2e-3
 HIDE_SHARE = 0.9                             # message size / capacity
+BATCH_SLICES = 23                            # 30 s slices in the batch
 
 
 def synthetic_parsed(t: int, seed: int = 0) -> ParsedMP3:
@@ -163,13 +171,16 @@ def _say_stages(phase, card, timers):
                     f"ms of {[round(m, 2) for m in ms]}")
 
 
-def _encode_bytes(wav: str, dev, bits="", kbps=320, host=False):
+def _encode_bytes(wav: str, dev, bits="", kbps=320, host=False, vbr=False):
     """An encode of a WAV file on ``dev``, or with the host C++ engine:
     (bytes, the MP3Encoder)."""
-    enc = MP3Encoder(read_wav(wav, kbps), hide_str=bits, device=dev)
+    enc = MP3Encoder(read_wav(wav, kbps), hide_str=bits, device=dev, vbr=vbr)
     if host:
-        if not enc._encode_host(enc._num_frames(), StageTimer()):
+        nf = enc._num_frames()
+        if not enc._encode_host(nf, StageTimer()):
             raise RuntimeError("the host C++ encode engine is unavailable")
+        if vbr:
+            enc.out_buffer = bytearray(enc._xing_frame(nf)) + enc.out_buffer
     else:
         enc.encode()
     return bytes(enc.out_buffer), enc
@@ -213,9 +224,10 @@ def _expect_equal(name, got: bytes, want: bytes):
 
 
 def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
-                  s32: Steganography) -> int:
+                  s32: Steganography) -> dict:
     """Phases 8-11: the encode and hide path on the song and the goldens.
-    Returns the synth_fir launches of the float32 hide (phase 11)."""
+    Returns the synth_fir launches of the float32 hide (phase 11), the
+    song's clear encode bytes and the seeded song's WAV."""
     # ---- phase 8: the Q31 analysis on the card against the host C++ twin
     w = read_wav(wav64, 320)
     seconds = w.num_of_samples / w.samplerate
@@ -275,6 +287,7 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
     host_s = time.perf_counter() - t0
     wall, walls, outs = _median3(lambda: _encode_bytes(wav64, dev))
     card_b, enc = outs[-1]
+    clear_b = card_b
     _expect_equal("song encode: card vs host C++", card_b, host_b)
     _say("9 encode", f"[{card}] {seconds:.2f} s song at 320 kbps: card "
                      f"bytes ({len(card_b)}) equal the host C++ engine's; "
@@ -394,7 +407,274 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
                        f"back; synth_fir launches in the hide {hide_launches}"
                        f"; clear_file bytes equal a plain encode of the same "
                        f"decode")
-    return hide_launches
+    return dict(hide_launches=hide_launches, clear_bytes=clear_b,
+                seeded_wav=wav_s)
+
+
+def _write(path: str, data: bytes) -> str:
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
+def _frame_slice(data: bytes, parsed, first: int, count: int) -> bytes:
+    """Frames [first, first + count) of a parsed stream, cut at their
+    byte offsets (a slice opens with a reservoir the decoder does not
+    have, as a file cut from a stream does)."""
+    ends = np.cumsum(np.asarray(parsed.frame_sizes, np.int64))
+    start = 0 if first == 0 else int(ends[first - 1])
+    return data[start:int(ends[first + count - 1])]
+
+
+def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
+                 enc_out: dict) -> dict:
+    """Phases 12-15 and the CLI round trip: the batched decode (K1 over the
+    (file, channel) rows of each chunk), the batched encode, VBR, and the
+    streaming decode and encode of the song. Returns the batched decode's
+    K1 launches and the timings."""
+    from mp3stego_tpu_torch.bitstream import vbr
+    from mp3stego_tpu_torch.models.streaming import (
+        decode_file_streaming, encode_file_streaming)
+    from mp3stego_tpu_torch.ops import search_plane as SP
+    from mp3stego_tpu_torch.parallel import (
+        batch_decode as BD, decode_files_batched, encode_files_batched)
+
+    # ---- phase 12: batched decode of 32 files: 30 s slices of the song,
+    # cut at frames spread over it, the goldens at other rates, and mono
+    with open(song, "rb") as f:
+        song_b = f.read()
+    song_parsed = dh.parse_mp3(song_b)
+    n_slice = 1148                                 # 30.0 s of 1,152 samples
+    span = song_parsed.num_frames - n_slice
+    paths = []
+    for k in range(BATCH_SLICES):
+        first = round(k * span / (BATCH_SLICES - 1))
+        paths.append(_write(os.path.join(tmp, f"slice{k}.mp3"), _frame_slice(
+            song_b, song_parsed, first, n_slice)))
+    mr = np.load(os.path.join(GOLD, "multirate_golden.npz"))
+    for tag in ("32000_64", "32000_192", "44100_128", "48000_96",
+                "48000_320"):
+        paths.append(_write(os.path.join(tmp, f"b_{tag}.mp3"),
+                            mr[f"mp3_{tag}"].tobytes()))
+    lsf = np.load(os.path.join(GOLD, "torch_lsf_golden.npz"))
+    lsf_names = ("mpeg2_24k_64", "mpeg2_22k05_80", "mpeg25_8k_32")
+    for name in lsf_names:
+        paths.append(_write(os.path.join(tmp, f"b_{name}.mp3"),
+                            lsf[name].tobytes()))
+    rng = np.random.default_rng(12)
+    t = np.arange(30 * 44100) / 44100
+    mono = np.clip((0.4 * np.sin(2 * np.pi * 330 * t)
+                    + 0.05 * rng.standard_normal(t.size)) * 30000,
+                   -32768, 32767).astype(np.int16)
+    mono_wav = os.path.join(tmp, "mono.wav")
+    write_wav(mono_wav, 44100, mono)
+    paths.append(_write(os.path.join(tmp, "b_mono.mp3"),
+                        _encode_bytes(mono_wav, dev, kbps=128)[0]))
+    metas = []
+    for p in paths:
+        with open(p, "rb") as f:
+            metas.append(dh.parse_mp3(f.read()))
+    chunks = BD._chunks(metas, 16)
+    # the float run hands K1 each chunk's V history over F * ch rows; a
+    # copy of each is held below against the plain version, bit for bit
+    fir, v_hist = dp.synth_fir, []
+
+    def fir_copy(v_ext, s):
+        v_hist.append(v_ext.clone())
+        return fir(v_ext, s)
+
+    dp.synth_fir = fir_copy
+    try:
+        floats = decode_files_batched(paths, device=dev)
+    finally:
+        dp.synth_fir = fir
+    for p, parsed, got in zip(paths, metas, floats):
+        want = dp.decode_pcm(parsed, "float32", dev)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"batched float decode of {p} != its "
+                                 f"single-file decode on the card")
+    if len(v_hist) != len(chunks):
+        raise AssertionError(f"batched decode: {len(v_hist)} K1 calls for "
+                             f"{len(chunks)} chunks")
+    k1_err = 0.0
+    for v in v_hist:
+        got, want = _fir_pair(v, v.shape[1] - 15)
+        k1_err = max(k1_err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"synth_fir != plain on a chunk's V history "
+                                 f"{tuple(v.shape)}: max |d| {k1_err}")
+    _say("12 batch decode", f"K1 bitwise equal to synth_fir_torch on each "
+                            f"chunk's V history (rows, 15 + S, 64): "
+                            f"{[tuple(v.shape) for v in v_hist]}")
+    del v_hist, got, want
+    sf.launches = 0
+    t0 = time.perf_counter()
+    i16 = decode_files_batched(paths, out="int16", device=dev)
+    first_s = time.perf_counter() - t0
+    batch_launches = sf.launches
+    if batch_launches != len(chunks):
+        raise AssertionError(f"batched decode: {batch_launches} K1 launches "
+                             f"for {len(chunks)} chunks")
+    audio_s, worst = 0.0, (0.0, "")
+    for p, parsed, got in zip(paths, metas, i16):
+        audio_s += got.shape[0] / parsed.header.sampling_rate
+        want = dp.decode_pcm_i16_host(parsed)
+        name = os.path.basename(p)
+        _lsb_contract(name, got, want, MAX_LSB_RATE
+                      if name.startswith("slice") else TONE_MAX_LSB_RATE)
+        rate = float((got != want).mean())
+        worst = max(worst, (rate, os.path.basename(p)))
+    wall, walls, _ = _median3(
+        lambda: decode_files_batched(paths, out="int16", device=dev))
+    t0 = time.perf_counter()
+    for p in paths:
+        dp.decode_pcm_i16(BD._read_parsed(p), dev)
+    single_s = time.perf_counter() - t0
+    _say("12 batch decode", f"{len(paths)} files ({audio_s:.2f} s of audio) "
+                            f"in {len(chunks)} chunks: float PCM bit for bit "
+                            f"each file's own card decode; int16 within 1 "
+                            f"LSB of the float64 host plane (largest share "
+                            f"{worst[0]:.3e}, {worst[1]})")
+    _say("12 batch decode", f"[{card}] wall median {wall * 1e3:.1f} ms of "
+                            f"{[round(x * 1e3, 1) for x in walls]} -> "
+                            f"{audio_s / wall:.1f}x realtime (first call "
+                            f"{first_s * 1e3:.1f} ms); K1 launches "
+                            f"{batch_launches} (one per chunk); one file at "
+                            f"a time (read, parse, card plane) "
+                            f"{single_s * 1e3:.1f} ms")
+
+    # ---- phase 13: batched encode, 8 stereo WAVs of 30 s and a mono one
+    w = read_wav(enc_out["seeded_wav"], 320)
+    pcm = w.buffer.reshape(-1, 2)
+    n30 = 30 * 44100
+    jobs = []
+    for k in range(8):
+        a = k * (pcm.shape[0] - n30) // 7
+        wav = os.path.join(tmp, f"enc{k}.wav")
+        write_wav(wav, 44100, pcm[a:a + n30])
+        jobs.append((wav, os.path.join(tmp, f"enc{k}.mp3")))
+    jobs.append((mono_wav, os.path.join(tmp, "enc_mono.mp3")))
+    enc_audio = 9 * 30.0
+    encode_files_batched(jobs, device=dev)           # warm-up
+    wall, walls, _ = _median3(lambda: encode_files_batched(jobs, device=dev))
+    t0 = time.perf_counter()
+    singles = [_encode_bytes(wav, dev)[0] for wav, _ in jobs]
+    single_s = time.perf_counter() - t0
+    for (wav, out), want in zip(jobs, singles):
+        with open(out, "rb") as f:
+            _expect_equal(f"batched encode of {os.path.basename(wav)}",
+                          f.read(), want)
+    _say("13 batch encode", f"[{card}] 9 files ({enc_audio:.0f} s of audio, "
+                            f"8 stereo + 1 mono): bytes equal each file's own "
+                            f"MP3Encoder on the card; wall median "
+                            f"{wall * 1e3:.1f} ms of "
+                            f"{[round(x * 1e3, 1) for x in walls]} -> "
+                            f"{enc_audio / wall:.1f}x realtime; one file at a "
+                            f"time {single_s * 1e3:.1f} ms")
+
+    # ---- phase 14: VBR encode of the song at 128 kbps average
+    wall, walls, outs = _median3(
+        lambda: _encode_bytes(wav64, dev, kbps=128, vbr=True))
+    vbr_b, venc = outs[-1]
+    host_b, _ = _encode_bytes(wav64, dev, kbps=128, vbr=True, host=True)
+    _expect_equal("song VBR: card vs host C++", vbr_b, host_b)
+    nf = venc._num_frames()
+    xr_card = venc._analysis_device(nf)
+    lib = native.get_lib()
+    xr_host = np.ascontiguousarray(xr_card.cpu().numpy())
+    for step in venc.vbr_steps:
+        want = np.empty(xr_host.shape[0], np.int64)
+        lib.rate_cost_step(xr_host, xr_host.shape[0], step - 127,
+                           venc.band_row * 23, 1 << 20, want)
+        got = SP.cost_step(xr_card, step - 127, venc.band_row).cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"card lane cost != rate_cost_step at grid "
+                                 f"step {step}")
+    tag = vbr.parse_vbr_tag(vbr_b, 0)
+    if tag is None or tag.stream_bytes != len(vbr_b) or tag.frames != nf:
+        raise AssertionError(f"VBR Xing tag does not parse back: {tag}")
+    vbr_mp3 = _write(os.path.join(tmp, "song_vbr.mp3"), vbr_b)
+    s64 = Steganography(quiet=True, precision="float64", device=dev)
+    kbps = s64.decode_mp3_to_wav(vbr_mp3, os.path.join(tmp, "song_vbr.wav"))
+    if kbps != vbr.avg_bitrate_kbps(tag, dh.parse_mp3(vbr_b).header):
+        raise AssertionError(f"VBR decode reports {kbps} kbps")
+    _say("14 vbr", f"[{card}] song at 128 kbps average: {len(vbr_b)} bytes "
+                   f"equal the host C++ engine's; card lane cost equals "
+                   f"rate_cost_step on all {xr_host.shape[0]} lanes at the "
+                   f"{len(venc.vbr_steps)} steps the bisection visited "
+                   f"{venc.vbr_steps}; Xing tag parses back ({tag.frames} "
+                   f"frames); façade decode reports {kbps} kbps; wall median "
+                   f"{wall * 1e3:.1f} ms of {[round(x * 1e3, 1) for x in walls]}"
+                   f"; framing stage {venc.timer.times['framing'] * 1e3:.1f} "
+                   f"ms")
+
+    # ---- phase 15: streaming decode and encode of the song
+    wav_st = os.path.join(tmp, "song_stream.wav")
+    t0 = time.perf_counter()
+    info = decode_file_streaming(song, wav_st)
+    dec_s = time.perf_counter() - t0
+    with open(wav_st, "rb") as a, open(wav64, "rb") as b:
+        _expect_equal("streaming decode vs whole-file float64", a.read(),
+                      b.read())
+    mp3_st = os.path.join(tmp, "song_stream.mp3")
+    t0 = time.perf_counter()
+    encode_file_streaming(wav64, mp3_st, 320)
+    enc_s = time.perf_counter() - t0
+    with open(mp3_st, "rb") as f:
+        _expect_equal("streaming encode vs whole-file encode", f.read(),
+                      enc_out["clear_bytes"])
+    _say("15 streaming", f"[{card}] song ({info['num_frames']} frames): "
+                         f"streaming decode WAV equals the whole-file float64"
+                         f" WAV ({dec_s * 1e3:.1f} ms); streaming encode "
+                         f"equals the whole-file encode ({enc_s * 1e3:.1f} "
+                         f"ms)")
+
+    # ---- the CLI round trip: hide -> reveal in a subprocess
+    gold = _write(os.path.join(tmp, "cli.mp3"), np.load(os.path.join(
+        GOLD, "encode_golden.npz"))["mp3_bytes"].tobytes())
+    cli = [sys.executable, "-m", "mp3stego_tpu_torch", "--device", dev.type]
+    hidden = os.path.join(tmp, "cli_hidden.mp3")
+    txt = os.path.join(tmp, "cli.txt")
+    for argv in (["hide", gold, hidden, "through the CLI"],
+                 ["reveal", hidden, txt]):
+        r = subprocess.run(cli + argv, cwd=REPO, timeout=300,
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise AssertionError(f"CLI {argv[0]} exited {r.returncode}:\n"
+                                 f"{r.stdout}{r.stderr}")
+    with open(txt) as f:
+        if f.read() != "through the CLI":
+            raise AssertionError("CLI reveal did not give the message back")
+    _say("15 cli", "python -m mp3stego_tpu_torch hide -> reveal gives the "
+                   "message back")
+    return dict(batch_launches=batch_launches, k1_err=k1_err)
+
+
+def _conv1d_fir(v_ext: torch.Tensor, s: int):
+    """The FIR as one grouped ``conv1d`` (the library yardstick, used
+    nowhere in the port): V's channels interleaved as (k, 32 + k) pairs,
+    ``w[k, j % 2, 15 - j] = D[j, k]``. Returns (the call, its inputs' layout
+    already made, so only the call is timed)."""
+    d = sf._window(torch.float32, v_ext.device)
+    idx = torch.stack([torch.arange(32), torch.arange(32) + 32], 1) \
+        .reshape(-1).to(v_ext.device)
+    x = v_ext.permute(0, 2, 1)[:, idx].contiguous()     # (ch, 64, 15 + S)
+    w = torch.zeros((32, 2, 16), dtype=torch.float32, device=v_ext.device)
+    for j in range(16):
+        w[:, j % 2, 15 - j] = d[j]
+    return lambda: torch.nn.functional.conv1d(x, w, groups=32)
+
+
+def _k1_bound_ms(ch: int, s: int):
+    """The least time for K1's work on the card: (bytes moved: V history
+    read once, window read once, PCM written once) over 3.35 TB/s against
+    (2 flops per tap and output) over 67 TFLOP/s float32, the H100 SXM's
+    published peaks. Returns (ms, "bytes" or "operations")."""
+    nbytes = 4 * (ch * (15 + s) * 64 + 16 * 32 + ch * s * 32)
+    flops = 2 * 16 * ch * s * 32
+    by_bytes, by_ops = nbytes / 3.35e12 * 1e3, flops / 67e12 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
 
 
 def main() -> int:
@@ -415,17 +695,22 @@ def main() -> int:
     _say("0 card", "TF32 off (matmul and cuDNN)")
 
     # ---- phase 1: build the kernel (nvcc, sm_90a) and the host library
-    _cuda.load("synth_fir", sf._SIGNATURES)
+    # (g++), both started together
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        host_lib = pool.submit(native.get_lib)
+        _cuda.load("synth_fir", sf._SIGNATURES)
+        if host_lib.result() is None:
+            raise RuntimeError("the native host library did not build or "
+                               "load")
     info = _cuda.builds["synth_fir"]
     _say("1 build", f"csrc/synth_fir.cu -> {os.path.relpath(info['path'], REPO)}"
                     f" in {info['seconds']:.2f} s")
     for line in info["log"].splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
             _say("1 build", "ptxas: " + line.strip())
-    t0 = time.perf_counter()
-    if native.get_lib() is None:
-        raise RuntimeError("the native host library did not build or load")
-    _say("1 build", f"native host library in {time.perf_counter() - t0:.2f} s")
+    _say("1 build", f"kernel and native host library (in parallel) in "
+                    f"{time.perf_counter() - t0:.2f} s")
 
     # ---- phase 2: K1 against its plain version, bit for bit
     rng = np.random.default_rng(0)
@@ -561,7 +846,7 @@ def main() -> int:
             s32.decode_mp3_to_wav(path, os.path.join(tmp, f"{name}32.wav"))
             line = _lsb_contract(
                 name, _wav_i16(os.path.join(tmp, f"{name}32.wav")),
-                _wav_i16(os.path.join(tmp, f"{name}64.wav")), LSF_MAX_LSB_RATE)
+                _wav_i16(os.path.join(tmp, f"{name}64.wav")), TONE_MAX_LSB_RATE)
             parsed = dh.parse_mp3(g2[name].tobytes())
             err = float(np.abs(dp.decode_pcm(parsed, "float32", dev)
                                - dp.decode_pcm(parsed, "float64")).max())
@@ -585,31 +870,55 @@ def main() -> int:
             _say("6 reveal", f"{key}: {got!r}")
 
         # ---- phases 8-11: the encode and hide path on the same song
-        hide_launches = encode_phases(dev, card, tmp, song,
-                                      os.path.join(tmp, "song64.wav"), s32)
+        enc_out = encode_phases(dev, card, tmp, song,
+                                os.path.join(tmp, "song64.wav"), s32)
+        hide_launches = enc_out["hide_launches"]
 
-    # ---- phase 7: K1 time against its plain version at the slice's shape
+        # ---- phases 12-15: batched decode and encode, VBR, streaming, CLI
+        batch = batch_phases(dev, card, tmp, song,
+                             os.path.join(tmp, "song64.wav"), enc_out)
+        batch_launches = batch["batch_launches"]
+        k1_err = max(k1_err, batch["k1_err"])
+
+    # ---- phase 7: K1 time against its plain version and a grouped conv1d
+    # (the library yardstick) at the slice's shape
     v = torch.from_numpy(np.random.default_rng(7).standard_normal(
         (2, 15 + S_SLICE, 64)).astype(np.float32)).to(dev)
     kern = lambda: sf.synth_fir(v, S_SLICE)          # noqa: E731
     plain = lambda: sf.synth_fir_torch(v, S_SLICE)   # noqa: E731
-    for fn in (kern, plain):
-        fn()
-    times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        times[which].append(_time_ms(kern if which == "kernel" else plain, 20))
+    conv = _conv1d_fir(v, S_SLICE)
+    got, lib_out = kern(), conv().permute(0, 2, 1)
+    torch.cuda.synchronize()
+    # float32, the 16 taps summed in another order: a few ulps of the
+    # unit-scale outputs
+    lib_err = float((got - lib_out).abs().max())
+    lib_tol = 1e-5 * max(1.0, float(got.abs().max()))
+    if not lib_err < lib_tol:
+        raise AssertionError(f"conv1d FIR vs K1: max |d| {lib_err} >= "
+                             f"{lib_tol}")
+    plain()
+    times = {"plain": [], "kernel": [], "conv1d": []}
+    for which in ("plain", "kernel", "conv1d", "conv1d", "kernel", "plain"):
+        fn = {"plain": plain, "kernel": kern, "conv1d": conv}[which]
+        times[which].append(_time_ms(fn, 20))
     k_ms, p_ms = min(times["kernel"]), min(times["plain"])
+    c_ms = min(times["conv1d"])
+    bound_ms, bound_by = _k1_bound_ms(2, S_SLICE)
     _say("7 K1 time", f"[{card}] v_ext (2, {15 + S_SLICE}, 64): kernel "
                       f"{times['kernel']} ms, plain {times['plain']} ms "
-                      f"(plain/kernel {p_ms / k_ms:.1f}x)")
+                      f"(plain/kernel {p_ms / k_ms:.1f}x), grouped conv1d "
+                      f"{times['conv1d']} ms (max |d| vs kernel {lib_err:.3e}"
+                      f", tolerance {lib_tol:.1e}); bound {bound_ms:.4f} ms "
+                      f"by {bound_by}, kernel at {bound_ms / k_ms:.1%} of it")
 
     print(card)
     print(json.dumps({"kernels": [{
         "name": "synth_fir", "route": "cuda",
         "source": "mp3stego_tpu_torch/csrc/synth_fir.cu",
         "replaces": "mp3stego_tpu/ops/pallas_kernels.py:42",
-        "launches": main_launches + hide_launches, "max_abs_err": k1_err,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+        "launches": main_launches + hide_launches + batch_launches,
+        "max_abs_err": k1_err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": c_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,8 +8,11 @@ package imports ``torch`` and never ``jax``, and imports nothing of
 
 Ported so far: the decode path (MP3 -> WAV, and reveal), with the synthesis
 FIR as a hand-written CUDA kernel for Hopper (``csrc/synth_fir.cu``), and
-the CBR encode path (WAV -> MP3, hide, clear, capacity), with the Q31
-analysis and the exact float64 rate search in torch on the device.
+the encode path (WAV -> MP3, CBR and VBR, hide, clear, capacity), with the
+Q31 analysis and the exact float64 rate search in torch on the device, the
+batched decode and encode over many files (``parallel``), the streaming
+decode and encode (``models.streaming``) and the CLI
+(``python -m mp3stego_tpu_torch``).
 
     from mp3stego_tpu_torch import Steganography, Decoder, Encoder
 """

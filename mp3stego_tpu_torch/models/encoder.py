@@ -23,6 +23,12 @@ The engines, all byte-identical (``MP3Encoder.encode``):
 * host oracle (``device_search=False``): the sequential per-frame search of
   the reference, native or NumPy.
 
+VBR (``vbr=True``, beyond the reference, which is CBR-only) picks one global
+quantizer step by bisection over the whole file's cost and gives each frame
+the smallest standard rate whose budget clears that step's cost
+(``_vbr_framing``); every engine then searches and serializes under those
+per-frame budgets, and the stream opens with a Xing tag frame.
+
 The stego channel injects the Huffman pair transform at table-selection time
 exactly like the reference (tables.TRANSFORM_HUF == IDX_TO_TRANSFORM_HUF,
 MP3_Encoder.py:419-449).
@@ -30,6 +36,7 @@ MP3_Encoder.py:419-449).
 
 import functools as _ft
 import os
+import struct
 import sys
 
 import numpy as np
@@ -45,9 +52,6 @@ from mp3stego_tpu_torch.utils.profiling import StageTimer, trace
 from mp3stego_tpu_torch.utils.wav import WavFile, read_wav
 
 _LN2 = 0.69314718  # the reference's constant (encoder/util.py:13), not log(2)
-
-_VBR_NOT_PORTED = ("VBR encode is not ported to the torch package yet "
-                   "(ROADMAP.md queue 1, item 7); use mp3stego_tpu")
 
 @_ft.lru_cache(maxsize=1)
 def _huff_code_u32():
@@ -192,7 +196,9 @@ class MP3Encoder:
         steganography; empty disables embedding.
     :param device_search: False runs the pure host oracle (no device).
     :param lsf_compliant: MPEG-2/2.5 only; see below.
-    :param vbr: not ported; True raises ``NotImplementedError``.
+    :param vbr: constant-quality VBR, ``wav_file.bitrate`` the target
+        average, with a Xing tag (``_vbr_framing``); a hide raises
+        ``ValueError``.
     :param device: the planes' device; None means CUDA, and a missing card
         raises (unless ``device_search`` is False).
 
@@ -205,11 +211,16 @@ class MP3Encoder:
     def __init__(self, wav_file: WavFile, hide_str: str = "",
                  device_search: bool = True, lsf_compliant: bool = None,
                  vbr: bool = False, device=None):
-        if vbr:
-            raise NotImplementedError(_VBR_NOT_PORTED)
         w = wav_file
         self.wav = w
         self.hide_str = hide_str
+        # the stego contract is defined on the reference's CBR layout
+        self.vbr = bool(vbr)
+        if self.vbr and hide_str:
+            raise ValueError("hide is defined on CBR streams only; "
+                             "encode with vbr=False to embed a message")
+        self._vbr_rate_idx = None        # (F,) header indices, _vbr_framing
+        self.vbr_steps = None            # the steps its bisection costed
         # MPEG-2/2.5 only: write the ISO 13818-3 LSF side info correctly
         # (scale_fac_scale + count1table_select bits, byte-aligned frames)
         # instead of the reference's layout, which omits those 2 bits per
@@ -361,6 +372,9 @@ class MP3Encoder:
                 self._encode_hide(num_frames, timer)
             else:
                 self._encode_plane(num_frames, timer)
+        if self.vbr:
+            self.out_buffer = (bytearray(self._xing_frame(num_frames))
+                               + self.out_buffer)
         if not quiet:
             timer.print_report()
 
@@ -373,9 +387,13 @@ class MP3Encoder:
             mdct_all = EP.run_analysis_native(streams, tg)
             if mdct_all is None:
                 mdct_all = EP.run_analysis_device(streams, tg, "cpu").numpy()
+        if self.vbr:
+            # sets _vbr_rate_idx/_vbr_rates; _encode_frame reads them
+            self._vbr_framing(mdct_all.reshape(-1, 576), num_frames)
         gpf = self.granules_per_frame
         with timer.stage("rate control + serialize (host)"):
             for f in range(num_frames):
+                self._frame_idx = f
                 self._encode_frame(mdct_all[:, f * gpf:(f + 1) * gpf])
                 self.out_buffer += self.bw.take_frame()
             # final flush (MP3_Encoder.py:616-618)
@@ -414,7 +432,8 @@ class MP3Encoder:
         tg = num_frames * self.granules_per_frame
         with timer.stage("analysis+mdct (device)"):
             xr = self._analysis_device(num_frames)
-        paddings, mean_bits_f = self._plane_framing(num_frames)
+        with timer.stage("framing"):
+            paddings, mean_bits_f = self._framing(xr, num_frames)
         max_bits_lanes = self._lane_budgets(mean_bits_f)
         with timer.stage("rate search (device)"):
             res_d = SP.search(xr, torch.from_numpy(max_bits_lanes)
@@ -450,7 +469,7 @@ class MP3Encoder:
                 return False
             xr = np.ascontiguousarray(xr.reshape(-1, 576))
 
-        paddings, mean_bits_f = self._plane_framing(num_frames)
+        paddings, mean_bits_f = self._framing(xr, num_frames)
         max_bits_lanes = self._lane_budgets(mean_bits_f)
 
         with timer.stage("rate search (host C++)"):
@@ -491,6 +510,161 @@ class MP3Encoder:
             mean_bits_f.append(int((bits_per_frame - self.side_info_len)
                                    / self.granules_per_frame))
         return paddings, mean_bits_f
+
+    # ------------------------------------------------------------------ VBR
+
+    def _frame_rate_indices(self, nf: int) -> np.ndarray:
+        """Per-frame header bitrate indices for the serializer: the VBR
+        choice when set, else the constant CBR index."""
+        if self._vbr_rate_idx is not None:
+            return self._vbr_rate_idx.astype(np.int32)
+        return np.full(nf, self.bitrate_index, np.int32)
+
+    def _vbr_valid_rates(self):
+        """Ascending valid Layer III rates (kbps) for this MPEG version."""
+        return [int(r[self.version]) for r in T.BIT_RATES
+                if int(r[self.version]) > 0]
+
+    def _vbr_slots(self, rate_kbps: int) -> int:
+        """Whole slots per frame at ``rate_kbps`` (padding-free VBR frame)."""
+        return int((self.granules_per_frame * 576.0 / self.wav.samplerate)
+                   * (1000.0 * rate_kbps / self.bits_per_slot))
+
+    def _lane_cost(self, xr, step: int) -> np.ndarray:
+        """Every lane's bits at quantizer step ``step`` (1 << 20 where the
+        search's ixmax <= 8192 gate fails there): on ``xr``'s device for
+        resident spectra (``SP.cost_step``), else with the native
+        ``rate_cost_step`` twin, else ``SP.cost_step`` on the CPU."""
+        if isinstance(xr, torch.Tensor):
+            return SP.cost_step(xr, step, self.band_row).cpu().numpy()
+        lib = _native_rate_lib()
+        if lib is None:
+            return SP.cost_step(torch.from_numpy(xr), step,
+                                self.band_row).numpy()
+        out = np.empty(xr.shape[0], np.int64)
+        lib.rate_cost_step(np.ascontiguousarray(xr, np.int32), xr.shape[0],
+                           step, self.band_row * 23, 1 << 20, out)
+        return out
+
+    def _vbr_framing(self, xr, num_frames: int):
+        """Constant-quality VBR framing (beyond the reference, CBR-only).
+
+        A single global quantizer step s* is chosen (by bisection over the
+        monotone whole-file cost) whose slot total best matches the
+        target-average rate (``wav.bitrate``); each frame then gets the
+        smallest standard rate whose per-lane budget clears that step's
+        cost. Frames use padding 0 (their size is their own header's).
+        ``xr`` is the (nch * Tg, 576) spectra, resident or on the host
+        (``_lane_cost``). Returns (paddings, mean_bits_f); records the
+        per-frame header indices in ``_vbr_rate_idx`` and the steps costed
+        in ``vbr_steps``."""
+        gpf = self.granules_per_frame
+        nch = self.wav.num_of_channels
+        rates = self._vbr_valid_rates()
+        slots = np.array([self._vbr_slots(r) for r in rates], np.int64)
+        budgets = np.array(
+            [min(int((8 * s - self.side_info_len) / gpf) // nch,
+                 Q.MAX_BITS_ALLOWANCE) for s in slots], np.int64)
+
+        cache = {}
+
+        def plan(s: int):
+            """(slot total, per-frame rate choice) at grid step s."""
+            if s not in cache:
+                need = self._lane_cost(xr, s - 127) \
+                    .reshape(nch, num_frames, gpf).max(axis=(0, 2))
+                ridx = np.minimum(np.searchsorted(budgets, need),
+                                  len(rates) - 1)
+                cache[s] = (int(slots[ridx].sum()), ridx)
+            return cache[s]
+
+        target = num_frames * (gpf * 576.0 / self.wav.samplerate) * (
+            1000.0 * self.bitrate / self.bits_per_slot)
+        # cost is non-increasing in s (coarser step -> fewer bits): bisect
+        # the crossing, then take the best of the crossing's neighborhood
+        lo, hi = 0, 127
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if plan(mid)[0] > target:
+                lo = mid + 1
+            else:
+                hi = mid
+        s_star = min((s for s in (lo - 1, lo, lo + 1) if 0 <= s <= 127),
+                     key=lambda s: (abs(plan(s)[0] - target), s))
+        self._vbr_step = s_star
+        self.vbr_steps = sorted(cache)
+        chosen = plan(s_star)[1]                         # (F,) rate index
+        self._vbr_rate_idx = np.array(
+            [_find_bitrate_index(r, self.version) for r in rates],
+            np.int32)[chosen]
+        self._vbr_rates = np.asarray(rates, np.int64)[chosen]
+        mean_bits_f = [int((8 * int(slots[i]) - self.side_info_len) / gpf)
+                       for i in chosen]
+        return [0] * num_frames, mean_bits_f
+
+    def _framing(self, xr, num_frames: int):
+        """Engine-facing framing: VBR when requested, else the reference's
+        CBR padding/slot-lag machinery."""
+        if self.vbr:
+            return self._vbr_framing(xr, num_frames)
+        return self._plane_framing(num_frames)
+
+    def _xing_frame(self, num_frames: int) -> bytes:
+        """The Xing tag frame of a VBR stream (``bitstream/vbr.py`` reads
+        it): fourcc + flags + frames + bytes + 100-point TOC + quality,
+        inside the smallest valid silent frame that fits it."""
+        si = 32 if (self.version == 3 and self.wav.num_of_channels == 2) \
+            else 17 if (self.version == 3
+                        or self.wav.num_of_channels == 2) else 9
+        payload = 4 + 4 + 4 + 4 + 100 + 4     # fourcc/flags/frames/bytes/toc/q
+        rates = self._vbr_valid_rates()
+        tag_rate = next((r for r in rates
+                         if self._vbr_slots(r) >= 4 + si + payload),
+                        rates[-1])
+        size = self._vbr_slots(tag_rate)
+
+        bw = BitWriter()
+        bw.put(0x7FF, 11)
+        bw.put(self.version, 2)
+        bw.put(self.layer, 2)
+        bw.put(0 if self.crc else 1, 1)
+        bw.put(_find_bitrate_index(tag_rate, self.version), 4)
+        bw.put(self.samplerate_index % 3, 2)
+        bw.put(0, 1)                          # padding
+        bw.put(self.ext, 1)
+        bw.put(self.mode, 2)
+        bw.put(self.mode_ext, 2)
+        bw.put(self.copyright, 1)
+        bw.put(self.original, 1)
+        bw.put(self.emphasis, 2)
+        head = bytes(bw.take_frame())
+        assert len(head) == 4
+
+        # a Layer III slot is one byte: frame bytes == slots (padding-free).
+        # The byte count comes from the buffer, not the slot sum: the final
+        # flush drops residual cache bits (reference quirk), so the last
+        # frame on disk can be up to 3 bytes short.
+        frame_sizes = np.asarray(
+            [self._vbr_slots(int(r)) for r in self._vbr_rates], np.int64)
+        total_bytes = size + len(self.out_buffer)
+        # 100-point TOC: byte offset (scaled to 0..255) of the frame at each
+        # percent of stream time
+        starts = size + np.concatenate([[0], np.cumsum(frame_sizes)[:-1]])
+        pick = (np.arange(100, dtype=np.int64) * num_frames) // 100
+        toc = np.minimum(255, (256 * starts[pick]) // total_bytes) \
+            .astype(np.uint8)
+
+        buf = bytearray(size)
+        buf[0:4] = head
+        pos = 4 + si
+        buf[pos:pos + 4] = b"Xing"
+        struct.pack_into(">I", buf, pos + 4, 0xF)           # all fields
+        struct.pack_into(">I", buf, pos + 8, num_frames)
+        struct.pack_into(">I", buf, pos + 12, total_bytes)
+        buf[pos + 16:pos + 116] = toc.tobytes()
+        struct.pack_into(">I", buf, pos + 116,
+                         min(100, int(round(100 * self._vbr_step / 127))))
+        return bytes(buf)
 
     def _slot_prev(self, searched: np.ndarray, tg: int) -> np.ndarray:
         """(nch * Tg,) the lane of the last searched granule strictly before
@@ -612,9 +786,11 @@ class MP3Encoder:
         return scfsi.transpose(1, 0, 2)
 
     def _plane_finish(self, res: dict, en_tot_raw, en_raw, nf: int, paddings,
-                      mean_bits_f, tg: int):
+                      mean_bits_f, tg: int, step_seed=None):
         """Reservoir chain, stuffing, scfsi, global-gain slot chain and frame
-        serialization from the plane's per-granule results."""
+        serialization from the plane's per-granule results. ``step_seed``
+        (nch, gpf): each slot's step before these frames, for a chunked
+        encode (``models/streaming``); zeros at the file's start."""
         gpf = self.granules_per_frame
         nch = self.wav.num_of_channels
         searched = res["xrmax0"] == 0
@@ -634,9 +810,10 @@ class MP3Encoder:
         smask = searched.reshape(nch, nf, gpf)
         last = np.where(smask, np.arange(nf)[None, :, None], -1)
         np.maximum.accumulate(last, axis=1, out=last)
+        seed = 0 if step_seed is None else step_seed.reshape(nch, 1, gpf)
         carried = np.where(
             last >= 0,
-            np.take_along_axis(steps, np.maximum(last, 0), axis=1), 0)
+            np.take_along_axis(steps, np.maximum(last, 0), axis=1), seed)
         gg = carried + 210
 
         # reservoir chain + stuffing (exact float order, MP3_Encoder.py:812,
@@ -690,6 +867,8 @@ class MP3Encoder:
         zeros_mdct = np.zeros((nch, gpf, 576), np.int32)
         for f in range(nf):
             self.padding = int(paddings[f])
+            if self._vbr_rate_idx is not None:
+                self.bitrate_index = int(self._vbr_rate_idx[f])
             if self.version == 3:
                 for ch in range(nch):
                     self.scfsi[ch, :4] = scfsi_f[f, ch]
@@ -753,13 +932,17 @@ class MP3Encoder:
 
         out = np.zeros(nf * 2016 + 4096, np.uint8)
         # residual bits at EOF are dropped, as the reference's __flush does
-        # (MP3_Encoder.py:1549-1552)
-        cache = np.zeros(1, dtype=np.uint32)
-        cache_bits = np.full(1, 32, dtype=np.int32)
+        # (MP3_Encoder.py:1549-1552); a chunked encode (models/streaming)
+        # continues one bitstream through the instance's 32-bit cache
+        if self._nat_ser:
+            cache, cache_bits = self._nat_cache, self._nat_cache_bits
+        else:
+            cache = np.zeros(1, dtype=np.uint32)
+            cache_bits = np.full(1, 32, dtype=np.int32)
         written = lib.mp3_format_frames(
             cache, cache_bits, out, len(out), nf,
             self.version, self.layer, self.crc,
-            np.full(nf, self.bitrate_index, np.int32),
+            self._frame_rate_indices(nf),
             self.samplerate_index % 3,
             np.ascontiguousarray(np.asarray(paddings, np.int32)),
             self.ext, self.mode, self.mode_ext, self.copyright,
@@ -959,11 +1142,19 @@ class MP3Encoder:
     # ------------------------------------------------------------- frame logic
 
     def _encode_frame(self, mdct_frame: np.ndarray):
-        if self.frac_slots_per_frame:
-            self.padding = 1 if self.slot_lag <= (
-                self.frac_slots_per_frame - 1.0) else 0
-            self.slot_lag += self.padding - self.frac_slots_per_frame
-        self.bits_per_frame = 8 * (self.whole_slots_per_frame + self.padding)
+        if self._vbr_rate_idx is not None:
+            # VBR: this frame's size comes from its own chosen rate
+            f = self._frame_idx
+            self.padding = 0
+            self.bitrate_index = int(self._vbr_rate_idx[f])
+            self.bits_per_frame = 8 * self._vbr_slots(int(self._vbr_rates[f]))
+        else:
+            if self.frac_slots_per_frame:
+                self.padding = 1 if self.slot_lag <= (
+                    self.frac_slots_per_frame - 1.0) else 0
+                self.slot_lag += self.padding - self.frac_slots_per_frame
+            self.bits_per_frame = 8 * (self.whole_slots_per_frame
+                                       + self.padding)
         self.mean_bits = int((self.bits_per_frame - self.side_info_len)
                              / self.granules_per_frame)
 
@@ -1467,9 +1658,10 @@ class Encoder:
 
     :param file_path: the wav file path.
     :param output_file_path: the mp3 output file path.
-    :param bitrate: bitrate in kbps.
+    :param bitrate: bitrate in kbps (the target average with ``vbr``).
     :param hide_str: bit string to embed (empty = no embedding).
-    :param vbr: not ported; True raises ``NotImplementedError``.
+    :param vbr: constant-quality VBR with a Xing tag (``MP3Encoder``); a
+        hide raises ``ValueError``.
     :param device: the search plane's device; None means CUDA, and a missing
         card raises.
 
@@ -1481,14 +1673,12 @@ class Encoder:
                  hide_str: str = '', vbr: bool = None, device=None):
         self.__file_path = file_path
         self.__output_file_path = output_file_path
-        if vbr:
-            raise NotImplementedError(_VBR_NOT_PORTED)
         if not os.path.exists(self.__file_path):
             sys.exit(f'File {self.__file_path} not found.')
         self.__wav_file = read_wav(self.__file_path, bitrate)
         self.__hide_str = hide_str
         self.mp3_encoder = MP3Encoder(self.__wav_file, hide_str=hide_str,
-                                      device=device)
+                                      vbr=bool(vbr), device=device)
 
     def encode(self, quiet: bool = True) -> bool:
         """Encode; returns True if the message was too long to embed fully

@@ -18,7 +18,9 @@ Here the whole file is one dense batch of granules:
                    (out_t = blk_t[:18] + blk_{t-1}[18:]), not a scan.
 * freq inversion — static sign mask.
 * synthesis      — V_t = N @ s_t for all 18*T sub-steps as one (18T,32)@(32,64)
-                   matmul, then PCM_t[n] = sum_{j<16} D[32j+n] *
+                   matmul (both matmuls in fixed row blocks, ``_row_matmul``,
+                   so a row rounds alike in any batch), then
+                   PCM_t[n] = sum_{j<16} D[32j+n] *
                    V_{t-j}[(j%2)*32+n]: the 16-tap FIR over the V history
                    (ops/synth_fir.py: a hand-written CUDA kernel on the card),
                    accumulated in the reference's j-order.
@@ -39,6 +41,7 @@ import torch
 from torch.profiler import record_function
 
 from mp3stego_tpu_torch import tables as T
+from mp3stego_tpu_torch.ops.synth_fir import MAX_ROWS as MAX_FIR_ROWS
 from mp3stego_tpu_torch.ops.synth_fir import synth_fir
 
 SQRT2 = math.sqrt(2)
@@ -692,6 +695,28 @@ def _no_tf32():
     torch.backends.cudnn.allow_tf32 = False
 
 
+# rows per matrix of the plane's small matmuls (IMDCT, synthesis V): they
+# run as one batched matmul of fixed-shape (_MM_ROWS, K) matrices, the last
+# zero-padded, so the BLAS picks one kernel (tiles, split of K) whatever the
+# row count, and a row's result never depends on how many rows the plane
+# holds: a file decodes to the same bits alone and inside a batch
+# (parallel/batch_decode). One plain matmul over all rows does not: on the
+# H100 its IMDCT rows change in the last bits with the row count.
+_MM_ROWS = 1 << 16
+
+
+def _row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)`` as ``_MM_ROWS``-row blocks of one
+    batched matmul."""
+    k, n = w.shape
+    a = x.reshape(-1, k)
+    m = a.shape[0]
+    nb = -(-m // _MM_ROWS)
+    a = torch.nn.functional.pad(a, (0, 0, 0, nb * _MM_ROWS - m))
+    out = torch.bmm(a.reshape(nb, _MM_ROWS, k), w.expand(nb, k, n))
+    return out.reshape(-1, n)[:m].reshape(x.shape[:-1] + (n,))
+
+
 def granule_blocks(prep: dict, dtype, stages: dict = None) -> torch.Tensor:
     """Granule-local half of the decode plane: requantize -> MS/intensity
     stereo -> reorder/alias -> windowed IMDCT blocks. Returns (ch, T, 32, 36).
@@ -815,12 +840,12 @@ def _imdct_stage(prep, x, dtype):
         c = _c(dtype, x.device)
         ch, tt = x.shape[0], x.shape[1]
         s = x.reshape(ch, tt, 32, 18)
-        xi_long = torch.matmul(s, c.c_long_t)                # (ch,T,32,36)
+        xi_long = _row_matmul(s, c.c_long_t)                 # (ch,T,32,36)
         win_long = c.sine[prep["win_row"].long().clamp(0, 3)]  # (2,T,36)
         blk_long = xi_long * win_long[:, :, None, :]
 
         # short path: 3 windows of 6 inputs -> 12 outputs each, merged
-        xi_s = torch.matmul(s.reshape(ch, tt, 32, 3, 6), c.c_short_t)
+        xi_s = _row_matmul(s.reshape(ch, tt, 32, 3, 6), c.c_short_t)
         xi_s = xi_s * c.sine[2, :12]                         # (ch,T,32,3,12)
         z6 = x.new_zeros((ch, tt, 32, 6))
         blk_short = torch.cat([
@@ -863,7 +888,7 @@ def synth_from_blocks(blk: torch.Tensor, dtype,
     with record_function("synth_v"):
         # ---- synthesis filterbank (Frame.py:65-103): matmul + 16-tap FIR
         st = y.transpose(2, 3).reshape(ch, tt * 18, 32)      # step major
-        v = torch.matmul(st, c.n_mat_t)                      # (ch,18T,64)
+        v = _row_matmul(st, c.n_mat_t)                       # (ch,18T,64)
 
     with record_function("synth_fir"):
         v_ext = torch.cat([v.new_zeros((ch, 15, 64)), v], dim=1)
@@ -871,28 +896,50 @@ def synth_from_blocks(blk: torch.Tensor, dtype,
     return pcm_steps.reshape(ch, tt, 576)
 
 
-def decode_granules(prep: dict, dtype=torch.float32,
-                    stages: dict = None) -> torch.Tensor:
+def decode_granules(prep: dict, dtype=torch.float32, stages: dict = None,
+                    files: int = 1, channels: int = 2) -> torch.Tensor:
     """Input dict (``prep_to_torch``) -> (2ch, T, 576) PCM in ``dtype``, on
     the prep's device. float64 is served on the CPU only (the tests' parity
-    twin of ``decode_granules_np``)."""
+    twin of ``decode_granules_np``).
+
+    ``files`` > 1 takes a concat batch (``parallel.batch_decode``: file i's
+    granules start at ``i * T / files``): the granule half runs over the
+    whole axis, synthesis on one row per (file, channel), so the synthesis
+    FIR launches once and no IMDCT tail or V history reaches the next file.
+    ``channels=1`` keeps channel 0 only. Returns (files * channels,
+    T / files, 576), file major."""
+    rows = files * channels
     if prep["raw_i8"].device.type == "cuda":
         if dtype != torch.float32:
             raise ValueError("the CUDA decode plane runs in float32 only")
+        if rows > MAX_FIR_ROWS:
+            raise ValueError(f"{rows} (file, channel) rows exceed the "
+                             f"synthesis FIR's {MAX_FIR_ROWS}")
         _no_tf32()
     blk = granule_blocks(prep, dtype, stages)
+    t = blk.shape[1] // files
+    blk = blk[:channels].reshape(channels, files, t, 32, 36) \
+        .transpose(0, 1).reshape(rows, t, 32, 36)
     return synth_from_blocks(blk, dtype, stages)
 
 
-def decode_granules_i16(prep: dict) -> torch.Tensor:
-    """float32 plane + the WAV int16 conversion on the device: saturating by
-    default (tables.ref_pcm_wrap), or numpy's ``(pcm * 32767).astype(int16)``
+def to_i16(pcm: torch.Tensor) -> torch.Tensor:
+    """float PCM -> int16 WAV samples on its device: saturating by default
+    (tables.ref_pcm_wrap), or numpy's ``(pcm * 32767).astype(int16)``
     truncate-and-wrap (the reference's conversion) under
     MP3STEGO_TPU_REF_PCM_WRAP=1."""
-    x = decode_granules(prep, torch.float32) * 32767.0
+    x = pcm * 32767.0
     if not T.ref_pcm_wrap():
         x = x.clamp(-32768.0, 32767.0)
     return x.to(torch.int32).to(torch.int16)
+
+
+def decode_granules_i16(prep: dict, files: int = 1,
+                        channels: int = 2) -> torch.Tensor:
+    """The float32 plane (``decode_granules``) + the WAV int16 conversion
+    on the device (``to_i16``)."""
+    return to_i16(decode_granules(prep, torch.float32, files=files,
+                                  channels=channels))
 
 
 def decode_granules_np(prep: dict, stages: dict = None) -> np.ndarray:

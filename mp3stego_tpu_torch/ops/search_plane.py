@@ -311,6 +311,28 @@ def search(xr: torch.Tensor, max_bits: torch.Tensor, sr_idx: int,
     return out
 
 
+def cost_step(xr: torch.Tensor, step: int, sr_idx: int,
+              big: int = 1 << 20) -> torch.Tensor:
+    """Every lane's bits at ONE quantizer step ``step`` (-127..0): the cost
+    the VBR rate choice bisects over (``models/encoder._vbr_framing``).
+    Hide-free, each lane from fresh zero addresses; a lane whose quantize
+    bails or whose ixmax exceeds 8192 costs ``big``. The same evaluation as
+    :func:`search`'s, so it equals the native ``rate_cost_step``
+    (rate_search.cpp) on every lane. Returns (N,) int64 on ``xr``'s
+    device."""
+    dev = xr.device
+    c = _consts(dev)
+    n = xr.shape[0]
+    xrabs32 = xr.abs()                               # int32: wraps INT32_MIN
+    xrmax64 = xrabs32.clamp(min=0).max(dim=1).values.to(torch.int64)
+    s = torch.full((n,), step, dtype=torch.int32, device=dev)
+    ix, ixmax, _ = quantize(xr.to(torch.int64).abs(),
+                            xrabs32.to(torch.float64), xrmax64, s, c)
+    co = _cost(ix, torch.zeros((n, 3), dtype=torch.int32, device=dev),
+               c["band"][sr_idx], c)
+    return torch.where(ixmax > MAX_STEP, big, co["bits"].to(torch.int64))
+
+
 def rows_to_host(res: dict) -> dict:
     """The resident ``ROWS`` of search results -> NumPy, in one copy."""
     rows = torch.stack([res[k] for k in ROWS]).cpu().numpy()

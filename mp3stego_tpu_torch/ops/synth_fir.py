@@ -23,6 +23,8 @@ import torch
 from mp3stego_tpu_torch import tables as T
 
 launches = 0
+# the kernel's grid.y: the most channel rows one launch takes
+MAX_ROWS = 65535
 
 _SIGNATURES = {
     "synth_fir_f32": (ctypes.c_int, (ctypes.c_void_p, ctypes.c_void_p,

@@ -1,0 +1,225 @@
+"""Batched decode: many MP3 files through the decode plane, a chunk at a time.
+
+The granule half of the decode plane (``decode_plane.granule_blocks``:
+requantize, stereo, reorder, alias, windowed IMDCT) is granule-local, so a
+chunk of files is one longer granule axis to it: ``prepare_batch_concat``
+lays each file's granules at ``i * t_max`` and shifts its linbits escapes by
+the same offset. The other half (IMDCT overlap, frequency inversion,
+synthesis) carries state along each file, so it runs on one row per (file,
+channel): the synthesis FIR (K1, ``csrc/synth_fir.cu``) is one launch per
+chunk over F * ch rows, and no file's IMDCT tail or V history reaches the
+next file's first granule (``decode_plane.decode_granules`` with
+``files=F``).
+
+Chunks group files of one samplerate (the walk and reorder tables are per
+samplerate) and come back in input order. The files are parsed on a thread
+pool first; while the card decodes chunk k, a worker thread prepares and
+stacks chunk k+1 into pinned host memory, and the PCM of chunk k goes back
+to pinned host memory on a side CUDA stream.
+
+On the card the device plane always runs. The JAX package's host-plane
+auto-select (``utils/calibrate.py``, which weighs the TPU's host link) and
+its stacked file-axis layout for sharding over a TPU mesh are not ported
+(ROADMAP.md item 11).
+"""
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from mp3stego_tpu_torch.bitstream import decoder_host as dh
+from mp3stego_tpu_torch.bitstream.id3 import parse_id3
+from mp3stego_tpu_torch.ops import decode_plane as dp
+
+# host threads for parsing and preparing files
+_WORKERS = min(8, os.cpu_count() or 1)
+OUTS = ("float", "int16")
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def prepare_batch_concat(preps: list) -> dict:
+    """Stack ``host_prepare`` dicts as ONE granule axis of ``F * t_max``
+    granules: file i's granules start at ``i * t_max`` and its padding
+    granules are silent (raw 0). Every file must share the constant tables
+    (one samplerate). Adds ``lengths``, ``num_files`` and ``t_max``."""
+    if not preps:
+        raise ValueError("prepare_batch_concat: no files to batch")
+    n = len(preps)
+    t_max = max(p["raw_i8"].shape[1] for p in preps)
+    batch = {}
+    for keys, axis in ((dp.T_AXIS1_KEYS, 1), (dp.T_AXIS0_KEYS, 0)):
+        for k in keys:
+            shape = list(preps[0][k].shape)
+            shape[axis] = n * t_max
+            out = np.zeros(shape, dtype=preps[0][k].dtype)
+            for i, p in enumerate(preps):
+                idx = [slice(None)] * out.ndim
+                idx[axis] = slice(i * t_max, i * t_max + p[k].shape[axis])
+                out[tuple(idx)] = p[k]
+            batch[k] = out
+    # escapes: shift each file's granule index into the concat axis; the
+    # pad entries (index past the file) move past the whole axis
+    t_all = n * t_max
+    shifted = [np.where(p["exc_t"] < p["raw_i8"].shape[1],
+                        p["exc_t"].astype(np.int64) + i * t_max, t_all)
+               for i, p in enumerate(preps)]
+    batch["exc_t"] = np.concatenate(shifted).astype(np.int32)
+    for k in ("exc_ch", "exc_s", "exc_val"):
+        batch[k] = np.concatenate([p[k] for p in preps])
+    for k in dp.CONST_KEYS:
+        for p in preps[1:]:
+            if not np.array_equal(p[k], preps[0][k]):
+                raise ValueError(
+                    f"prepare_batch_concat: files disagree on constant {k} "
+                    "(mixed samplerates must be grouped per batch)")
+        batch[k] = preps[0][k]
+    batch["lengths"] = np.array([p["raw_i8"].shape[1] for p in preps])
+    batch["num_files"] = n
+    batch["t_max"] = t_max
+    return batch
+
+
+def _read_parsed(path: str):
+    with open(path, "rb") as f:
+        data = f.read()
+    id3 = parse_id3(data)
+    parsed = dh.parse_mp3(data, id3.offset if id3.is_valid else 0)
+    if parsed.num_frames == 0:
+        raise ValueError(f"{path}: no MP3 frames found")
+    return parsed
+
+
+def decode_files_batched(paths: list, dtype: str = "float32",
+                         errors: str = "raise", out: str = "float",
+                         device=None, chunk_files: int = 16) -> list:
+    """Decode many MP3 files; one interleaved PCM array (samples, channels)
+    per file, in input order, each equal to that file's own decode on the
+    same device (``decode_plane.decode_pcm``, or ``decode_pcm_i16`` for
+    ``out="int16"``).
+
+    :param dtype: the plane's float type; "float64" runs on the CPU only.
+    :param errors: "raise" propagates the first file that fails to parse;
+        "isolate" decodes the others and puts the exception in its slot.
+    :param out: "float" PCM, or "int16" WAV samples converted on the device
+        (half the bytes back to the host).
+    :param device: the plane's device; None means CUDA (a missing card
+        raises).
+    :param chunk_files: files per chunk, one synthesis-FIR launch each;
+        0 decodes each samplerate's files as one chunk.
+    """
+    if out not in OUTS:
+        raise ValueError(f"out must be one of {OUTS}, got {out!r}")
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype must be one of {tuple(DTYPES)}, got "
+                         f"{dtype!r}")
+    if errors not in ("raise", "isolate"):
+        raise ValueError(f"errors must be 'raise' or 'isolate', got "
+                         f"{errors!r}")
+    dev = dp.resolve_device(device)
+    metas, kept, results = [], [], [None] * len(paths)
+    # the parse and host_prepare of many files run on a thread pool (the
+    # native parser and the NumPy passes release the GIL)
+    with ThreadPoolExecutor(max_workers=_WORKERS) as pool:
+        parsing = [pool.submit(_read_parsed, path) for path in paths]
+        for i, fut in enumerate(parsing):
+            try:
+                metas.append(fut.result())
+                kept.append(i)
+            except Exception as e:  # noqa: BLE001 - isolation mode reports it
+                if errors != "isolate":
+                    raise
+                results[i] = e
+        if metas:
+            decoded = _decode_pipelined(metas, dev, DTYPES[dtype],
+                                        out == "int16", chunk_files, pool)
+            for i, pcm in zip(kept, decoded):
+                results[i] = pcm
+    return results
+
+
+def _chunks(metas: list, chunk_files: int) -> list:
+    """Lists of indices into ``metas``: one samplerate each, at most
+    ``chunk_files`` long (unbounded when it is 0)."""
+    by_sr = {}
+    for idx, m in enumerate(metas):
+        by_sr.setdefault(m.header.sr_idx, []).append(idx)
+    step = chunk_files if chunk_files > 0 else len(metas)
+    return [idxs[i:i + step] for idxs in by_sr.values()
+            for i in range(0, len(idxs), step)]
+
+
+def _unpack(planes: np.ndarray, batch: dict, metas: list) -> list:
+    """(files, ch, t_max, 576) planes -> each file's interleaved PCM
+    (``decode_plane._finish_inter`` trims LSF virtual frames, repeats the
+    stale last frame and drops a VBR tag frame)."""
+    out = []
+    for j, parsed in enumerate(metas):
+        t = int(batch["lengths"][j])
+        ch = parsed.header.channels
+        inter = np.array(planes[j, :ch, :t].transpose(1, 2, 0)
+                         .reshape(t * 576, ch))
+        out.append(dp._finish_inter(parsed, inter))
+    return out
+
+
+def _decode_pipelined(metas: list, dev: torch.device, dtype, to_i16: bool,
+                      chunk_files: int, workers) -> list:
+    """Chunk by chunk: prep of chunk k+1 on a worker thread (its
+    ``host_prepare`` calls spread over ``workers``) while the card runs
+    chunk k; the PCM comes back on a side stream and is unpacked one chunk
+    later."""
+    cuda = dev.type == "cuda"
+    side = torch.cuda.Stream(dev) if cuda else None
+    chunks = _chunks(metas, chunk_files)
+    results = [None] * len(metas)
+
+    def prep(idxs):
+        batch = prepare_batch_concat(list(workers.map(
+            dp.host_prepare, [metas[i] for i in idxs])))
+        host = {k: torch.from_numpy(np.ascontiguousarray(batch[k]))
+                for k in dp.ALL_KEYS}
+        if cuda:
+            host = {k: v.pin_memory() for k, v in host.items()}
+        return batch, host
+
+    def dispatch(batch, host, idxs):
+        args = {k: v.to(dev, non_blocking=True) for k, v in host.items()}
+        channels = 1 if all(metas[i].header.channels == 1
+                            for i in idxs) else 2
+        files = batch["num_files"]
+        pcm = (dp.decode_granules_i16(args, files, channels) if to_i16 else
+               dp.decode_granules(args, dtype, files=files, channels=channels))
+        pcm = pcm.reshape(files, channels, -1, 576)
+        if not cuda:
+            return pcm, None
+        fetched = torch.empty(pcm.shape, dtype=pcm.dtype, pin_memory=True)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fetched.copy_(pcm, non_blocking=True)
+            done = side.record_event()
+        pcm.record_stream(side)
+        return fetched, done
+
+    def finish(fetched, done, batch, idxs):
+        if done is not None:
+            done.synchronize()
+        for i, pcm in zip(idxs, _unpack(fetched.numpy(), batch,
+                                        [metas[i] for i in idxs])):
+            results[i] = pcm
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        fut = pool.submit(prep, chunks[0])
+        pending = None
+        for k, idxs in enumerate(chunks):
+            batch, host = fut.result()
+            if k + 1 < len(chunks):
+                fut = pool.submit(prep, chunks[k + 1])
+            fetched, done = dispatch(batch, host, idxs)
+            if pending is not None:
+                finish(*pending)
+            pending = (fetched, done, batch, idxs)
+        finish(*pending)
+    return results
+

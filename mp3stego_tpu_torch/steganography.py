@@ -160,8 +160,10 @@ class Steganography:
 
         :param wav_file_path: the wav file path.
         :param output_file_path: the output mp3 file desired path.
-        :param bitrate: the bitrate of the wav file.
-        :param vbr: VBR is not ported; True raises ``NotImplementedError``.
+        :param bitrate: the bitrate of the wav file (the target average
+            with ``vbr``).
+        :param vbr: constant-quality VBR with a Xing tag (beyond the
+            reference).
         """
         with self._banner(f"Start Encoding {wav_file_path} to  "
                           f"{output_file_path}.", "Encoding"):

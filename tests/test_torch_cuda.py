@@ -1,7 +1,9 @@
-"""Card tests of the torch port: the hand-written CUDA kernel, the device
-decode plane, and the encode planes (Q31 analysis, exact search, golden hide
-bytes), each equal to the CPU torch result. Marked ``cuda``; without a card
-every test skips.
+"""Card tests of the torch port: the hand-written CUDA kernel (on a song's
+rows and on a batch's (file, channel) rows), the device decode plane and the
+batched decode (one kernel launch per chunk), and the encode planes (Q31
+analysis, exact search, the VBR lane cost, golden hide bytes), each equal to
+the CPU torch result or the native host twin. Marked ``cuda``; without a
+card every test skips.
 
 This file imports no JAX and uses no conftest fixture (tests/conftest.py
 imports JAX, which the card's machine does not have). Run it there with
@@ -158,3 +160,97 @@ def test_card_golden_hide_bytes(card, key, tmp_path):
         with open(out, "rb") as f:
             outs[torch.device(dev).type] = f.read()
     assert outs["cuda"] == outs["cpu"] == gold[key].tobytes()
+
+
+@pytest.mark.parametrize("rows,s", [(32, 18 * 2304), (2 * 23, 18 * 2298)])
+def test_kernel_on_file_rows_equals_plain_version(card, rows, s):
+    """K1 as the batched decode launches it: one row per (file, channel)
+    of a chunk (16 stereo files; the phase-12 song slices)."""
+    from mp3stego_tpu_torch.ops import synth_fir as sf
+    v = _v(rows, s, rows, card)
+    before = sf.launches
+    got = sf.synth_fir(v, s)
+    want = sf.synth_fir_torch(v, s)
+    torch.cuda.synchronize()
+    assert sf.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_batched_decode_one_launch_per_chunk(card, tmp_path):
+    """Seven goldens in chunks of two (per samplerate): one K1 launch per
+    chunk, and each file's PCM bit for bit its own decode on the card."""
+    import os
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    from mp3stego_tpu_torch.ops import synth_fir as sf
+    from mp3stego_tpu_torch.parallel import batch_decode as BD
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    blobs = [np.load(os.path.join(gold, "encode_golden.npz"))["mp3_bytes"]]
+    mr = np.load(os.path.join(gold, "multirate_golden.npz"))
+    blobs += [mr[f"mp3_{t}"] for t in ("32000_64", "44100_128", "48000_96",
+                                       "32000_192")]
+    blobs += [blobs[0], blobs[2]]
+    paths = []
+    for i, b in enumerate(blobs):
+        paths.append(str(tmp_path / f"{i}.mp3"))
+        with open(paths[-1], "wb") as f:
+            f.write(b.tobytes())
+    metas = [dh.parse_mp3(b.tobytes(), 0) for b in blobs]
+    chunks = BD._chunks(metas, 2)
+    before = sf.launches
+    outs = BD.decode_files_batched(paths, device=card, chunk_files=2)
+    assert sf.launches - before == len(chunks) == 4
+    for p, got in zip(metas, outs):
+        assert np.array_equal(got, dp.decode_pcm(p, "float32", card))
+
+
+def test_card_lane_cost_equals_native(card):
+    """``search_plane.cost_step`` on the card against the native
+    ``rate_cost_step`` at all 128 steps, on the encode golden's spectra
+    and loud seeded lanes."""
+    import os
+    from mp3stego_tpu_torch.models import encoder as E
+    from mp3stego_tpu_torch.ops import search_plane as SP
+    lib = E._native_rate_lib()
+    assert lib is not None
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    mdct = np.load(os.path.join(gold, "encode_golden.npz"))["mdct_freq"]
+    rng = np.random.default_rng(13)
+    loud = rng.integers(-2 ** 31, 2 ** 31, size=(48, 576)) \
+        >> rng.integers(0, 28, size=(48, 1))
+    xr = np.ascontiguousarray(np.concatenate(
+        [mdct.transpose(1, 0, 2, 3).reshape(-1, 576), loud]).astype(np.int32))
+    xr_d = torch.from_numpy(xr).to(card)
+    for s in range(128):
+        want = np.empty(len(xr), np.int64)
+        lib.rate_cost_step(xr, len(xr), s - 127, 0, 1 << 20, want)
+        got = SP.cost_step(xr_d, s - 127, 0).cpu().numpy()
+        assert np.array_equal(got, want), s
+
+
+# K, N, the song's rows (T = 18,432 granules, 2 channels) and the rows of
+# the batched decode's largest chunk (16 stereo files of 30 s, t_max = 2,298
+# granules): long IMDCT (32 rows a granule), short IMDCT (32 x 3), synthesis
+# V (18 sub-steps a granule)
+ROW_MATMULS = [
+    pytest.param(18, 36, 2 * 18432 * 32, 32 * 2298 * 32, id="18-36"),
+    pytest.param(6, 12, 2 * 18432 * 96, 32 * 2298 * 96, id="6-12"),
+    pytest.param(32, 64, 2 * 18432 * 18, 32 * 2298 * 18, id="32-64"),
+]
+
+
+@pytest.mark.parametrize("k,n,song,chunk", ROW_MATMULS)
+def test_row_matmul_rounds_alike_in_any_batch(card, k, n, song, chunk):
+    """The plane's IMDCT and synthesis-V matmuls: the first rows of a
+    chunk-sized operand equal the same rows multiplied alone, bit for bit,
+    at 1, 2 and the song's count of 65,536-row blocks (one plain matmul
+    over all rows does not keep this on the card)."""
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(rng.standard_normal((chunk, k))
+                         .astype(np.float32)).to(card)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)) \
+        .to(card)
+    whole = dp._row_matmul(x, w)
+    for m in (1000, 70000, song):
+        assert torch.equal(whole[:m], dp._row_matmul(x[:m].clone(), w))

@@ -309,13 +309,26 @@ def test_stage_timer_names_the_plane_stages(fixture_wav):
                               "sensitive": 2, "redone": 2, "edge": 1}
 
 
+def _vbr_mp3encoder(wav, out):
+    enc = MP3Encoder(read_wav(wav, 160), vbr=True, device="cpu")
+    enc.encode()
+    enc.write_mp3_file(out)
+
+
 @pytest.mark.parametrize("make", [
-    lambda w: MP3Encoder(read_wav(w, 320), vbr=True, device="cpu"),
-    lambda w: Encoder(w, "o.mp3", 320, vbr=True, device="cpu"),
+    _vbr_mp3encoder,
+    lambda w, out: Encoder(w, out, 160, vbr=True, device="cpu").encode(),
 ])
-def test_vbr_is_not_ported(make, fixture_wav):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
-        make(fixture_wav)
+def test_vbr_bytes_equal_jax_package(make, fixture_wav, tmp_path):
+    """VBR through ``MP3Encoder`` and ``Encoder``: bytes equal the JAX
+    package's Encoder's."""
+    out, jout = str(tmp_path / "p.mp3"), str(tmp_path / "j.mp3")
+    make(fixture_wav, out)
+    JaxEncoder(fixture_wav, jout, 160, vbr=True).encode()
+    with open(out, "rb") as a, open(jout, "rb") as b:
+        got = a.read()
+        assert got == b.read()
+    assert got[36:40] == b"Xing"          # after the 4-byte header + 32 si
 
 
 def test_default_device_raises_without_a_card(fixture_wav, monkeypatch):

@@ -140,19 +140,31 @@ def test_unknown_precision_rejected():
         Steganography(precision="bfloat16")
 
 
-@pytest.mark.parametrize("call", [
-    lambda s, w: s.encode_wav_to_mp3(w, w[:-4] + ".mp3", vbr=True),
-    lambda s, w: s.encode_wav_to_mp3(w, w[:-4] + ".mp3", 128, True),
-    lambda s, w: s._encode(w, w[:-4] + ".mp3", 320, vbr=True),
-    lambda s, w: s._encode(w, w[:-4] + ".mp3", 320, hide_bits="01",
-                           vbr=True),
+@pytest.mark.parametrize("call,kbps", [
+    (lambda s, w, o: s.encode_wav_to_mp3(w, o, vbr=True), 320),
+    (lambda s, w, o: s.encode_wav_to_mp3(w, o, 128, True), 128),
+    (lambda s, w, o: s._encode(w, o, 320, vbr=True), 320),
 ])
-def test_encoder_paths_not_ported(call, fixture_wav):
-    """VBR is the one encode path the port leaves out (ROADMAP.md queue 1,
-    item 7): it raises before any output is written."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(Steganography(quiet=True, device="cpu"), fixture_wav)
-    assert not os.path.exists(fixture_wav[:-4] + ".mp3")
+def test_vbr_facade_bytes_equal_jax_package(call, kbps, fixture_wav,
+                                            tmp_path):
+    """VBR through the façade writes the JAX façade's bytes, Xing tag
+    first."""
+    out, jout = str(tmp_path / "p.mp3"), str(tmp_path / "j.mp3")
+    call(Steganography(quiet=True, device="cpu"), fixture_wav, out)
+    JaxSteganography(quiet=True).encode_wav_to_mp3(fixture_wav, jout, kbps,
+                                                   vbr=True)
+    assert _bytes(out) == _bytes(jout)
+    assert _bytes(out)[36:40] == b"Xing"
+
+
+def test_vbr_hide_raises_value_error(fixture_wav, tmp_path):
+    """A VBR hide raises ``ValueError`` (as the JAX package does) before
+    any output is written."""
+    out = str(tmp_path / "h.mp3")
+    with pytest.raises(ValueError, match="CBR"):
+        Steganography(quiet=True, device="cpu")._encode(
+            fixture_wav, out, 320, hide_bits="01", vbr=True)
+    assert not os.path.exists(out)
 
 
 @pytest.fixture(scope="module")

@@ -71,25 +71,70 @@ def _assert_same(a, b, where):
         assert a == b, where
 
 
-@pytest.mark.parametrize("name", STREAMS)
-def test_parse_matches_jax_package(name, goldens, request):
+def _check_parse(name, goldens, request):
+    """Both packages' Python parsers, named explicitly: with ``auto`` the
+    JAX side takes its native parser only where its library loaded, and
+    the two engines fill ``side_infos`` differently."""
     data = _stream_bytes(name, goldens, request)
-    jp = jdh.parse_mp3(data, 0)
-    pp = pdh.parse_mp3(data, 0)
+    jp = jdh.parse_mp3(data, 0, backend="python")
+    pp = pdh.parse_mp3(data, 0, backend="python")
     assert jp.num_frames > 0
     _assert_same(jp, pp, name)
     assert pdh.stego_bits(pp) == jdh.stego_bits(jp)
 
 
-@pytest.mark.parametrize("name", STREAMS)
-def test_host_prepare_matches_jax_package(name, goldens, request):
+def _check_host_prepare(name, goldens, request):
+    """Python parse and the NumPy sample-plane pack on both sides (the
+    native pack lists the linbits escapes in another order)."""
     data = _stream_bytes(name, goldens, request)
-    jprep = jdp.host_prepare(jdh.parse_mp3(data, 0))
-    pprep = pdp.host_prepare(pdh.parse_mp3(data, 0))
+    jprep = jdp.host_prepare(jdh.parse_mp3(data, 0, backend="python"),
+                             native_pack=False)
+    pprep = pdp.host_prepare(pdh.parse_mp3(data, 0, backend="python"),
+                             native_pack=False)
     assert set(pprep) == set(jprep) == set(pdp.ALL_KEYS) == set(jdp.ALL_KEYS)
     for k in pdp.ALL_KEYS:
         assert pprep[k].dtype == jprep[k].dtype, k
         assert np.array_equal(pprep[k], jprep[k]), k
+
+
+@pytest.mark.parametrize("name", STREAMS)
+def test_parse_matches_jax_package(name, goldens, request):
+    _check_parse(name, goldens, request)
+
+
+@pytest.mark.parametrize("name", STREAMS)
+def test_host_prepare_matches_jax_package(name, goldens, request):
+    _check_host_prepare(name, goldens, request)
+
+
+@pytest.mark.parametrize("check,name", [
+    (_check_parse, "mp3_44100_128"), (_check_parse, "mp3_48000_96"),
+    (_check_parse, "mp3_48000_320"), (_check_host_prepare, "fixture")])
+def test_cross_package_checks_hold_without_jax_native(check, name, goldens,
+                                                      request, monkeypatch):
+    """The cases that once followed whichever parser engine the JAX
+    package's worker had loaded pass with its native library off."""
+    import mp3stego_tpu.native as jnative
+    monkeypatch.setattr(jnative, "get_lib", lambda: None)
+    check(name, goldens, request)
+
+
+@pytest.mark.parametrize("name", STREAMS)
+def test_native_pack_equals_numpy_pack(name, goldens, request):
+    """The port's C++ sample-plane pack against its NumPy pack: the same
+    int8 plane and the same escapes, in either order."""
+    p = pdh.parse_mp3(_stream_bytes(name, goldens, request), 0,
+                      backend="python")
+    a, b = pdp.host_prepare(p), pdp.host_prepare(p, native_pack=False)
+    for k in pdp.ALL_KEYS:
+        if k not in pdp.EXC_KEYS:
+            assert np.array_equal(a[k], b[k]), k
+
+    def escapes(prep):
+        cols = [prep[k].astype(np.int64) for k in pdp.EXC_KEYS]
+        return sorted(zip(*cols))
+
+    assert escapes(a) == escapes(b)
 
 
 @pytest.mark.parametrize("key", ("hidden_short", "hidden_long",
@@ -101,17 +146,28 @@ def test_stego_bits_match_jax_package(key, goldens):
 
 
 def test_python_parser_matches_native(goldens, request):
-    """Both engines of the copied parser agree (the native one is built from
-    the JAX package's C++ sources into the port's own build directory)."""
+    """Both engines of the copied parser agree on every stream the
+    cross-package tests read (the native one is built from the JAX
+    package's C++ sources into the port's own build directory), on every
+    field; on MPEG-1 streams the native engine leaves ``side_infos`` empty
+    and fills only the dense per-granule arrays the planes read. With
+    ``test_parse_matches_jax_package`` (Python engines on both sides) this
+    holds the port's native parse, the engine every decode uses, to the
+    JAX package field by field whichever engine the JAX side loaded."""
     from mp3stego_tpu_torch import native
     assert native.get_lib() is not None
     assert os.path.dirname(native._SO) == native.BUILD_DIR
-    data = _stream_bytes("fixture", goldens, request)
-    a = pdh.parse_mp3(data, 0, backend="native")
-    b = pdh.parse_mp3(data, 0, backend="python")
-    for f in ("raw_samples", "block_type", "global_gain", "scale_fac_l",
-              "scale_fac_s", "table_select", "ms_stereo", "frame_sizes"):
-        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    for name in STREAMS:
+        data = _stream_bytes(name, goldens, request)
+        a = pdh.parse_mp3(data, 0, backend="native")
+        b = pdh.parse_mp3(data, 0, backend="python")
+        assert a.num_frames > 0
+        mpeg1 = a.header.mpeg_version == 1
+        assert a.side_infos == [] if mpeg1 else a.side_infos
+        for f in dataclasses.fields(a):
+            if f.name != "side_infos" or a.side_infos:
+                _assert_same(getattr(a, f.name), getattr(b, f.name),
+                             f"{name}.{f.name}")
 
 
 def test_tables_read_the_jax_package_pack():

@@ -1,11 +1,14 @@
-"""The torch port imports, decodes, encodes and hides with JAX and the JAX
-package refused.
+"""The torch port imports, decodes, encodes and hides, and runs its
+batched, streaming, VBR and CLI entry points, with JAX and the JAX package
+refused.
 
 A fresh interpreter installs a ``sys.meta_path`` finder that refuses the
 top-level names ``jax``, ``jaxlib`` and ``mp3stego_tpu`` (exact match:
 ``mp3stego_tpu_torch`` starts with ``mp3stego_tpu``), then imports the port,
 decodes a golden stego file with the torch plane on the CPU, re-encodes the
-golden WAV and hides a message with the torch planes on the CPU.
+golden WAV and hides a message with the torch planes on the CPU, then
+drives the batched decode and encode, the streaming decode and encode and a
+VBR encode through the CLI.
 """
 
 import os
@@ -58,6 +61,25 @@ with tempfile.TemporaryDirectory() as tmp:
     s.reveal_massage(os.path.join(tmp, "h2.mp3"), os.path.join(tmp, "h2.txt"))
     with open(os.path.join(tmp, "h2.txt")) as f:
         assert f.read() == "no jax"
+    # the batched, VBR, streaming and CLI entry points
+    from mp3stego_tpu_torch.__main__ import main
+    from mp3stego_tpu_torch.models.streaming import (
+        decode_file_streaming, encode_file_streaming)
+    from mp3stego_tpu_torch.parallel import (
+        decode_files_batched, encode_files_batched)
+    pcm = decode_files_batched([mp3, mp3], device="cpu", chunk_files=1)
+    assert len(pcm) == 2 and pcm[0].shape == pcm[1].shape
+    info = decode_file_streaming(mp3, os.path.join(tmp, "s.wav"), 9)
+    assert info["bitrate"] == 320
+    outs = encode_files_batched([(wav, os.path.join(tmp, "b.mp3"))],
+                                device="cpu")
+    with open(outs[0], "rb") as f:
+        assert f.read() == enc["mp3_bytes"].tobytes()
+    encode_file_streaming(wav, os.path.join(tmp, "st.mp3"), chunk_frames=5)
+    with open(os.path.join(tmp, "st.mp3"), "rb") as f:
+        assert f.read() == enc["mp3_bytes"].tobytes()
+    assert main(["--device", "cpu", "encode", wav, os.path.join(tmp, "v.mp3"),
+                 "--bitrate", "128", "--vbr"]) == 0
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("NO_JAX_OK")
