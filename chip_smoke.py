@@ -5,19 +5,23 @@
 
 Run from the root of a checkout, on a machine with one CUDA card (Hopper:
 the kernels are built for sm_90a). It builds every kernel of the port's
-paths from the sources in the checkout, holds each against its plain
-PyTorch version (and times a library call that computes the same function),
-drives every entry point at a size users send (one 240.7-second 320 kbps
-stereo song through the façade: decode it, measure its capacity, hide a
-message of 90 % of it, reveal it, clear it; a batched decode of 32 files
-and a batched encode of 9; a VBR encode and the streaming decode and encode
-of the song; a hide and reveal through the CLI), checks every output
-against the bit-exact host planes, the single-file paths and the goldens,
-and times it. Every phase raises on a fault; nothing is caught. The last
-line of standard output is ``{"ok": true, "device": {...}}``; the line
-before it lists the kernels (launches during the main-path runs, error
-against the plain version, times, bound, library time), and the one before
-that the card's name and power limit.
+paths from the sources in the checkout (the fused synthesis kernel K1,
+``csrc/synth.cu``, in float32 and float64), holds each against its plain
+PyTorch version bit for bit (and times a library pair that computes the same
+function), drives every entry point at a size users send (one 240.7-second
+320 kbps stereo song through the façade: decode it with the defaults, which
+run float64 on the card, and in float32, measure its capacity, hide a
+message of 90 % of it, reveal it, clear it; a batched decode of 32 files in
+both precisions and a batched encode of 9; a VBR encode and the streaming
+decode and encode of the song; hide, reveal and a streaming decode through
+the CLI), checks every output against the bit-exact host planes, the
+single-file paths and the goldens, and times it. Each main path runs with
+the kernel's launch count set to 0 just before it and read just after; a
+path that launched no kernel fails. Every phase raises on a fault; nothing
+is caught. The last line of standard output is ``{"ok": true, "device":
+{...}}``; the line before it lists the kernels (launches during the
+main-path runs, error against the plain version, times, bound, library
+time), and the one before that the card's name and power limit.
 
 It imports nothing of JAX and nothing of the JAX package. Without a card, or
 outside a checkout, it exits non-zero before printing any result.
@@ -41,7 +45,7 @@ from mp3stego_tpu_torch.models.encoder import Encoder, MP3Encoder
 from mp3stego_tpu_torch.ops import _cuda
 from mp3stego_tpu_torch.ops import decode_plane as dp
 from mp3stego_tpu_torch.ops import encode_plane as EP
-from mp3stego_tpu_torch.ops import synth_fir as sf
+from mp3stego_tpu_torch.ops import synth as sf
 from mp3stego_tpu_torch.steganography import _frame_message
 from mp3stego_tpu_torch.utils.profiling import StageTimer
 from mp3stego_tpu_torch.utils.wav import WavFile, read_wav, write_wav
@@ -54,7 +58,7 @@ GOLD = os.path.join(REPO, "tests", "golden")
 # unpadded copies end the sync walk after the first copy), 256 copies:
 # 9,216 frames, T = 18,432 granules, 240.7 s of 44.1 kHz stereo
 SONG_COPIES = 256
-S_SLICE = 18 * 2 * 36 * SONG_COPIES          # FIR sub-steps per channel
+SONG_T = 2 * 36 * SONG_COPIES                # granules per channel
 MAX_LSB_RATE = 1e-3                          # tests/test_precision.py contract
 # the half-second tone streams of the goldens (MPEG-2/2.5 and multirate):
 # the JAX package's own float32 plane flips 1.4e-3 of the LSF ones' samples
@@ -63,6 +67,13 @@ MAX_LSB_RATE = 1e-3                          # tests/test_precision.py contract
 TONE_MAX_LSB_RATE = 2e-3
 HIDE_SHARE = 0.9                             # message size / capacity
 BATCH_SLICES = 23                            # 30 s slices in the batch
+F32, F64 = torch.float32, torch.float64
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and separately rounded
+# FP operations/s outside the tensor cores: 67 TFLOP/s float32 and 34
+# TFLOP/s float64 count a fused multiply-add as two operations, and K1 may
+# not fuse (its products and sums round on their own), so half of each
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {F32: 67e12 / 2, F64: 34e12 / 2}
 
 
 def synthetic_parsed(t: int, seed: int = 0) -> ParsedMP3:
@@ -134,11 +145,56 @@ def _lsb_contract(name: str, got: np.ndarray, want: np.ndarray,
     return f"max |d| {int(d.max())} LSB on {rate:.3e} of {d.size} samples"
 
 
-def _fir_pair(v_ext: torch.Tensor, s: int):
-    got = sf.synth_fir(v_ext, s)
-    want = sf.synth_fir_torch(v_ext, s)
+class Paths:
+    """The fused kernel's launches per main path: each path runs with the
+    count set to 0 just before it and read just after, and fails if it
+    launched no kernel."""
+
+    def __init__(self):
+        self.log = []                        # (name, dtype, launches)
+
+    def run(self, name: str, dtype, fn):
+        sf.launches = 0
+        out = fn()
+        n = sf.launches
+        if n == 0:
+            raise AssertionError(f"{name}: the path never launched the fused "
+                                 f"synthesis kernel")
+        self.log.append((name, dtype, n))
+        return out
+
+    def launches(self, dtype) -> int:
+        return sum(n for _, d, n in self.log if d == dtype)
+
+
+def hold(name: str, blk: torch.Tensor, out: str, channels: int,
+         errs: dict) -> None:
+    """The kernel against its plain version on ``blk``, bit for bit; the
+    largest difference goes into ``errs[dtype]``."""
+    got = sf.synth_fused(blk, out, channels)
+    want = sf.synth_fused_torch(blk, out, channels)
     torch.cuda.synchronize()
-    return got, want
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} vs the "
+                             f"plain {tuple(want.shape)} {want.dtype}")
+    err = float((got.double() - want.double()).abs().max())
+    errs[blk.dtype] = max(errs.get(blk.dtype, 0.0), err)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: synth_fused != synth_fused_torch "
+                             f"({out}, {blk.dtype}, {tuple(blk.shape)}): "
+                             f"max |d| {err}")
+
+
+def _seeded_blk(rows: int, t: int, seed: int, dtype, dev) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(0.3 * rng.standard_normal((rows, t, 32, 36))) \
+        .to(device=dev, dtype=dtype)
+
+
+def song_blocks(prep: dict, dtype) -> torch.Tensor:
+    """The song's IMDCT blocks (2, T, 32, 36) in ``dtype``: what the decode
+    plane hands the fused kernel."""
+    return dp.granule_blocks(prep, dtype)[:2].contiguous()
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -224,10 +280,12 @@ def _expect_equal(name, got: bytes, want: bytes):
 
 
 def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
-                  s32: Steganography) -> dict:
-    """Phases 8-11: the encode and hide path on the song and the goldens.
-    Returns the synth_fir launches of the float32 hide (phase 11), the
-    song's clear encode bytes and the seeded song's WAV."""
+                  s64: Steganography, s32: Steganography,
+                  runs: Paths) -> dict:
+    """Phases 8-11: the encode and hide path on the song and the goldens,
+    with the façade's hide in float64 (the default) and in float32, each a
+    counted main path. Returns the song's clear encode bytes and the seeded
+    song's WAV."""
     # ---- phase 8: the Q31 analysis on the card against the host C++ twin
     w = read_wav(wav64, 320)
     seconds = w.num_of_samples / w.samplerate
@@ -317,7 +375,6 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
     _say("10 hide", "goldens byte for byte on the card: hidden_short, "
                     "hidden_long, hidden_toolong (too_long True), capstego")
 
-    s64 = Steganography(quiet=True, precision="float64", device=dev)
     t0 = time.perf_counter()
     capacity = s64.message_capacity(song)
     cap_s = time.perf_counter() - t0
@@ -367,7 +424,8 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
                     f"{host_s * 1e3:.1f} ms; {_scan_line(seeded_enc)}")
     hidden = os.path.join(tmp, "song_hidden.mp3")
     t0 = time.perf_counter()
-    if s64.hide_message(song, hidden, msg):
+    if runs.run("façade hide, float64 decode", F64,
+                 lambda: s64.hide_message(song, hidden, msg)):
         raise AssertionError("a 90 % message did not fit")
     facade_s = time.perf_counter() - t0
     with open(hidden, "rb") as f:
@@ -377,19 +435,16 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
     with open(txt) as f:
         if f.read() != msg:
             raise AssertionError("reveal of the song's message failed")
-    _say("10 hide", f"[{card}] façade hide_message (float64 decode + card "
-                    f"encode) {facade_s * 1e3:.1f} ms -> "
+    _say("10 hide", f"[{card}] façade hide_message (float64 card decode + "
+                    f"card encode) {facade_s * 1e3:.1f} ms -> "
                     f"{seconds / facade_s:.1f}x realtime; reveal gives "
                     f"the {len(msg)}-char message back")
 
     # ---- phase 11: the float32 round trip (K1 on the decode inside hide)
     hidden32 = os.path.join(tmp, "song_hidden32.mp3")
-    sf.launches = 0
-    too_long = s32.hide_message(song, hidden32, msg)
-    hide_launches = sf.launches
-    if too_long or hide_launches == 0:
-        raise AssertionError(f"float32 hide: too_long {too_long}, "
-                             f"synth_fir launches {hide_launches}")
+    if runs.run("façade hide, float32 decode", F32,
+                 lambda: s32.hide_message(song, hidden32, msg)):
+        raise AssertionError("float32 hide: the message did not fit")
     s32.reveal_massage(hidden32, txt)
     with open(txt) as f:
         if f.read() != msg:
@@ -404,11 +459,10 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
         _expect_equal("clear_file vs encode of the same decode", a.read(),
                       b.read())
     _say("11 float32", f"hide_message (float32) -> reveal gives the message "
-                       f"back; synth_fir launches in the hide {hide_launches}"
-                       f"; clear_file bytes equal a plain encode of the same "
-                       f"decode")
-    return dict(hide_launches=hide_launches, clear_bytes=clear_b,
-                seeded_wav=wav_s)
+                       f"back; kernel launches in the hide "
+                       f"{runs.log[-1][2]}; clear_file bytes equal a plain "
+                       f"encode of the same decode")
+    return dict(clear_bytes=clear_b, seeded_wav=wav_s)
 
 
 def _write(path: str, data: bytes) -> str:
@@ -427,11 +481,11 @@ def _frame_slice(data: bytes, parsed, first: int, count: int) -> bytes:
 
 
 def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
-                 enc_out: dict) -> dict:
+                 enc_out: dict, s64: Steganography, runs: Paths,
+                 errs: dict) -> None:
     """Phases 12-15 and the CLI round trip: the batched decode (K1 over the
-    (file, channel) rows of each chunk), the batched encode, VBR, and the
-    streaming decode and encode of the song. Returns the batched decode's
-    K1 launches and the timings."""
+    (file, channel) rows of each chunk) in float32 and float64, the batched
+    encode, VBR, and the streaming decode and encode of the song."""
     from mp3stego_tpu_torch.bitstream import vbr
     from mp3stego_tpu_torch.models.streaming import (
         decode_file_streaming, encode_file_streaming)
@@ -475,46 +529,49 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
         with open(p, "rb") as f:
             metas.append(dh.parse_mp3(f.read()))
     chunks = BD._chunks(metas, 16)
-    # the float run hands K1 each chunk's V history over F * ch rows; a
-    # copy of each is held below against the plain version, bit for bit
-    fir, v_hist = dp.synth_fir, []
+    # the float32 float run and the float64 int16 run hand K1 each chunk's
+    # blocks over F * ch rows; a copy of each is held below against the
+    # plain version, bit for bit, in both epilogues
+    synth, blks = dp.synth_fused, []
 
-    def fir_copy(v_ext, s):
-        v_hist.append(v_ext.clone())
-        return fir(v_ext, s)
+    def synth_copy(blk, out="float", channels=1):
+        blks.append((blk.clone(), channels))
+        return synth(blk, out, channels)
 
-    dp.synth_fir = fir_copy
+    dp.synth_fused = synth_copy
     try:
         floats = decode_files_batched(paths, device=dev)
+        i16_64 = decode_files_batched(paths, dtype="float64", out="int16",
+                                      device=dev)
     finally:
-        dp.synth_fir = fir
-    for p, parsed, got in zip(paths, metas, floats):
+        dp.synth_fused = synth
+    if len(blks) != 2 * len(chunks):
+        raise AssertionError(f"batched decode: {len(blks)} K1 calls for "
+                             f"2 x {len(chunks)} chunks")
+    for blk, channels in blks:
+        for out in sf.OUTS:
+            hold("batch chunk", blk, out, channels, errs)
+    _say("12 batch decode", f"K1 bitwise equal to synth_fused_torch, float "
+                            f"and int16, on each chunk's blocks (rows, T, 32,"
+                            f" 36), float32 and float64: "
+                            f"{[tuple(b.shape) for b, _ in blks[:len(chunks)]]}")
+    del blks
+    for p, parsed, got, got64 in zip(paths, metas, floats, i16_64):
         want = dp.decode_pcm(parsed, "float32", dev)
         if got.shape != want.shape or not np.array_equal(got, want):
             raise AssertionError(f"batched float decode of {p} != its "
                                  f"single-file decode on the card")
-    if len(v_hist) != len(chunks):
-        raise AssertionError(f"batched decode: {len(v_hist)} K1 calls for "
-                             f"{len(chunks)} chunks")
-    k1_err = 0.0
-    for v in v_hist:
-        got, want = _fir_pair(v, v.shape[1] - 15)
-        k1_err = max(k1_err, float((got - want).abs().max()))
-        if not torch.equal(got, want):
-            raise AssertionError(f"synth_fir != plain on a chunk's V history "
-                                 f"{tuple(v.shape)}: max |d| {k1_err}")
-    _say("12 batch decode", f"K1 bitwise equal to synth_fir_torch on each "
-                            f"chunk's V history (rows, 15 + S, 64): "
-                            f"{[tuple(v.shape) for v in v_hist]}")
-    del v_hist, got, want
-    sf.launches = 0
-    t0 = time.perf_counter()
-    i16 = decode_files_batched(paths, out="int16", device=dev)
-    first_s = time.perf_counter() - t0
-    batch_launches = sf.launches
-    if batch_launches != len(chunks):
-        raise AssertionError(f"batched decode: {batch_launches} K1 launches "
-                             f"for {len(chunks)} chunks")
+        want = dp.decode_pcm_i16_host(parsed)
+        if got64.shape != want.shape or not np.array_equal(got64, want):
+            raise AssertionError(f"batched float64 decode of {p} != its host "
+                                 f"float64 decode")
+    del floats, i16_64
+    i16 = runs.run("batched decode, float32 int16", F32,
+                    lambda: decode_files_batched(paths, out="int16",
+                                                 device=dev))
+    if runs.log[-1][2] != len(chunks):
+        raise AssertionError(f"batched decode: {runs.log[-1][2]} K1 "
+                             f"launches for {len(chunks)} chunks")
     audio_s, worst = 0.0, (0.0, "")
     for p, parsed, got in zip(paths, metas, i16):
         audio_s += got.shape[0] / parsed.header.sampling_rate
@@ -524,23 +581,32 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
                       if name.startswith("slice") else TONE_MAX_LSB_RATE)
         rate = float((got != want).mean())
         worst = max(worst, (rate, os.path.basename(p)))
+    runs.run("batched decode, float64 int16", F64,
+              lambda: decode_files_batched(paths, dtype="float64",
+                                           out="int16", device=dev))
     wall, walls, _ = _median3(
         lambda: decode_files_batched(paths, out="int16", device=dev))
+    wall64, walls64, _ = _median3(
+        lambda: decode_files_batched(paths, dtype="float64", out="int16",
+                                     device=dev))
     t0 = time.perf_counter()
     for p in paths:
         dp.decode_pcm_i16(BD._read_parsed(p), dev)
     single_s = time.perf_counter() - t0
     _say("12 batch decode", f"{len(paths)} files ({audio_s:.2f} s of audio) "
-                            f"in {len(chunks)} chunks: float PCM bit for bit "
-                            f"each file's own card decode; int16 within 1 "
-                            f"LSB of the float64 host plane (largest share "
-                            f"{worst[0]:.3e}, {worst[1]})")
-    _say("12 batch decode", f"[{card}] wall median {wall * 1e3:.1f} ms of "
-                            f"{[round(x * 1e3, 1) for x in walls]} -> "
-                            f"{audio_s / wall:.1f}x realtime (first call "
-                            f"{first_s * 1e3:.1f} ms); K1 launches "
-                            f"{batch_launches} (one per chunk); one file at "
-                            f"a time (read, parse, card plane) "
+                            f"in {len(chunks)} chunks: float32 PCM bit for "
+                            f"bit each file's own card decode, float32 int16 "
+                            f"within 1 LSB of the float64 host plane (largest "
+                            f"share {worst[0]:.3e}, {worst[1]}); float64 "
+                            f"int16 equal to each file's host decode")
+    _say("12 batch decode", f"[{card}] float32 wall median {wall * 1e3:.1f} "
+                            f"ms of {[round(x * 1e3, 1) for x in walls]} -> "
+                            f"{audio_s / wall:.1f}x realtime; float64 wall "
+                            f"median {wall64 * 1e3:.1f} ms of "
+                            f"{[round(x * 1e3, 1) for x in walls64]} -> "
+                            f"{audio_s / wall64:.1f}x realtime; K1 launches "
+                            f"{len(chunks)} a run (one per chunk); one file "
+                            f"at a time (read, parse, float32 card plane) "
                             f"{single_s * 1e3:.1f} ms")
 
     # ---- phase 13: batched encode, 8 stereo WAVs of 30 s and a mono one
@@ -594,7 +660,6 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     if tag is None or tag.stream_bytes != len(vbr_b) or tag.frames != nf:
         raise AssertionError(f"VBR Xing tag does not parse back: {tag}")
     vbr_mp3 = _write(os.path.join(tmp, "song_vbr.mp3"), vbr_b)
-    s64 = Steganography(quiet=True, precision="float64", device=dev)
     kbps = s64.decode_mp3_to_wav(vbr_mp3, os.path.join(tmp, "song_vbr.wav"))
     if kbps != vbr.avg_bitrate_kbps(tag, dh.parse_mp3(vbr_b).header):
         raise AssertionError(f"VBR decode reports {kbps} kbps")
@@ -608,14 +673,22 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
                    f"; framing stage {venc.timer.times['framing'] * 1e3:.1f} "
                    f"ms")
 
-    # ---- phase 15: streaming decode and encode of the song
+    # ---- phase 15: streaming decode (float64 on the card, then the host
+    # C++ plane) and encode of the song
     wav_st = os.path.join(tmp, "song_stream.wav")
     t0 = time.perf_counter()
-    info = decode_file_streaming(song, wav_st)
+    info = runs.run("streaming decode, float64", F64,
+                     lambda: decode_file_streaming(song, wav_st))
     dec_s = time.perf_counter() - t0
     with open(wav_st, "rb") as a, open(wav64, "rb") as b:
         _expect_equal("streaming decode vs whole-file float64", a.read(),
                       b.read())
+    t0 = time.perf_counter()
+    decode_file_streaming(song, wav_st, device="cpu")
+    host_s = time.perf_counter() - t0
+    with open(wav_st, "rb") as a, open(wav64, "rb") as b:
+        _expect_equal("host streaming decode vs whole-file float64",
+                      a.read(), b.read())
     mp3_st = os.path.join(tmp, "song_stream.mp3")
     t0 = time.perf_counter()
     encode_file_streaming(wav64, mp3_st, 320)
@@ -624,19 +697,22 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
         _expect_equal("streaming encode vs whole-file encode", f.read(),
                       enc_out["clear_bytes"])
     _say("15 streaming", f"[{card}] song ({info['num_frames']} frames): "
-                         f"streaming decode WAV equals the whole-file float64"
-                         f" WAV ({dec_s * 1e3:.1f} ms); streaming encode "
-                         f"equals the whole-file encode ({enc_s * 1e3:.1f} "
-                         f"ms)")
+                         f"streaming decode WAV on the card equals the "
+                         f"whole-file float64 WAV ({dec_s * 1e3:.1f} ms, "
+                         f"{runs.log[-1][2]} K1 launches; host C++ plane "
+                         f"{host_s * 1e3:.1f} ms); streaming encode equals "
+                         f"the whole-file encode ({enc_s * 1e3:.1f} ms)")
 
-    # ---- the CLI round trip: hide -> reveal in a subprocess
+    # ---- the CLI: hide -> reveal, and a streaming decode, on the card
     gold = _write(os.path.join(tmp, "cli.mp3"), np.load(os.path.join(
         GOLD, "encode_golden.npz"))["mp3_bytes"].tobytes())
     cli = [sys.executable, "-m", "mp3stego_tpu_torch", "--device", dev.type]
     hidden = os.path.join(tmp, "cli_hidden.mp3")
     txt = os.path.join(tmp, "cli.txt")
+    cli_wav = os.path.join(tmp, "cli.wav")
     for argv in (["hide", gold, hidden, "through the CLI"],
-                 ["reveal", hidden, txt]):
+                 ["reveal", hidden, txt],
+                 ["decode", gold, cli_wav, "--stream-chunk-frames", "7"]):
         r = subprocess.run(cli + argv, cwd=REPO, timeout=300,
                            capture_output=True, text=True)
         if r.returncode != 0:
@@ -645,36 +721,58 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     with open(txt) as f:
         if f.read() != "through the CLI":
             raise AssertionError("CLI reveal did not give the message back")
+    whole = os.path.join(tmp, "cli_whole.wav")
+    s64.decode_mp3_to_wav(gold, whole)
+    with open(cli_wav, "rb") as a, open(whole, "rb") as b:
+        _expect_equal("CLI streaming decode vs the façade", a.read(),
+                      b.read())
     _say("15 cli", "python -m mp3stego_tpu_torch hide -> reveal gives the "
-                   "message back")
-    return dict(batch_launches=batch_launches, k1_err=k1_err)
+                   "message back; decode --stream-chunk-frames 7 writes the "
+                   "façade's WAV")
 
 
-def _conv1d_fir(v_ext: torch.Tensor, s: int):
-    """The FIR as one grouped ``conv1d`` (the library yardstick, used
-    nowhere in the port): V's channels interleaved as (k, 32 + k) pairs,
-    ``w[k, j % 2, 15 - j] = D[j, k]``. Returns (the call, its inputs' layout
-    already made, so only the call is timed)."""
-    d = sf._window(torch.float32, v_ext.device)
+def library_pair(blk: torch.Tensor):
+    """K1's function as one ``bmm`` (V) and one grouped ``conv1d`` (the
+    FIR), TF32 off, in ``blk``'s dtype: the library yardstick, used nowhere
+    in the port. Its inputs' layouts are made here, outside the timed call:
+    the overlap-add and inversion, step-major and transposed (rows, 32,
+    15 + S) with 15 zero steps in front (their V is zero), N's rows paired
+    (k, 32 + k) so that V comes out as the conv's channel pairs, and the
+    taps ``w[k, j % 2, 15 - j] = D[j, k]``. Returns the call, which gives
+    (rows, 32, S) PCM."""
+    rows, tt = blk.shape[0], blk.shape[1]
+    n_t, d, _ = sf._tables(blk.dtype, blk.device)
+    st = sf.overlap_freqinv(blk)[1].reshape(rows, tt, 32, 18) \
+        .permute(0, 2, 1, 3).reshape(rows, 32, tt * 18)
+    st = torch.nn.functional.pad(st, (15, 0)).contiguous()
     idx = torch.stack([torch.arange(32), torch.arange(32) + 32], 1) \
-        .reshape(-1).to(v_ext.device)
-    x = v_ext.permute(0, 2, 1)[:, idx].contiguous()     # (ch, 64, 15 + S)
-    w = torch.zeros((32, 2, 16), dtype=torch.float32, device=v_ext.device)
+        .reshape(-1).to(blk.device)
+    n_pair = n_t.T[idx].contiguous().expand(rows, 64, 32)
+    w = torch.zeros((32, 2, 16), dtype=blk.dtype, device=blk.device)
     for j in range(16):
         w[:, j % 2, 15 - j] = d[j]
-    return lambda: torch.nn.functional.conv1d(x, w, groups=32)
+    return lambda: torch.nn.functional.conv1d(torch.bmm(n_pair, st), w,
+                                              groups=32)
 
 
-def _k1_bound_ms(ch: int, s: int):
-    """The least time for K1's work on the card: (bytes moved: V history
-    read once, window read once, PCM written once) over 3.35 TB/s against
-    (2 flops per tap and output) over 67 TFLOP/s float32, the H100 SXM's
-    published peaks. Returns (ms, "bytes" or "operations")."""
-    nbytes = 4 * (ch * (15 + s) * 64 + 16 * 32 + ch * s * 32)
-    flops = 2 * 16 * ch * s * 32
-    by_bytes, by_ops = nbytes / 3.35e12 * 1e3, flops / 67e12 * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                           "operations")
+def fused_bound(rows: int, tt: int, dtype, out: str):
+    """The least time for K1's work on the card: (bytes that must move:
+    blk read once, N and D read once, the output written once) over HBM's
+    rate against (the separately rounded operations: per sub-step the
+    overlap-add and inversion 2 x 32, V 2 x 64 x 32, the FIR 2 x 32 x 16,
+    the int16 scale 32) over the non-fused peak. Returns (ms, "bytes" or
+    "operations", bytes, operations)."""
+    es = torch.finfo(dtype).bits // 8
+    steps = rows * tt * 18
+    nbytes = es * (rows * tt * 32 * 36 + 64 * 32 + 16 * 32) \
+        + steps * 32 * (2 if out == "int16" else es)
+    ops = steps * (2 * 32 + 2 * 64 * 32 + 2 * 32 * 16
+                   + (32 if out == "int16" else 0))
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = ops / PEAK_OPS_S[dtype] * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes", nbytes, ops
+    return by_ops, "operations", nbytes, ops
 
 
 def main() -> int:
@@ -699,49 +797,58 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2) as pool:
         host_lib = pool.submit(native.get_lib)
-        _cuda.load("synth_fir", sf._SIGNATURES)
+        _cuda.load("synth", sf._SIGNATURES)
         if host_lib.result() is None:
             raise RuntimeError("the native host library did not build or "
                                "load")
-    info = _cuda.builds["synth_fir"]
-    _say("1 build", f"csrc/synth_fir.cu -> {os.path.relpath(info['path'], REPO)}"
+    info = _cuda.builds["synth"]
+    _say("1 build", f"csrc/synth.cu -> {os.path.relpath(info['path'], REPO)}"
                     f" in {info['seconds']:.2f} s")
     for line in info["log"].splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
             _say("1 build", "ptxas: " + line.strip())
+    for dtype in (F32, F64):
+        g, smem = sf.tile(dtype)
+        _say("1 build", f"{dtype}: {g} granules and {smem} B of shared "
+                        f"memory per CTA")
     _say("1 build", f"kernel and native host library (in parallel) in "
                     f"{time.perf_counter() - t0:.2f} s")
 
-    # ---- phase 2: K1 against its plain version, bit for bit
-    rng = np.random.default_rng(0)
-    k1_err = None
-    for ch, s in ((2, S_SLICE), (2, 18), (1, 18 * 7)):
-        v = torch.from_numpy(rng.standard_normal((ch, 15 + s, 64))
-                             .astype(np.float32)).to(dev)
-        got, want = _fir_pair(v, s)
-        err = float((got - want).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"synth_fir != plain at {(ch, 15 + s, 64)}: "
-                                 f"max |d| {err}")
-        if s == S_SLICE:
-            k1_err = err
-        _say("2 K1", f"v_ext {(ch, 15 + s, 64)}: bitwise equal to "
-                     f"synth_fir_torch (max |d| {err})")
-    s = 512
-    v = torch.from_numpy(rng.standard_normal((1, 15 + 2 * s, 64))
-                         .astype(np.float32)).to(dev)
-    whole = sf.synth_fir(v, 2 * s)
-    halves = torch.cat([sf.synth_fir(v[:, :15 + s].contiguous(), s),
-                        sf.synth_fir(v[:, s:].contiguous(), s)], dim=1)
-    torch.cuda.synchronize()
-    if not torch.equal(whole, halves):
-        raise AssertionError("synth_fir halo continuity broken")
-    _say("2 K1", "halo continuity: two halves with a 15-row halo equal one pass")
+    # ---- phase 2: K1 against its plain version, bit for bit, in both
+    # dtypes and epilogues: the song's shape, one granule, odd counts
+    # around the tiles (8 granules in float32, 4 in float64), a batch
+    errs = {}
+    for dtype in (F32, F64):
+        for rows, t in ((2, SONG_T), (2, 1), (1, 7), (2, 9), (1, 5),
+                        (3, 41), (32, 2298)):
+            blk = _seeded_blk(rows, t, rows * 100 + t, dtype, dev)
+            ch = 2 if rows % 2 == 0 else 1
+            for out in sf.OUTS:
+                hold("seeded blocks", blk, out, ch, errs)
+        # rows are independent and tiles join without a seam
+        blk = _seeded_blk(3, 41, 1, dtype, dev)
+        whole = sf.synth_fused(blk)
+        for r in range(3):
+            if not torch.equal(whole[r:r + 1],
+                               sf.synth_fused(blk[r:r + 1].contiguous())):
+                raise AssertionError(f"{dtype}: row {r} alone != in a batch")
+        # loud blocks: the int16 epilogue saturates, or wraps on request
+        loud = 40 * _seeded_blk(2, 13, 2, dtype, dev)
+        for wrap in ("0", "1"):
+            os.environ["MP3STEGO_TPU_REF_PCM_WRAP"] = wrap
+            hold(f"loud blocks, wrap={wrap}", loud, "int16", 2, errs)
+        del os.environ["MP3STEGO_TPU_REF_PCM_WRAP"]
+        _say("2 K1", f"{dtype}: bitwise equal to synth_fused_torch, float "
+                     f"and int16, at (rows, T) (2, {SONG_T}), (2, 1), (1, "
+                     f"7), (2, 9), (1, 5), (3, 41), (32, 2298); rows alone "
+                     f"equal rows in a batch; loud blocks saturate and wrap "
+                     f"alike")
+    torch.cuda.empty_cache()
 
     # ---- phase 3: plane coverage (short/start/mixed/MS/intensity/linbits)
     prep = synthetic_prep(64)
     ref = dp.decode_granules_np(prep)
-    got = dp.decode_granules(dp.prep_to_torch(prep, dev), torch.float32)
+    got = dp.decode_granules(dp.prep_to_torch(prep, dev), F32)
     got = got.cpu().numpy()
     err = float(np.abs(got - ref).max())
     # the synthetic batch peaks far above full scale, so the float32 bound
@@ -749,176 +856,235 @@ def main() -> int:
     bound = 1e-5 * max(1.0, float(np.abs(ref).max()))
     if not err < bound:
         raise AssertionError(f"card plane vs host float64: {err} >= {bound}")
+    got64 = dp.decode_granules(dp.prep_to_torch(prep, dev), F64)
+    if not np.array_equal(got64.cpu().numpy(), ref):
+        raise AssertionError("card float64 plane != decode_granules_np")
     _say("3 plane", f"synthetic T=64 batch: card float32 vs host float64 "
                     f"max |d| {err:.3e} (bound {bound:.3e}, peak "
-                    f"{np.abs(ref).max():.3f})")
+                    f"{np.abs(ref).max():.3f}); card float64 bit for bit "
+                    f"decode_granules_np")
 
+    runs = Paths()
     with tempfile.TemporaryDirectory() as tmp:
-        # ---- phase 4: the slice, a 240.7 s song through the façade
+        # ---- phase 4: the slice, a 240.7 s song through the façade: the
+        # default (float64 on the card) against the host C++ plane, then
+        # float32
         mp3 = np.load(os.path.join(GOLD, "encode_golden.npz"))["mp3_bytes"]
         song = os.path.join(tmp, "song.mp3")
         with open(song, "wb") as f:
             f.write((mp3.tobytes() + b"\0") * SONG_COPIES)
-        s64 = Steganography(quiet=True, precision="float64")
-        t0 = time.perf_counter()
-        s64.decode_mp3_to_wav(song, os.path.join(tmp, "song64.wav"))
-        t64 = time.perf_counter() - t0
-        want = _wav_i16(os.path.join(tmp, "song64.wav"))
+        s_host = Steganography(quiet=True, device="cpu")
+        host_wav = os.path.join(tmp, "song_host.wav")
+        t_host, walls_host, _ = _median3(
+            lambda: s_host.decode_mp3_to_wav(song, host_wav))
+        s64 = Steganography(quiet=True)              # float64 on the card
+        wav64 = os.path.join(tmp, "song64.wav")
+
+        def decode64():
+            s64.decode_mp3_to_wav(song, wav64)
+            return dict(s64._last_decoder.timer.times)
+
+        wall64, walls64, stages64 = runs.run("façade decode, float64 "
+                                             "(default)", F64,
+                                             lambda: _median3(decode64))
+        with open(wav64, "rb") as a, open(host_wav, "rb") as b:
+            _expect_equal("song: default card decode vs host C++ plane",
+                          a.read(), b.read())
+        want = _wav_i16(wav64)
         seconds = want.size / 2 / 44100
-        s32 = Steganography(quiet=True, precision="float32", device="cuda")
+        _say("4 slice", f"{seconds:.2f} s song: the default decode (float64 "
+                        f"on the card, {runs.log[-1][2]} K1 launches in 4 "
+                        f"decodes) writes the host C++ plane's WAV bytes")
+        _say("4 slice", f"[{card}] float64 card decode wall median "
+                        f"{wall64 * 1e3:.1f} ms of "
+                        f"{[round(w * 1e3, 1) for w in walls64]} -> "
+                        f"{seconds / wall64:.1f}x realtime; host C++ float64 "
+                        f"plane median {t_host * 1e3:.1f} ms of "
+                        f"{[round(w * 1e3, 1) for w in walls_host]} -> "
+                        f"{seconds / t_host:.1f}x")
+        _say_stages("4 slice float64", card, stages64)
+        s32 = Steganography(quiet=True, precision="float32")
         wav32 = os.path.join(tmp, "song32.wav")
-        sf.launches = 0
-        s32.decode_mp3_to_wav(song, wav32)                  # warm-up
+
+        def decode32():
+            s32.decode_mp3_to_wav(song, wav32)
+            return dict(s32._last_decoder.timer.times)
+
         torch.cuda.reset_peak_memory_stats()
-        walls, stages = [], []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            kbps = s32.decode_mp3_to_wav(song, wav32)
-            walls.append(time.perf_counter() - t0)
-            stages.append(dict(s32._last_decoder.timer.times))
-        main_launches = sf.launches
+        wall, walls, stages = runs.run("façade decode, float32", F32,
+                                       lambda: _median3(decode32))
         peak = torch.cuda.max_memory_allocated()
-        if main_launches == 0:
-            raise AssertionError("the decode path never launched synth_fir")
-        got = _wav_i16(wav32)
-        _say("4 slice", f"{seconds:.2f} s song at {kbps} kbps: card WAV vs "
-                        f"float64 WAV {_lsb_contract('song', got, want)}")
-        wall = sorted(walls)[1]
-        _say("4 slice", f"[{card}] decode wall median {wall * 1e3:.1f} ms of "
+        _say("4 slice", f"float32: card WAV vs float64 WAV "
+                        f"{_lsb_contract('song', _wav_i16(wav32), want)}")
+        _say("4 slice", f"[{card}] float32 decode wall median "
+                        f"{wall * 1e3:.1f} ms of "
                         f"{[round(w * 1e3, 1) for w in walls]} -> "
-                        f"{seconds / wall:.1f}x realtime; float64 host plane "
-                        f"{t64 * 1e3:.1f} ms ({seconds / t64:.1f}x); "
-                        f"synth_fir launches {main_launches} in 4 decodes")
-        for name in stages[0]:
-            ms = sorted(st[name] * 1e3 for st in stages)
-            _say("4 slice", f"[{card}] stage {name}: median {ms[1]:.2f} ms "
-                            f"of {[round(m, 2) for m in ms]}")
-        _say("4 slice", f"[{card}] torch.cuda.max_memory_allocated "
+                        f"{seconds / wall:.1f}x realtime; "
+                        f"torch.cuda.max_memory_allocated "
                         f"{peak / 2**20:.1f} MiB")
+        _say_stages("4 slice float32", card, stages)
 
         # device plane by stage, CUDA events, on the song's prep
         with open(song, "rb") as f:
             parsed = dh.parse_mp3(f.read())
         prep = dp.prep_to_torch(dp.host_prepare(parsed), dev)
-        marks = []
+        for dtype in (F32, F64):
+            marks = []
 
-        def mark(name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((name, ev))
+            def mark(name):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append((name, ev))
 
-        for _ in range(2):                     # the second pass is timed
-            marks.clear()
-            mark("start")
-            x = dp._requantize_stage(prep, torch.float32)
-            mark("requantize")
-            x = dp._stereo_stage(prep, x, torch.float32)
-            mark("stereo")
-            x = dp._reorder_alias_stage(prep, x, torch.float32)
-            mark("reorder_alias")
-            blk = dp._imdct_stage(prep, x, torch.float32)
-            mark("imdct")
-            pcm = dp.synth_from_blocks(blk, torch.float32)
-            mark("overlap_freqinv+synth_v+synth_fir")
-            i16 = (pcm * 32767.0).clamp(-32768.0, 32767.0).to(torch.int32)
-            i16 = i16.to(torch.int16)
-            mark("int16")
-            torch.cuda.synchronize()
-        total = marks[0][1].elapsed_time(marks[-1][1])
-        for (_, a), (name, b) in zip(marks, marks[1:]):
-            ms = a.elapsed_time(b)
-            _say("4 slice", f"[{card}] device {name}: {ms:.3f} ms "
-                            f"({ms / total * 100:.1f}%)")
-        _say("4 slice", f"[{card}] device plane total {total:.3f} ms")
-        if not torch.equal(i16, dp.decode_granules_i16(prep)):
-            raise AssertionError("staged device plane != decode_granules_i16")
+            for _ in range(2):                 # the second pass is timed
+                marks.clear()
+                mark("start")
+                x = dp._requantize_stage(prep, dtype)
+                mark("requantize")
+                x = dp._stereo_stage(prep, x, dtype)
+                mark("stereo")
+                x = dp._reorder_alias_stage(prep, x, dtype)
+                mark("reorder_alias")
+                blk = dp._imdct_stage(prep, x, dtype)
+                mark("imdct")
+                i16 = dp.synth_from_blocks(blk, None, "int16", 2)
+                mark("synth (K1, int16)")
+                torch.cuda.synchronize()
+            total = marks[0][1].elapsed_time(marks[-1][1])
+            for (_, a), (name, b) in zip(marks, marks[1:]):
+                ms = a.elapsed_time(b)
+                _say("4 slice", f"[{card}] {dtype} device {name}: {ms:.3f} "
+                                f"ms ({ms / total * 100:.1f}%)")
+            _say("4 slice", f"[{card}] {dtype} device plane total "
+                            f"{total:.3f} ms")
+            if not torch.equal(i16, dp.decode_granules_i16(prep, dtype)):
+                raise AssertionError("staged device plane != "
+                                     "decode_granules_i16")
+            del x, blk, i16
 
-        # ---- phase 5: MPEG-2/2.5 through the card path. mpeg2_golden.npz
-        # holds the reference encoder's LSF layout, which no decoder reads;
+        # ---- phase 5: the default decode on the card against the host C++
+        # plane, byte for byte, on every golden and crafted stream; float32
+        # against float64 on the MPEG-2/2.5 ones. mpeg2_golden.npz holds the
+        # reference encoder's LSF layout, which no decoder reads;
         # torch_lsf_golden.npz holds the same PCM through the JAX package's
         # spec-valid LSF writer (pinned by tests/test_torch_host.py)
         g2 = np.load(os.path.join(GOLD, "torch_lsf_golden.npz"))
-        for name in ("mpeg2_24k_64", "mpeg2_22k05_80", "mpeg25_8k_32"):
-            path = os.path.join(tmp, f"{name}.mp3")
-            with open(path, "wb") as f:
-                f.write(g2[name].tobytes())
-            s64.decode_mp3_to_wav(path, os.path.join(tmp, f"{name}64.wav"))
-            s32.decode_mp3_to_wav(path, os.path.join(tmp, f"{name}32.wav"))
+        mr = np.load(os.path.join(GOLD, "multirate_golden.npz"))
+        crafted = np.load(os.path.join(GOLD, "crafted_golden.npz"))
+        lsf_names = ("mpeg2_24k_64", "mpeg2_22k05_80", "mpeg25_8k_32")
+        streams = [(n, g2[n].tobytes()) for n in lsf_names]
+        streams += [(t, mr[f"mp3_{t}"].tobytes()) for t in (
+            "32000_64", "32000_192", "44100_128", "48000_96", "48000_320")]
+        streams += [("encode_golden", mp3.tobytes())]
+        streams += [(n, crafted[n].tobytes()) for n in sorted(crafted.files)]
+        files = {n: _write(os.path.join(tmp, f"{n}.mp3"), b)
+                 for n, b in streams}
+        runs.run("façade decode of the goldens and crafted streams, "
+                 "float64 (default)", F64, lambda: [
+                     s64.decode_mp3_to_wav(p, os.path.join(tmp, f"{n}64.wav"))
+                     for n, p in files.items()])
+        for n, p in files.items():
+            s_host.decode_mp3_to_wav(p, os.path.join(tmp, f"{n}_host.wav"))
+            with open(os.path.join(tmp, f"{n}64.wav"), "rb") as a, \
+                    open(os.path.join(tmp, f"{n}_host.wav"), "rb") as b:
+                _expect_equal(f"{n}: default card decode vs host C++ plane",
+                              a.read(), b.read())
+        _say("5 goldens", f"default decode on the card ({runs.log[-1][2]} K1 "
+                          f"launches) writes the host C++ plane's WAV bytes "
+                          f"on {len(files)} streams: {', '.join(files)}")
+        for name in lsf_names:
+            s32.decode_mp3_to_wav(files[name],
+                                  os.path.join(tmp, f"{name}32.wav"))
             line = _lsb_contract(
                 name, _wav_i16(os.path.join(tmp, f"{name}32.wav")),
-                _wav_i16(os.path.join(tmp, f"{name}64.wav")), TONE_MAX_LSB_RATE)
+                _wav_i16(os.path.join(tmp, f"{name}64.wav")),
+                TONE_MAX_LSB_RATE)
             parsed = dh.parse_mp3(g2[name].tobytes())
             err = float(np.abs(dp.decode_pcm(parsed, "float32", dev)
-                               - dp.decode_pcm(parsed, "float64")).max())
+                               - dp.decode_pcm(parsed, "float64", dev)).max())
             if not err < 1e-5:
                 raise AssertionError(f"{name}: float32 PCM off by {err}")
-            _say("5 lsf", f"{name}: {line}; float max |d| {err:.3e}")
+            _say("5 lsf", f"{name}: float32 {line}; float max |d| {err:.3e}")
 
-        # ---- phase 6: reveal
+        # ---- phase 6: reveal, float64 (default) and float32
         sg = np.load(os.path.join(GOLD, "stego_golden.npz"))
         for key, msg in (("hidden_short", "ddd"),
                          ("hidden_long", sg["msg_long"].tobytes().decode())):
-            path = os.path.join(tmp, f"{key}.mp3")
-            with open(path, "wb") as f:
-                f.write(sg[key].tobytes())
-            txt = os.path.join(tmp, f"{key}.txt")
-            s32.reveal_massage(path, txt)
-            with open(txt) as f:
-                got = f.read()
-            if got != msg:
-                raise AssertionError(f"reveal {key}: {got!r} != {msg!r}")
-            _say("6 reveal", f"{key}: {got!r}")
+            path = _write(os.path.join(tmp, f"{key}.mp3"), sg[key].tobytes())
+            for s in (s64, s32):
+                txt = os.path.join(tmp, f"{key}.txt")
+                s.reveal_massage(path, txt)
+                with open(txt) as f:
+                    got = f.read()
+                if got != msg:
+                    raise AssertionError(f"reveal {key}: {got!r} != {msg!r}")
+            _say("6 reveal", f"{key}: {got!r} (float64 and float32)")
 
         # ---- phases 8-11: the encode and hide path on the same song
-        enc_out = encode_phases(dev, card, tmp, song,
-                                os.path.join(tmp, "song64.wav"), s32)
-        hide_launches = enc_out["hide_launches"]
+        enc_out = encode_phases(dev, card, tmp, song, wav64, s64, s32, runs)
 
         # ---- phases 12-15: batched decode and encode, VBR, streaming, CLI
-        batch = batch_phases(dev, card, tmp, song,
-                             os.path.join(tmp, "song64.wav"), enc_out)
-        batch_launches = batch["batch_launches"]
-        k1_err = max(k1_err, batch["k1_err"])
+        batch_phases(dev, card, tmp, song, wav64, enc_out, s64, runs, errs)
 
-    # ---- phase 7: K1 time against its plain version and a grouped conv1d
-    # (the library yardstick) at the slice's shape
-    v = torch.from_numpy(np.random.default_rng(7).standard_normal(
-        (2, 15 + S_SLICE, 64)).astype(np.float32)).to(dev)
-    kern = lambda: sf.synth_fir(v, S_SLICE)          # noqa: E731
-    plain = lambda: sf.synth_fir_torch(v, S_SLICE)   # noqa: E731
-    conv = _conv1d_fir(v, S_SLICE)
-    got, lib_out = kern(), conv().permute(0, 2, 1)
-    torch.cuda.synchronize()
-    # float32, the 16 taps summed in another order: a few ulps of the
-    # unit-scale outputs
-    lib_err = float((got - lib_out).abs().max())
-    lib_tol = 1e-5 * max(1.0, float(got.abs().max()))
-    if not lib_err < lib_tol:
-        raise AssertionError(f"conv1d FIR vs K1: max |d| {lib_err} >= "
-                             f"{lib_tol}")
-    plain()
-    times = {"plain": [], "kernel": [], "conv1d": []}
-    for which in ("plain", "kernel", "conv1d", "conv1d", "kernel", "plain"):
-        fn = {"plain": plain, "kernel": kern, "conv1d": conv}[which]
-        times[which].append(_time_ms(fn, 20))
-    k_ms, p_ms = min(times["kernel"]), min(times["plain"])
-    c_ms = min(times["conv1d"])
-    bound_ms, bound_by = _k1_bound_ms(2, S_SLICE)
-    _say("7 K1 time", f"[{card}] v_ext (2, {15 + S_SLICE}, 64): kernel "
-                      f"{times['kernel']} ms, plain {times['plain']} ms "
-                      f"(plain/kernel {p_ms / k_ms:.1f}x), grouped conv1d "
-                      f"{times['conv1d']} ms (max |d| vs kernel {lib_err:.3e}"
-                      f", tolerance {lib_tol:.1e}); bound {bound_ms:.4f} ms "
-                      f"by {bound_by}, kernel at {bound_ms / k_ms:.1%} of it")
+        # ---- phase 7: K1's time on the song's own blocks in both dtypes,
+        # beside its plain version and the library pair, each with its bound
+        timing = {}
+        for dtype in (F32, F64):
+            blk = song_blocks(prep, dtype)
+            lib = library_pair(blk)
+            got = sf.synth_fused(blk)
+            lib_out = lib().transpose(1, 2).reshape(got.shape)
+            torch.cuda.synchronize()
+            # the library sums V and the taps in another order
+            lib_err = float((got - lib_out).abs().max())
+            lib_tol = (1e-5 if dtype == F32 else 1e-12) * max(
+                1.0, float(got.abs().max()))
+            if not lib_err < lib_tol:
+                raise AssertionError(f"{dtype}: bmm + conv1d vs K1: max |d| "
+                                     f"{lib_err} >= {lib_tol}")
+            del got, lib_out
+            fns = {"kernel": lambda: sf.synth_fused(blk, "int16", 2),
+                   "kernel_float": lambda: sf.synth_fused(blk),
+                   "plain": lambda: sf.synth_fused_torch(blk, "int16", 2),
+                   "library": lib}
+            for fn in fns.values():
+                fn()
+            times = {k: [] for k in fns}
+            for which in ("plain", "kernel", "kernel_float", "library",
+                          "library", "kernel_float", "kernel", "plain"):
+                times[which].append(_time_ms(fns[which], 3 if which ==
+                                             "plain" else 20))
+            best = {k: min(v) for k, v in times.items()}
+            b_i16, by_i16, nb, nops = fused_bound(2, SONG_T, dtype, "int16")
+            b_f, by_f, _, _ = fused_bound(2, SONG_T, dtype, "float")
+            timing[dtype] = dict(ms=best["kernel"], plain_ms=best["plain"],
+                                 library_ms=best["library"], bound_ms=b_i16,
+                                 bound_by=by_i16)
+            _say("7 K1 time", f"[{card}] {dtype} song blocks "
+                              f"{tuple(blk.shape)}: kernel (int16) "
+                              f"{times['kernel']} ms, bound {b_i16:.4f} ms by "
+                              f"{by_i16} ({nb / 1e6:.1f} MB, "
+                              f"{nops / 1e9:.3f} G ops), at "
+                              f"{b_i16 / best['kernel']:.1%} of it; kernel "
+                              f"(float) {times['kernel_float']} ms, bound "
+                              f"{b_f:.4f} ms by {by_f}; plain (int16) "
+                              f"{times['plain']} ms (plain/kernel "
+                              f"{best['plain'] / best['kernel']:.1f}x); bmm "
+                              f"+ grouped conv1d {times['library']} ms "
+                              f"(max |d| vs kernel {lib_err:.3e}, tolerance "
+                              f"{lib_tol:.1e})")
+            del blk, lib, fns
+            torch.cuda.empty_cache()
 
+    for name, dtype, n in runs.log:
+        _say("launches", f"{name} ({dtype}): {n}")
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "synth_fir", "route": "cuda",
-        "source": "mp3stego_tpu_torch/csrc/synth_fir.cu",
-        "replaces": "mp3stego_tpu/ops/pallas_kernels.py:42",
-        "launches": main_launches + hide_launches + batch_launches,
-        "max_abs_err": k1_err, "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": c_ms}]}))
+    print(json.dumps({"kernels": [dict(
+        name=f"synth_fused ({'float32' if dtype == F32 else 'float64'})",
+        route="cuda", source="mp3stego_tpu_torch/csrc/synth.cu",
+        replaces="mp3stego_tpu/ops/pallas_kernels.py:42",
+        launches=runs.launches(dtype), max_abs_err=errs[dtype],
+        **timing[dtype]) for dtype in (F64, F32)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,12 +2,13 @@
 
 A second package beside the JAX one, which stays the reference: each slice
 of the port is held against ``mp3stego_tpu`` on the same inputs. This
-package imports ``torch`` and never ``jax``, and imports nothing of
-``mp3stego_tpu`` (it reads two of its data files by path: the constant pack
-``tables/iso_tables.npz`` and the C++ host sources ``native/src/*.cpp``).
+package imports ``torch`` and never ``jax``, and needs nothing of
+``mp3stego_tpu``: it keeps its own copies of the constant pack
+(``tables/iso_tables.npz``) and the C++ host sources (``native/src/*.cpp``).
 
-Ported so far: the decode path (MP3 -> WAV, and reveal), with the synthesis
-FIR as a hand-written CUDA kernel for Hopper (``csrc/synth_fir.cu``), and
+Ported so far: the decode path (MP3 -> WAV, and reveal) in float64 and
+float32, with the synthesis (overlap-add, V matmul, 16-tap FIR, int16) as
+one hand-written CUDA kernel for Hopper (``csrc/synth.cu``), and
 the encode path (WAV -> MP3, CBR and VBR, hide, clear, capacity), with the
 Q31 analysis and the exact float64 rate search in torch on the device, the
 batched decode and encode over many files (``parallel``), the streaming

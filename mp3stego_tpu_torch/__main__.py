@@ -2,8 +2,8 @@
 
 The subcommands and flags of the JAX package's CLI (``mp3stego_tpu``),
 routed to this package, plus ``--device``: every plane runs on the card
-unless ``--device cpu`` is given. ``--precision float32`` decodes on the
-card's plane; the default float64 decode is the bit-exact host plane.
+unless ``--device cpu`` is given, the default float64 decode (bit-exact,
+the host C++ plane's bytes) as the ``--precision float32`` one.
 """
 
 import argparse
@@ -34,9 +34,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="print process information")
     p.add_argument("--precision", choices=("float64", "float32"),
                    default="float64",
-                   help="decode numeric plane: float64 = bit-exact parity "
-                        "(host), float32 = the card's plane (<=1 LSB int16 "
-                        "deviation on under 1e-3 of samples)")
+                   help="decode numeric plane: float64 = bit-exact parity, "
+                        "float32 = <=1 LSB int16 deviation on under 1e-3 of "
+                        "samples (both on --device)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the torch planes run (default: the card)")
     sub = p.add_subparsers(dest="op", required=True)
@@ -46,7 +46,7 @@ def _parser() -> argparse.ArgumentParser:
     d.add_argument("--stream-chunk-frames", type=int, default=0,
                    metavar="N",
                    help="decode in O(chunk) memory windows of N frames "
-                        "(bounded-RSS long-file mode, host float64; "
+                        "(bounded-RSS long-file mode, float64 on --device; "
                         "0 = whole-file)")
 
     e = sub.add_parser("encode", help="WAV -> MP3")
@@ -179,7 +179,7 @@ def main(argv=None) -> int:
                 decode_file_streaming
             info = decode_file_streaming(
                 args.input, args.output,
-                chunk_frames=args.stream_chunk_frames)
+                chunk_frames=args.stream_chunk_frames, device=args.device)
             print(f"decoded at {info['bitrate']} kbps "
                   f"({info['num_frames']} frames, streaming) "
                   f"-> {args.output}")

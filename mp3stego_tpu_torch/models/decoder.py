@@ -7,8 +7,9 @@ constructor, ``decode(quiet, reveal, txt_file_path)`` returning bitrate//1000,
 
 The pipeline: host parse (sync walk, side info, reservoir, Huffman) -> numeric
 plane (ops/decode_plane) -> int16 WAV. ``precision`` selects "float64" (the
-bit-exact host plane) or "float32" (the torch plane on ``device``: CUDA by
-default; a missing card raises).
+bit-exact plane) or "float32"; both run the torch plane on ``device``, CUDA
+by default (a missing card raises). Under ``device="cpu"`` float64 runs the
+host C++ plane, whose bytes the card's float64 plane equals.
 """
 
 import os
@@ -26,13 +27,13 @@ from mp3stego_tpu_torch.utils.wav import write_wav
 PRECISIONS = ("float64", "float32")
 
 
-def check_precision(precision: str, device=None):
-    """Validate ``precision``; return the float32 plane's device (None for
-    float64, which runs on the host whatever ``device`` says)."""
+def check_precision(precision: str, device=None) -> torch.device:
+    """Validate ``precision``; return the decode plane's device: ``device``,
+    or CUDA when None (a missing card raises)."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, "
                          f"got {precision!r}")
-    return dp.resolve_device(device) if precision == "float32" else None
+    return dp.resolve_device(device)
 
 
 class Decoder:
@@ -40,9 +41,9 @@ class Decoder:
 
     :param file_path: the mp3 file path.
     :param output_file_path: the wav output file path.
-    :param precision: "float64" (bit-exact parity mode, host) or "float32"
-        (the torch plane on ``device``).
-    :param device: the float32 plane's device; None means CUDA.
+    :param precision: "float64" (bit-exact parity mode) or "float32".
+    :param device: the decode plane's device; None means CUDA. "cpu" runs
+        float64 on the host C++ plane and float32 on the torch CPU plane.
 
     ``timer`` holds the last ``decode``'s per-stage wall times; on a CUDA
     device each stage boundary waits for the card.
@@ -101,7 +102,7 @@ class Decoder:
 
         dev = self.__device
         sync = (lambda: torch.cuda.synchronize(dev)) \
-            if dev is not None and dev.type == "cuda" else None
+            if dev.type == "cuda" else None
         timer = self.timer = StageTimer(sync=sync)
         start = time.time()
         with trace():
@@ -118,17 +119,18 @@ class Decoder:
                     sys.exit(f"File {self.__file_path} is not a valid "
                              f"MP3 file.")
 
-            if self.__precision == "float64":
+            if self.__precision == "float64" and dev.type == "cpu":
                 with timer.stage("numeric plane (float64)"):
                     # fused native plane -> interleaved int16 (one pass);
                     # NumPy parity oracle when the toolchain is absent
                     pcm_i16 = dp.decode_pcm_i16_host(parsed)
                     if pcm_i16 is None:
                         pcm_i16 = dp.pcm_to_i16(
-                            dp.decode_pcm(parsed, "float64"))
+                            dp.decode_pcm(parsed, "float64", dev))
             else:
-                # torch plane + int16 conversion on the device
-                pcm_i16 = dp.decode_pcm_i16(parsed, dev, timer=timer)
+                # torch plane, int16 conversion in its synthesis kernel
+                pcm_i16 = dp.decode_pcm_i16(parsed, dev, self.__precision,
+                                            timer=timer)
         parsing_time = time.time() - start
         if not quiet:
             print('\nParsed', parsed.num_frames, 'frames in', parsing_time,

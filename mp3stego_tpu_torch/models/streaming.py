@@ -1,10 +1,10 @@
 """Bounded-memory streaming decode and encode for long files.
 
-Both run on the host, as in the JAX package: the decode through the native
-float64 parity plane (the bit-exact one, which ROADMAP.md keeps on the host
-C++ plane), the encode through the native Q31 analysis and the sequential
-``rate_search_file`` chain. Their outputs are byte-identical to the
-whole-file paths (``Decoder`` with precision "float64", ``MP3Encoder``).
+The decode runs each window through the float64 decode plane on ``device``
+(CUDA by default; the host C++ plane under ``device="cpu"``). The encode runs
+on the host, as in the JAX package: the native Q31 analysis and the
+sequential ``rate_search_file`` chain. Their outputs are byte-identical to
+the whole-file paths (``Decoder`` with precision "float64", ``MP3Encoder``).
 
 The whole-file decode materializes the full parsed stream (``raw_samples``
 (F, 2, 2, 576) int32 plus side info) before its numeric plane runs. The
@@ -52,16 +52,19 @@ _WARMUP = dh.NUM_PREV_FRAMES + 1
 
 def decode_file_streaming(file_path: str, wav_path: str,
                           chunk_frames: int = 1024,
-                          progress_cb=None) -> dict:
+                          progress_cb=None, device=None) -> dict:
     """Decode an MP3 file to WAV in O(chunk) memory; the bytes equal the
     whole-file float64 decode's.
 
     :param chunk_frames: frames decoded per window.
     :param progress_cb: optional ``cb(frames_done, frames_total)``.
+    :param device: the float64 plane's device; None means CUDA (a missing
+        card raises), "cpu" the host C++ plane.
     :return: dict with ``bitrate`` (kbps), ``num_frames`` and
         ``stego_bits`` (the hidden-bit string, so a reveal needs no second
         pass).
     """
+    dev = dp.resolve_device(device)
     with open(file_path, "rb") as f:
         try:
             data = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
@@ -69,13 +72,14 @@ def decode_file_streaming(file_path: str, wav_path: str,
             data = f.read()
     try:
         return _decode_windows(data, file_path, wav_path, chunk_frames,
-                               progress_cb)
+                               progress_cb, dev)
     finally:
         if isinstance(data, mmap.mmap):
             data.close()
 
 
-def _decode_windows(data, file_path, wav_path, chunk_frames, progress_cb):
+def _decode_windows(data, file_path, wav_path, chunk_frames, progress_cb,
+                    dev):
     # the skip offset comes from the fixed-position syncsafe size fields, so
     # a bounded prefix is enough (the tag-frame walk is only for METADATA)
     id3 = parse_id3(bytes(data[:min(len(data), 1 << 20)]))
@@ -118,11 +122,14 @@ def _decode_windows(data, file_path, wav_path, chunk_frames, progress_cb):
             if got != f1 - w0:
                 raise ValueError(f"{file_path}: window of frames {w0}..{f1} "
                                  f"parsed {got} frames")
-            pcm = dp.decode_pcm_i16_host(p)
-            if pcm is None:   # no native toolchain: NumPy parity oracle
-                pcm = dp.pcm_to_i16(dp.decode_pcm(p, "float64"))
+            if dev.type == "cpu":
+                pcm = dp.decode_pcm_i16_host(p)
+                if pcm is None:   # no native toolchain: NumPy parity oracle
+                    pcm = dp.pcm_to_i16(dp.decode_pcm(p, "float64", dev))
+            else:
+                pcm = dp.decode_pcm_i16(p, dev, "float64")
             # drop warm-up PCM; the duplication tail only applies on the
-            # final window (decode_pcm_i16_host already appended it there).
+            # final window (the window's decode already appended it there).
             # A window that starts at frame 0 of a tagged stream re-parses
             # the tag frame, whose samples _finish_inter already dropped:
             # one warm-up frame fewer to trim here.

@@ -1,7 +1,8 @@
 """Native host-plane library: lazy g++ build + ctypes bindings.
 
-The C++ sources are the JAX package's own (``mp3stego_tpu/native/src/*.cpp``),
-read by path so both packages build one code base: the bitstream parser
+The C++ sources are the port's copy of the JAX package's (``src/*.cpp`` beside
+this module, byte for byte equal, held so by tests/test_torch_import.py), so
+the port builds from its own directory: the bitstream parser
 (mp3_parse.cpp), the int8 sample-plane pack (raw_pack.cpp) and the float64
 parity decode plane (decode_plane_f64.cpp), among others. Built on first use
 with g++ into this package's git-ignored ``_build/`` directory (never into the
@@ -17,7 +18,7 @@ import threading
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC_DIR = os.path.join(os.path.dirname(_PKG), "mp3stego_tpu", "native", "src")
+_SRC_DIR = os.path.join(_PKG, "native", "src")
 _SRCS = [os.path.join(_SRC_DIR, f)
          for f in sorted(os.listdir(_SRC_DIR)) if f.endswith(".cpp")]
 BUILD_DIR = os.path.join(_PKG, "_build")

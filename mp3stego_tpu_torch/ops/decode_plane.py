@@ -7,29 +7,32 @@ Here the whole file is one dense batch of granules:
 * requantize     — sign * pow43[|ix|] * 2^(q/4): per-band exponents are
                    computed on a compact 61-slot grid from side-info fields
                    and gathered out to the 576 samples through static slot
-                   maps; pow43 rows are read from the exact 8207-entry table
-                   and the 2^(q/4) scale is an exponent-bit construction.
+                   maps; pow43 rows are read from the exact 8207-entry table.
+                   float32 builds 2^(q/4) from exponent bits; float64
+                   multiplies by the reference's two exponent tables
+                   (e1lut, e2lut) in its order.
 * MS stereo      — masked vector op; intensity stereo as a masked overlay.
 * reorder        — static permutation (with the reference's zero-filled tail for
                    short blocks, Frame.py:574-602).
 * alias          — static butterfly index arrays.
-* IMDCT          — 18->36 matmul against the cosine basis, windowed; the
-                   inter-granule overlap-add is a shifted add over the time axis
-                   (out_t = blk_t[:18] + blk_{t-1}[18:]), not a scan.
-* freq inversion — static sign mask.
-* synthesis      — V_t = N @ s_t for all 18*T sub-steps as one (18T,32)@(32,64)
-                   matmul (both matmuls in fixed row blocks, ``_row_matmul``,
-                   so a row rounds alike in any batch), then
-                   PCM_t[n] = sum_{j<16} D[32j+n] *
-                   V_{t-j}[(j%2)*32+n]: the 16-tap FIR over the V history
-                   (ops/synth_fir.py: a hand-written CUDA kernel on the card),
-                   accumulated in the reference's j-order.
+* IMDCT          — 18->36 against the cosine basis, windowed: float32 as a
+                   matmul in fixed row blocks (``_row_matmul``, so a row
+                   rounds alike in any batch), float64 as the reference's
+                   ascending sum in eager steps (``synth.ascending_matmul``).
+* synthesis      — from the IMDCT blocks, one fused kernel per row of
+                   (file, channel) (ops/synth.py, a hand-written CUDA kernel
+                   on the card): overlap-add (out_t = blk_t[:18] +
+                   blk_{t-1}[18:]), frequency inversion, V_t = N @ s_t and the
+                   16-tap FIR PCM_t[n] = sum_{j<16} D[32j+n] *
+                   V_{t-j}[(j%2)*32+n], both sums in the reference's
+                   ascending order, then float PCM or interleaved int16.
 
 The host half (walk tables, ``host_prepare``, the float64 NumPy and native
 planes) is the JAX package's, unchanged: its input dict (``ALL_KEYS``) feeds
 both packages. The torch plane (``granule_blocks``, ``synth_from_blocks``,
-``decode_granules``) runs in float32 on a CUDA device, and in float32 or
-float64 on the CPU, where the tests hold it against the JAX package.
+``decode_granules``) runs in float32 or float64 on a CUDA device or the CPU.
+In float64 it follows ``decode_granules_np`` operation for operation, so on
+every device it gives the host plane's PCM bit for bit.
 """
 
 import functools
@@ -41,12 +44,12 @@ import torch
 from torch.profiler import record_function
 
 from mp3stego_tpu_torch import tables as T
-from mp3stego_tpu_torch.ops.synth_fir import MAX_ROWS as MAX_FIR_ROWS
-from mp3stego_tpu_torch.ops.synth_fir import synth_fir
+from mp3stego_tpu_torch.ops.synth import MAX_ROWS as MAX_SYNTH_ROWS
+from mp3stego_tpu_torch.ops.synth import (ascending_matmul, overlap_freqinv,
+                                          synth_fused)
 
 SQRT2 = math.sqrt(2)
-
-# ------------------------------------------------------------------ host maps
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 # ------------------------------------------------------------------ host maps
 
@@ -619,15 +622,15 @@ def dense_raw(prep) -> np.ndarray:
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device the float32 plane runs on: ``device``, or CUDA when None.
+    """The device the decode plane runs on: ``device``, or CUDA when None.
 
     A CUDA device without a card raises: the plane never moves to the CPU
     on its own (the CPU is reached only by asking for it)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "precision='float32' runs the decode plane on a CUDA device and "
-            "torch sees none; pass device='cpu' to run it on the CPU")
+            "the decode plane runs on a CUDA device unless asked for the CPU, "
+            "and torch sees none; pass device='cpu' to run it on the CPU")
     return dev
 
 
@@ -646,13 +649,18 @@ def prep_to_torch(prep: dict, device) -> dict:
 def _consts(dtype: torch.dtype, device: torch.device, ref_start_window: bool):
     """Constant tables of the torch plane in ``dtype`` on ``device``, keyed
     on the start-window mode so MP3STEGO_TPU_REF_START_WINDOW flips are
-    never served stale."""
+    never served stale. The power tables are built on the host with
+    Python's ``**`` (as ``decode_granules_np``) and copied over, never
+    computed on the device."""
     f = functools.partial(torch.as_tensor, dtype=dtype, device=device)
     off1, off2, cs, ca = _alias_indices()
     return SimpleNamespace(
         pow43=f([float(i) ** (4.0 / 3.0) for i in range(8207)]),
         # 2^(frac/4), frac in 0..3: the quarter-power factor of 2^(q/4)
         quarter=f([1.0, 2.0 ** 0.25, 2.0 ** 0.5, 2.0 ** 0.75]),
+        # float64's exponent tables, decode_granules_np's e1lut and e2lut
+        e1lut=f([2.0 ** ((i - _EXP1_OFF) / 4.0) for i in range(512)]),
+        e2lut=f([2.0 ** (-(i / 2.0)) for i in range(_EXP2X2_MAX)]),
         # a 0-dim device tensor, not a Python float: CUDA turns division by
         # a host scalar into a multiply by its reciprocal, which is not the
         # reference's rounding
@@ -665,8 +673,6 @@ def _consts(dtype: torch.dtype, device: torch.device, ref_start_window: bool):
         c_long_t=f(T.imdct_long_cos().T.copy()),              # (18,36)
         c_short_t=f(T.imdct_short_cos().T.copy()),            # (6,12)
         sine=f(T.sine_block()),                               # (4,36)
-        freq_inv=f(_freq_inv_mask().reshape(32, 18)),
-        n_mat_t=f(T.synth_filter_matrix().T.copy()),          # (32,64)
     )
 
 
@@ -688,15 +694,15 @@ def _capture(stages, name, x):
 
 
 def _no_tf32():
-    """The IMDCT and synthesis matmuls feed int16 PCM under a 1-LSB
-    contract; TF32's 10-bit mantissa is far too coarse for it, so the
-    plane pins full float32 products on the card."""
+    """The float32 IMDCT matmuls feed int16 PCM under a 1-LSB contract;
+    TF32's 10-bit mantissa is far too coarse for it, so the plane pins full
+    float32 products on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
 
-# rows per matrix of the plane's small matmuls (IMDCT, synthesis V): they
-# run as one batched matmul of fixed-shape (_MM_ROWS, K) matrices, the last
+# rows per matrix of the float32 IMDCT matmuls: they run as one batched
+# matmul of fixed-shape (_MM_ROWS, K) matrices, the last
 # zero-padded, so the BLAS picks one kernel (tiles, split of K) whatever the
 # row count, and a row's result never depends on how many rows the plane
 # holds: a file decodes to the same bits alone and inside a batch
@@ -735,9 +741,10 @@ def granule_blocks(prep: dict, dtype, stages: dict = None) -> torch.Tensor:
 
 def _requantize_stage(prep, dtype):
     # Frame.py:157-218: sign * |x|^(4/3) * 2^(exp1/4 - exp2x2/2). The
-    # per-band exponent q = exp1 - 2*exp2x2 is formed on the 61-slot grid
-    # (22 long sfb + 3x13 short) and gathered out to samples by slot_exp;
-    # 2^(q/4) = 2^(q>>2) * 2^((q&3)/4), both factors exact.
+    # per-band exponents are formed on the 61-slot grid (22 long sfb + 3x13
+    # short) and gathered out to samples by slot_exp. float32: 2^(q/4) for
+    # q = exp1 - 2*exp2x2 as 2^(q>>2) * 2^((q&3)/4), both factors exact.
+    # float64: decode_granules_np's ((sign*pow43) * e1lut) * e2lut.
     with record_function("requantize"):
         c = _c(dtype, prep["raw_i8"].device)
         r = prep["raw_i8"].to(torch.int32)                   # (2,T,576)
@@ -764,11 +771,16 @@ def _requantize_stage(prep, dtype):
         val_slot = torch.cat([sf_long, prep["sfs"].to(torch.int32)], dim=-1)
         exp1_idx = (exp1_slot + _EXP1_OFF).clamp(0, 511)
         exp2x2 = (mult2[..., None] * val_slot).clamp(0, _EXP2X2_MAX - 1)
-        q_slot = exp1_idx - _EXP1_OFF - 2 * exp2x2
         slot = prep["slot_exp"].long()[prep["mode"].long()]  # (2,T,576)
+        signed = torch.where(r < 0, -a, a)
+        if dtype == torch.float64:
+            e1 = torch.gather(c.e1lut[exp1_idx.long()], 2, slot)
+            e2 = torch.gather(c.e2lut[exp2x2.long()], 2, slot)
+            return (signed * e1) * e2
+        q_slot = exp1_idx - _EXP1_OFF - 2 * exp2x2
         q = torch.gather(q_slot, 2, slot)
         scale = c.quarter[(q & 3).long()] * _pow2_int(q >> 2, dtype)
-        return torch.where(r < 0, -a, a) * scale
+        return signed * scale
 
 
 def _stereo_stage(prep, x, dtype):
@@ -840,12 +852,14 @@ def _imdct_stage(prep, x, dtype):
         c = _c(dtype, x.device)
         ch, tt = x.shape[0], x.shape[1]
         s = x.reshape(ch, tt, 32, 18)
-        xi_long = _row_matmul(s, c.c_long_t)                 # (ch,T,32,36)
+        # float64 sums in the reference's ascending k (Frame.py:126-130)
+        mm = ascending_matmul if dtype == torch.float64 else _row_matmul
+        xi_long = mm(s, c.c_long_t)                          # (ch,T,32,36)
         win_long = c.sine[prep["win_row"].long().clamp(0, 3)]  # (2,T,36)
         blk_long = xi_long * win_long[:, :, None, :]
 
         # short path: 3 windows of 6 inputs -> 12 outputs each, merged
-        xi_s = _row_matmul(s.reshape(ch, tt, 32, 3, 6), c.c_short_t)
+        xi_s = mm(s.reshape(ch, tt, 32, 3, 6), c.c_short_t)
         xi_s = xi_s * c.sine[2, :12]                         # (ch,T,32,3,12)
         z6 = x.new_zeros((ch, tt, 32, 6))
         blk_short = torch.cat([
@@ -865,81 +879,60 @@ def _imdct_stage(prep, x, dtype):
         return torch.where(short_band[..., None], blk_short, blk_long)
 
 
-def synth_from_blocks(blk: torch.Tensor, dtype,
-                      stages: dict = None) -> torch.Tensor:
+def synth_from_blocks(blk: torch.Tensor, stages: dict = None,
+                      out: str = "float", channels: int = 1) -> torch.Tensor:
     """Sequential half of the decode plane, from stream start: IMDCT
-    overlap-add -> frequency inversion -> polyphase synthesis (V matmul +
-    the 16-tap FIR over the V history, ``ops.synth_fir``).
+    overlap-add -> frequency inversion -> polyphase synthesis, one fused
+    kernel over the rows of ``blk`` (rows, T, 32, 36) in its dtype
+    (``ops.synth.synth_fused``).
 
     ``stages`` captures ``post_imdct`` and ``pre_synth`` as in
-    ``decode_granules_np``. Returns PCM (ch, T, 576)."""
-    ch, tt = blk.shape[0], blk.shape[1]
-    c = _c(dtype, blk.device)
-    with record_function("overlap_freqinv"):
-        head = blk[..., :18]
-        tail = blk[..., 18:]
-        prev = torch.cat([torch.zeros_like(tail[:, :1]), tail[:, :-1]], dim=1)
-        y = head + prev                                      # (ch,T,32,18)
-        _capture(stages, "post_imdct", y.reshape(ch, tt, 576))
-        # ---- frequency inversion (Frame.py:624-631)
-        y = y * c.freq_inv
-        _capture(stages, "pre_synth", y.reshape(ch, tt, 576))
-
-    with record_function("synth_v"):
-        # ---- synthesis filterbank (Frame.py:65-103): matmul + 16-tap FIR
-        st = y.transpose(2, 3).reshape(ch, tt * 18, 32)      # step major
-        v = _row_matmul(st, c.n_mat_t)                       # (ch,18T,64)
-
-    with record_function("synth_fir"):
-        v_ext = torch.cat([v.new_zeros((ch, 15, 64)), v], dim=1)
-        pcm_steps = synth_fir(v_ext, tt * 18)
-    return pcm_steps.reshape(ch, tt, 576)
+    ``decode_granules_np`` (computed beside the kernel, which keeps them in
+    shared memory). Returns float PCM (rows, T, 576), or int16 (rows /
+    channels, T * 576, channels) with ``out="int16"``."""
+    if stages is not None:
+        post, pre = overlap_freqinv(blk)
+        rows, tt = blk.shape[0], blk.shape[1]
+        stages["post_imdct"] = post.reshape(rows, tt, 576).clone()
+        stages["pre_synth"] = pre.reshape(rows, tt, 576).clone()
+    with record_function("synth"):
+        return synth_fused(blk, out, channels)
 
 
 def decode_granules(prep: dict, dtype=torch.float32, stages: dict = None,
-                    files: int = 1, channels: int = 2) -> torch.Tensor:
-    """Input dict (``prep_to_torch``) -> (2ch, T, 576) PCM in ``dtype``, on
-    the prep's device. float64 is served on the CPU only (the tests' parity
-    twin of ``decode_granules_np``).
+                    files: int = 1, channels: int = 2,
+                    out: str = "float") -> torch.Tensor:
+    """Input dict (``prep_to_torch``) -> PCM in ``dtype`` (float32 or
+    float64), on the prep's device: float (files * channels, T / files,
+    576), file major, or with ``out="int16"`` the WAV samples (files,
+    T / files * 576, channels), interleaved, converted by the synthesis
+    kernel.
 
     ``files`` > 1 takes a concat batch (``parallel.batch_decode``: file i's
     granules start at ``i * T / files``): the granule half runs over the
-    whole axis, synthesis on one row per (file, channel), so the synthesis
-    FIR launches once and no IMDCT tail or V history reaches the next file.
-    ``channels=1`` keeps channel 0 only. Returns (files * channels,
-    T / files, 576), file major."""
+    whole axis, synthesis on one row per (file, channel), so the kernel
+    launches once and no IMDCT tail or V history reaches the next file.
+    ``channels=1`` keeps channel 0 only."""
     rows = files * channels
     if prep["raw_i8"].device.type == "cuda":
-        if dtype != torch.float32:
-            raise ValueError("the CUDA decode plane runs in float32 only")
-        if rows > MAX_FIR_ROWS:
+        if rows > MAX_SYNTH_ROWS:
             raise ValueError(f"{rows} (file, channel) rows exceed the "
-                             f"synthesis FIR's {MAX_FIR_ROWS}")
+                             f"synthesis kernel's {MAX_SYNTH_ROWS}")
         _no_tf32()
     blk = granule_blocks(prep, dtype, stages)
     t = blk.shape[1] // files
     blk = blk[:channels].reshape(channels, files, t, 32, 36) \
         .transpose(0, 1).reshape(rows, t, 32, 36)
-    return synth_from_blocks(blk, dtype, stages)
+    return synth_from_blocks(blk, stages, out, channels)
 
 
-def to_i16(pcm: torch.Tensor) -> torch.Tensor:
-    """float PCM -> int16 WAV samples on its device: saturating by default
-    (tables.ref_pcm_wrap), or numpy's ``(pcm * 32767).astype(int16)``
-    truncate-and-wrap (the reference's conversion) under
-    MP3STEGO_TPU_REF_PCM_WRAP=1."""
-    x = pcm * 32767.0
-    if not T.ref_pcm_wrap():
-        x = x.clamp(-32768.0, 32767.0)
-    return x.to(torch.int32).to(torch.int16)
-
-
-def decode_granules_i16(prep: dict, files: int = 1,
+def decode_granules_i16(prep: dict, dtype=torch.float32, files: int = 1,
                         channels: int = 2) -> torch.Tensor:
-    """The float32 plane (``decode_granules``) + the WAV int16 conversion
-    on the device (``to_i16``)."""
-    return to_i16(decode_granules(prep, torch.float32, files=files,
-                                  channels=channels))
+    """``decode_granules`` with the WAV int16 conversion and the channel
+    interleave fused into the synthesis kernel: (files, T / files * 576,
+    channels) int16."""
+    return decode_granules(prep, dtype, files=files, channels=channels,
+                           out="int16")
 
 
 def decode_granules_np(prep: dict, stages: dict = None) -> np.ndarray:
@@ -1170,24 +1163,24 @@ def decode_pcm_i16_host(p) -> "np.ndarray | None":
     return _finish_inter(p, out)
 
 
-
-
 def decode_pcm(p, dtype: str = "float64", device=None) -> np.ndarray:
     """ParsedMP3 -> interleaved PCM (samples, channels) float array, including the
     reference's stale-frame duplication quirk (MP3_Parser.py:79).
 
-    "float64" is the bit-exact host plane (fused C++ when available, the
-    float-for-float NumPy twin otherwise); "float32" runs the torch plane on
-    ``device`` (CUDA when None)."""
+    The torch plane on ``device`` (CUDA when None) in ``dtype``; "float64"
+    on the CPU is the host plane (fused C++ when available, the
+    float-for-float NumPy twin otherwise), whose PCM the torch float64
+    plane equals bit for bit."""
     if p.num_frames == 0:
         return np.zeros((0, 2))
-    if dtype == "float64":
+    dev = resolve_device(device)
+    if dtype == "float64" and dev.type == "cpu":
         pcm = decode_granules_f64_native(p)
         if pcm is None:
             pcm = decode_granules_np(host_prepare(p))
     else:
-        prep = prep_to_torch(host_prepare(p), resolve_device(device))
-        pcm = decode_granules(prep, torch.float32).cpu().numpy()
+        prep = prep_to_torch(host_prepare(p), dev)
+        pcm = decode_granules(prep, DTYPES[dtype]).cpu().numpy()
     ch = p.header.channels
     t = pcm.shape[1]
     inter = pcm[:ch].transpose(1, 2, 0).reshape(t * 576, ch)
@@ -1203,10 +1196,13 @@ def pcm_to_i16(pcm: np.ndarray) -> np.ndarray:
     return x.astype(np.int16)
 
 
-def decode_pcm_i16(p, device, timer=None) -> np.ndarray:
-    """ParsedMP3 -> interleaved int16 PCM (samples, channels): the float32
-    torch plane on ``device`` fused with the WAV conversion and the channel
-    interleave, fetched as int16 (half the bytes of float32 PCM).
+def decode_pcm_i16(p, device, dtype: str = "float32",
+                   timer=None) -> np.ndarray:
+    """ParsedMP3 -> interleaved int16 PCM (samples, channels): the torch
+    plane in ``dtype`` on ``device``, with the WAV conversion and the
+    channel interleave fused into its synthesis kernel, fetched as int16
+    (a quarter of the bytes of float64 PCM). In float64 the bytes equal the
+    host plane's (``decode_pcm_i16_host``).
 
     ``timer`` (a ``utils.profiling.StageTimer``) splits the time into
     host_prepare, h2d, device plane and d2h."""
@@ -1220,8 +1216,7 @@ def decode_pcm_i16(p, device, timer=None) -> np.ndarray:
     with timer.stage("h2d"):
         prep = prep_to_torch(prep, device)
     with timer.stage("device plane"):
-        pcm = decode_granules_i16(prep)
-        inter = pcm[:ch].permute(1, 2, 0).reshape(-1, ch)
+        inter = decode_granules_i16(prep, DTYPES[dtype], channels=ch)[0]
     with timer.stage("d2h"):
         inter = inter.cpu().numpy()
     return _finish_inter(p, inter)

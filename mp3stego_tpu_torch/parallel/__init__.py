@@ -1,8 +1,8 @@
 """Throughput over many files: the batched decode and the batched encode.
 
 ``decode_files_batched`` runs the decode plane over a chunk of files at once
-(one granule axis for the granule half, one synthesis-FIR launch over every
-(file, channel) row); ``encode_files_batched`` runs one analysis and search
+(one granule axis for the granule half, one synthesis-kernel launch over
+every (file, channel) row); ``encode_files_batched`` runs one analysis and search
 pass over every file of a (samplerate, channels) group. Both run on the card
 unless the caller passes ``device="cpu"``.
 """

@@ -6,10 +6,11 @@ chunk of files is one longer granule axis to it: ``prepare_batch_concat``
 lays each file's granules at ``i * t_max`` and shifts its linbits escapes by
 the same offset. The other half (IMDCT overlap, frequency inversion,
 synthesis) carries state along each file, so it runs on one row per (file,
-channel): the synthesis FIR (K1, ``csrc/synth_fir.cu``) is one launch per
-chunk over F * ch rows, and no file's IMDCT tail or V history reaches the
-next file's first granule (``decode_plane.decode_granules`` with
-``files=F``).
+channel): the fused synthesis kernel (K1, ``csrc/synth.cu``) is one launch
+per chunk over F * ch rows, and no file's IMDCT tail or V history reaches
+the next file's first granule (``decode_plane.decode_granules`` with
+``files=F``). With ``out="int16"`` the kernel writes each file's WAV
+samples, interleaved.
 
 Chunks group files of one samplerate (the walk and reorder tables are per
 samplerate) and come back in input order. The files are parsed on a thread
@@ -36,7 +37,6 @@ from mp3stego_tpu_torch.ops import decode_plane as dp
 # host threads for parsing and preparing files
 _WORKERS = min(8, os.cpu_count() or 1)
 OUTS = ("float", "int16")
-DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def prepare_batch_concat(preps: list) -> dict:
@@ -99,20 +99,21 @@ def decode_files_batched(paths: list, dtype: str = "float32",
     same device (``decode_plane.decode_pcm``, or ``decode_pcm_i16`` for
     ``out="int16"``).
 
-    :param dtype: the plane's float type; "float64" runs on the CPU only.
+    :param dtype: the plane's float type, "float32" or "float64" (the
+        bit-exact plane: its int16 equals each file's host decode).
     :param errors: "raise" propagates the first file that fails to parse;
         "isolate" decodes the others and puts the exception in its slot.
     :param out: "float" PCM, or "int16" WAV samples converted on the device
         (half the bytes back to the host).
     :param device: the plane's device; None means CUDA (a missing card
         raises).
-    :param chunk_files: files per chunk, one synthesis-FIR launch each;
+    :param chunk_files: files per chunk, one synthesis-kernel launch each;
         0 decodes each samplerate's files as one chunk.
     """
     if out not in OUTS:
         raise ValueError(f"out must be one of {OUTS}, got {out!r}")
-    if dtype not in DTYPES:
-        raise ValueError(f"dtype must be one of {tuple(DTYPES)}, got "
+    if dtype not in dp.DTYPES:
+        raise ValueError(f"dtype must be one of {tuple(dp.DTYPES)}, got "
                          f"{dtype!r}")
     if errors not in ("raise", "isolate"):
         raise ValueError(f"errors must be 'raise' or 'isolate', got "
@@ -132,7 +133,7 @@ def decode_files_batched(paths: list, dtype: str = "float32",
                     raise
                 results[i] = e
         if metas:
-            decoded = _decode_pipelined(metas, dev, DTYPES[dtype],
+            decoded = _decode_pipelined(metas, dev, dp.DTYPES[dtype],
                                         out == "int16", chunk_files, pool)
             for i, pcm in zip(kept, decoded):
                 results[i] = pcm
@@ -151,15 +152,19 @@ def _chunks(metas: list, chunk_files: int) -> list:
 
 
 def _unpack(planes: np.ndarray, batch: dict, metas: list) -> list:
-    """(files, ch, t_max, 576) planes -> each file's interleaved PCM
+    """(files, ch, t_max, 576) float planes, or (files, t_max * 576, ch)
+    interleaved int16 -> each file's interleaved PCM
     (``decode_plane._finish_inter`` trims LSF virtual frames, repeats the
     stale last frame and drops a VBR tag frame)."""
     out = []
     for j, parsed in enumerate(metas):
         t = int(batch["lengths"][j])
         ch = parsed.header.channels
-        inter = np.array(planes[j, :ch, :t].transpose(1, 2, 0)
-                         .reshape(t * 576, ch))
+        if planes.dtype == np.int16:
+            inter = np.array(planes[j, :t * 576, :ch])
+        else:
+            inter = np.array(planes[j, :ch, :t].transpose(1, 2, 0)
+                             .reshape(t * 576, ch))
         out.append(dp._finish_inter(parsed, inter))
     return out
 
@@ -189,9 +194,10 @@ def _decode_pipelined(metas: list, dev: torch.device, dtype, to_i16: bool,
         channels = 1 if all(metas[i].header.channels == 1
                             for i in idxs) else 2
         files = batch["num_files"]
-        pcm = (dp.decode_granules_i16(args, files, channels) if to_i16 else
-               dp.decode_granules(args, dtype, files=files, channels=channels))
-        pcm = pcm.reshape(files, channels, -1, 576)
+        pcm = dp.decode_granules(args, dtype, files=files, channels=channels,
+                                 out="int16" if to_i16 else "float")
+        if not to_i16:
+            pcm = pcm.reshape(files, channels, -1, 576)
         if not cuda:
             return pcm, None
         fetched = torch.empty(pcm.shape, dtype=pcm.dtype, pin_memory=True)

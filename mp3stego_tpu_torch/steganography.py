@@ -6,13 +6,14 @@ path validation, and the always-delete temporary-WAV behaviour of
 hide/reveal/clear. Built on the port's Decoder and Encoder.
 
 Beyond the reference surface, the constructor takes ``precision`` and
-``device``. ``precision="float64"`` (default) is the bit-exact parity decode
-(the host C++/NumPy plane, byte-identical WAVs); ``"float32"`` runs the
-decode plane in torch on ``device``, within 1 int16 LSB of the parity mode on
-fewer than 1e-3 of samples. Encoding (and so hide, clear and capacity) runs
-the analysis and search planes in torch on ``device`` whatever the
-precision, with bytes identical to the JAX package's. ``device`` None means
-CUDA; a missing card raises when a plane that needs it runs.
+``device``. Every plane runs in torch on ``device``: None means CUDA, and a
+missing card raises (``device="cpu"`` asks for the CPU). ``precision=
+"float64"`` (default) is the bit-exact parity decode (byte-identical WAVs,
+on the card as on the host C++ plane that ``device="cpu"`` runs);
+``"float32"`` stays within 1 int16 LSB of it on fewer than 1e-3 of
+samples. Encoding (and so hide, clear and capacity) runs the analysis and
+search planes whatever the precision, with bytes identical to the JAX
+package's.
 """
 
 import os
@@ -67,16 +68,15 @@ class Steganography:
     """Façade for encode/decode/hide/reveal/clear over MP3 files.
 
     :param quiet: if False, prints information about the processes and the files.
-    :param precision: decode numeric plane mode — "float64" (bit-exact parity,
-        host) or "float32" (torch plane on ``device``).
+    :param precision: decode numeric plane mode — "float64" (bit-exact
+        parity) or "float32".
     :param keep_id3: carry the input's leading ID3v2 tag over to the output
         of ``hide_message``/``clear_file`` (the reference's re-encode drops
         tags — reference decoder.py skips ID3 and its encoder writes bare
         frames, so the default stays off for parity). Default from
         ``MP3STEGO_TPU_KEEP_ID3``.
-    :param device: the planes' device: the encoder's always, the decoder's
-        with ``precision="float32"``. None means CUDA, and a missing card
-        raises.
+    :param device: the planes' device, the decoder's and the encoder's.
+        None means CUDA, and a missing card raises at construction.
     """
 
     def __init__(self, quiet: bool = True, precision: str = "float64",

@@ -2,9 +2,10 @@
 
 All spec data (ISO/IEC 11172-3 Annex B Huffman codebooks, scalefactor band
 partitions, analysis/synthesis windows, region subdivision) lives in the packed
-``iso_tables.npz`` generated by ``tools/gen_tables.py``. The pack is read by
-path from the JAX package's directory (``mp3stego_tpu/tables/``), so both
-packages share one copy; reading the file imports nothing of that package.
+``iso_tables.npz`` generated by ``tools/gen_tables.py``. The port keeps its
+own copy of the pack beside this module (byte for byte the JAX package's,
+held equal by tests/test_torch_import.py), so it needs no file outside its
+own directory.
 
 This module loads the pack once and derives the runtime LUT forms:
 
@@ -24,9 +25,8 @@ import os
 
 import numpy as np
 
-_PACK_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "mp3stego_tpu", "tables", "iso_tables.npz")
+_PACK_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "iso_tables.npz")
 _PACK = np.load(_PACK_PATH)
 
 # ----------------------------------------------------------------- raw spec data

@@ -138,9 +138,9 @@ def test_all_mono_chunk_synthesizes_one_row_per_file(chunk_files, streams,
     rows = []
     orig = pdp.synth_from_blocks
 
-    def spy(blk, dtype, stages=None):
+    def spy(blk, *args, **kwargs):
         rows.append(blk.shape[0])
-        return orig(blk, dtype, stages)
+        return orig(blk, *args, **kwargs)
 
     monkeypatch.setattr(pdp, "synth_from_blocks", spy)
     paths = [streams["mono3"], streams["mono4"], streams["mono3"]]
@@ -158,9 +158,9 @@ def test_chunks_of_two_two_one(streams, monkeypatch):
     rows = []
     orig = pdp.synth_from_blocks
 
-    def spy(blk, dtype, stages=None):
+    def spy(blk, *args, **kwargs):
         rows.append(blk.shape[0])
-        return orig(blk, dtype, stages)
+        return orig(blk, *args, **kwargs)
 
     paths = [streams[k] for k in ("fixture", "cut10", "fixture",
                                   "mp3_44100_128", "cut10")]
@@ -226,15 +226,16 @@ def test_batched_decode_equals_jax_package(streams, monkeypatch):
 
 
 def test_float64_batch_on_the_cpu(streams):
-    """``dtype="float64"`` (CPU only): within 1e-12 of the host float64
-    parity plane (the torch matmuls sum in another order: a few ulps)."""
+    """``dtype="float64"`` on the CPU: bit for bit the host float64 parity
+    plane (the torch float64 plane sums in its ascending order)."""
     paths = [streams[k] for k in ("fixture", "mpeg2_24k_64", "cut10")]
     outs = decode_files_batched(paths, dtype="float64", device="cpu")
     for path, got in zip(paths, outs):
         with open(path, "rb") as f:
-            want = pdp.decode_pcm(pdh.parse_mp3(f.read(), 0), "float64")
+            want = pdp.decode_pcm(pdh.parse_mp3(f.read(), 0), "float64",
+                                  "cpu")
         assert got.dtype == np.float64 and got.shape == want.shape
-        assert np.abs(got - want).max() < 1e-12
+        assert np.array_equal(got, want)
 
 
 def test_default_device_raises_without_a_card(streams, monkeypatch):

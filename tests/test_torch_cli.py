@@ -49,7 +49,7 @@ def test_decode(extra, files, tmp_path, capsys):
     out = str(tmp_path / "o.wav")
     assert main(CPU + ["decode", files["mp3"], out] + extra) == 0
     ref = str(tmp_path / "ref.wav")
-    Steganography(quiet=True).decode_mp3_to_wav(files["mp3"], ref)
+    Steganography(quiet=True, device="cpu").decode_mp3_to_wav(files["mp3"], ref)
     assert _read(out) == _read(ref)
     assert "decoded at 320 kbps" in capsys.readouterr().out
 

@@ -8,8 +8,10 @@ Each stream goes through the JAX package's host parse and ``host_prepare``;
 the same numpy prep feeds the port's torch plane and the JAX package's
 float64 NumPy plane (``decode_granules_np``):
 
-* float64 torch plane: ``rtol=1e-12``, ``atol=1e-12 * max|ref|`` (summation
-  order is the only difference);
+* float64 torch plane: bit for bit (it follows ``decode_granules_np``
+  operation for operation, its sums in the same ascending order), and its
+  int16 WAV samples (the route the card's default decode takes) equal the
+  host C++ plane's;
 * float32 torch plane: ``max|d| < 1e-5``, the float bound of
   tests/test_precision.py (the streams are unit scale, no clipping).
 """
@@ -125,8 +127,19 @@ def test_crafted_stream_exercises_its_branch(name, cases):
 def test_torch_f64_plane_matches_numpy(name, cases):
     _, prep, ref = cases[name]
     got = pdp.decode_granules(pdp.prep_to_torch(prep, "cpu"), torch.float64)
-    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12,
-                               atol=1e-12 * float(np.abs(ref).max()))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_torch_f64_wav_samples_equal_host_plane(name, cases):
+    """``decode_pcm_i16`` in float64 (the default decode's route on the
+    card) against the host C++ plane, sample for sample."""
+    mp3 = cases[name][0]
+    parsed = pdh.parse_mp3(mp3, 0)
+    got = pdp.decode_pcm_i16(parsed, "cpu", "float64")
+    want = pdp.decode_pcm_i16_host(parsed)
+    assert got.dtype == want.dtype == np.int16
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("name", list(STREAMS))
@@ -142,3 +155,14 @@ def test_port_host_prep_matches_jax(name, cases):
     pprep = pdp.host_prepare(pdh.parse_mp3(mp3, 0))
     for k in pdp.ALL_KEYS:
         assert np.array_equal(pprep[k], prep[k]), k
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_crafted_golden_holds_these_streams(name, cases):
+    """tests/golden/crafted_golden.npz (tools/gen_crafted_golden.py), which
+    chip_smoke.py decodes on the card, holds exactly these streams."""
+    import os
+    gold = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "golden", "crafted_golden.npz"))
+    assert set(gold.files) == set(STREAMS)
+    assert gold[name].tobytes() == cases[name][0]

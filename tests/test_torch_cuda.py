@@ -1,9 +1,11 @@
-"""Card tests of the torch port: the hand-written CUDA kernel (on a song's
-rows and on a batch's (file, channel) rows), the device decode plane and the
-batched decode (one kernel launch per chunk), and the encode planes (Q31
+"""Card tests of the torch port: the hand-written fused synthesis kernel (on
+a song's rows, odd tile counts and a batch's (file, channel) rows, in float32
+and float64, float and int16 epilogues), the device decode plane in both
+precisions (float64 with the host plane's bytes), the default façade decode,
+the batched decode (one kernel launch per chunk), and the encode planes (Q31
 analysis, exact search, the VBR lane cost, golden hide bytes), each equal to
-the CPU torch result or the native host twin. Marked ``cuda``; without a
-card every test skips.
+the plain version, the CPU torch result or the native host twin. Marked
+``cuda``; without a card every test skips.
 
 This file imports no JAX and uses no conftest fixture (tests/conftest.py
 imports JAX, which the card's machine does not have). Run it there with
@@ -18,9 +20,6 @@ torch = pytest.importorskip("torch")
 
 pytestmark = pytest.mark.cuda
 
-S_SLICE = 18 * 18432        # sub-steps of a 240.7 s song (T = 18,432)
-
-
 @pytest.fixture
 def card():
     """The card, decided at run time (never at import or collection)."""
@@ -31,44 +30,72 @@ def card():
     return torch.device("cuda")
 
 
-def _v(ch, s, seed, device):
+def _blk(rows, t, seed, dtype, device):
     rng = np.random.default_rng(seed)
-    return torch.from_numpy(rng.standard_normal((ch, 15 + s, 64))
-                            .astype(np.float32)).to(device)
+    return torch.from_numpy(0.3 * rng.standard_normal((rows, t, 32, 36))) \
+        .to(device=device, dtype=dtype)
 
 
-@pytest.mark.parametrize("ch,s", [(2, S_SLICE), (2, 18), (1, 18 * 7),
-                                  (2, 100001)])
-def test_kernel_equals_plain_version_bitwise(card, ch, s):
-    from mp3stego_tpu_torch.ops import synth_fir as sf
-    v = _v(ch, s, s, card)
+# (rows, granules): a 240.7 s song's two channels, one granule, odd counts
+# around the kernel's tiles (8 granules in float32, 4 in float64), and the
+# batched decode's largest chunk of 16 stereo 30 s files
+SHAPES = [(2, 18432), (2, 1), (1, 7), (2, 9), (1, 5), (32, 2298)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("out", ["float", "int16"])
+@pytest.mark.parametrize("rows,t", SHAPES)
+def test_kernel_equals_plain_version_bitwise(card, dtype, out, rows, t):
+    from mp3stego_tpu_torch.ops import synth as sf
+    blk = _blk(rows, t, rows * 7 + t, dtype, card)
+    ch = 2 if rows % 2 == 0 else 1
     before = sf.launches
-    got = sf.synth_fir(v, s)
-    want = sf.synth_fir_torch(v, s)
+    got = sf.synth_fused(blk, out, ch)
+    want = sf.synth_fused_torch(blk, out, ch)
     torch.cuda.synchronize()
     assert sf.launches == before + 1
-    assert got.shape == (ch, s, 32)
+    assert got.shape == want.shape and got.dtype == want.dtype
     assert torch.equal(got, want)
 
 
-def test_kernel_halo_continuity(card):
-    from mp3stego_tpu_torch.ops import synth_fir as sf
-    s = 512
-    v = _v(1, 2 * s, 1, card)
-    whole = sf.synth_fir(v, 2 * s)
-    halves = torch.cat([sf.synth_fir(v[:, :15 + s].contiguous(), s),
-                        sf.synth_fir(v[:, s:].contiguous(), s)], dim=1)
-    torch.cuda.synchronize()
-    assert torch.equal(whole, halves)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_halo_continuity(card, dtype):
+    """Rows are independent and tiles join without a seam: each row of a
+    batch equals the same row alone, and both equal the plain version."""
+    from mp3stego_tpu_torch.ops import synth as sf
+    blk = _blk(3, 41, 1, dtype, card)
+    whole = sf.synth_fused(blk)
+    for r in range(3):
+        assert torch.equal(whole[r:r + 1],
+                           sf.synth_fused(blk[r:r + 1].contiguous()))
+    assert torch.equal(whole, sf.synth_fused_torch(blk))
+
+
+@pytest.mark.parametrize("wrap", [False, True])
+def test_kernel_int16_epilogue_clips_like_the_plain_version(card, wrap,
+                                                            monkeypatch):
+    """Loud blocks (PCM well above full scale): saturation and wrap."""
+    from mp3stego_tpu_torch.ops import synth as sf
+    if wrap:
+        monkeypatch.setenv("MP3STEGO_TPU_REF_PCM_WRAP", "1")
+    for dtype in (torch.float32, torch.float64):
+        blk = 40 * _blk(2, 13, 2, dtype, card)
+        got = sf.synth_fused(blk, "int16", 2)
+        want = sf.synth_fused_torch(blk, "int16", 2)
+        assert (sf.synth_fused_torch(blk).abs() > 1).any()
+        assert torch.equal(got, want)
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_launch(card):
-    from mp3stego_tpu_torch.ops import synth_fir as sf
-    v = _v(2, 36, 3, card)
-    with pytest.raises(ValueError, match="float32"):
-        sf.synth_fir(v.double(), 36)
+    from mp3stego_tpu_torch.ops import synth as sf
+    blk = _blk(2, 4, 3, torch.float32, card)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        sf.synth_fused(blk.half())
     with pytest.raises(ValueError, match="contiguous"):
-        sf.synth_fir(v.transpose(0, 1).contiguous().transpose(0, 1), 36)
+        sf.synth_fused(blk.transpose(2, 3).contiguous().transpose(2, 3))
+    flat = torch.zeros(blk.numel() + 1, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        sf.synth_fused(flat[1:].view(blk.shape))
 
 
 def test_card_plane_matches_host_float64(card):
@@ -78,7 +105,7 @@ def test_card_plane_matches_host_float64(card):
     unit-scale audio) scales with its peak."""
     from chip_smoke import synthetic_prep
     from mp3stego_tpu_torch.ops import decode_plane as dp
-    from mp3stego_tpu_torch.ops import synth_fir as sf
+    from mp3stego_tpu_torch.ops import synth as sf
     prep = synthetic_prep(64)
     want = dp.decode_granules_np(prep)
     before = sf.launches
@@ -88,12 +115,43 @@ def test_card_plane_matches_host_float64(card):
     assert np.abs(got - want).max() < 1e-5 * max(1.0, np.abs(want).max())
 
 
-def test_card_plane_refuses_float64(card):
+def test_card_float64_plane_writes_host_bytes(card):
+    """The float64 plane on the card: PCM bit for bit the NumPy plane's on
+    the synthetic batch, and the fixture's int16 samples equal the host C++
+    plane's."""
+    import os
     from chip_smoke import synthetic_prep
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
     from mp3stego_tpu_torch.ops import decode_plane as dp
-    prep = dp.prep_to_torch(synthetic_prep(4), card)
-    with pytest.raises(ValueError, match="float32"):
-        dp.decode_granules(prep, torch.float64)
+    prep = synthetic_prep(64)
+    got = dp.decode_granules(dp.prep_to_torch(prep, card), torch.float64)
+    assert np.array_equal(got.cpu().numpy(), dp.decode_granules_np(prep))
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    data = np.load(os.path.join(gold, "encode_golden.npz"))["mp3_bytes"]
+    parsed = dh.parse_mp3(data.tobytes(), 0)
+    assert np.array_equal(dp.decode_pcm_i16(parsed, card, "float64"),
+                          dp.decode_pcm_i16_host(parsed))
+
+
+def test_default_facade_decode_is_the_card_and_the_host_bytes(card,
+                                                              tmp_path):
+    """``Steganography()`` with no arguments decodes on the card (one
+    kernel launch) and writes the host C++ plane's WAV bytes."""
+    import os
+    from mp3stego_tpu_torch import Steganography
+    from mp3stego_tpu_torch.ops import synth as sf
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    mp3 = tmp_path / "f.mp3"
+    mp3.write_bytes(np.load(os.path.join(gold, "encode_golden.npz"))[
+        "mp3_bytes"].tobytes())
+    before = sf.launches
+    Steganography(quiet=True).decode_mp3_to_wav(str(mp3),
+                                                str(tmp_path / "c.wav"))
+    assert sf.launches == before + 1
+    Steganography(quiet=True, device="cpu").decode_mp3_to_wav(
+        str(mp3), str(tmp_path / "h.wav"))
+    assert (tmp_path / "c.wav").read_bytes() == \
+        (tmp_path / "h.wav").read_bytes()
 
 
 def _square_noise_pcm(n, seed):
@@ -162,17 +220,18 @@ def test_card_golden_hide_bytes(card, key, tmp_path):
     assert outs["cuda"] == outs["cpu"] == gold[key].tobytes()
 
 
-@pytest.mark.parametrize("rows,s", [(32, 18 * 2304), (2 * 23, 18 * 2298)])
-def test_kernel_on_file_rows_equals_plain_version(card, rows, s):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_on_file_rows_equals_plain_version(card, dtype):
     """K1 as the batched decode launches it: one row per (file, channel)
-    of a chunk (16 stereo files; the phase-12 song slices)."""
-    from mp3stego_tpu_torch.ops import synth_fir as sf
-    v = _v(rows, s, rows, card)
+    of a chunk (23 stereo 30 s song slices), int16 interleaved per file."""
+    from mp3stego_tpu_torch.ops import synth as sf
+    blk = _blk(2 * 23, 2298, 23, dtype, card)
     before = sf.launches
-    got = sf.synth_fir(v, s)
-    want = sf.synth_fir_torch(v, s)
+    got = sf.synth_fused(blk, "int16", 2)
+    want = sf.synth_fused_torch(blk, "int16", 2)
     torch.cuda.synchronize()
     assert sf.launches == before + 1
+    assert got.shape == (23, 2298 * 576, 2)
     assert torch.equal(got, want)
 
 
@@ -182,7 +241,7 @@ def test_batched_decode_one_launch_per_chunk(card, tmp_path):
     import os
     from mp3stego_tpu_torch.bitstream import decoder_host as dh
     from mp3stego_tpu_torch.ops import decode_plane as dp
-    from mp3stego_tpu_torch.ops import synth_fir as sf
+    from mp3stego_tpu_torch.ops import synth as sf
     from mp3stego_tpu_torch.parallel import batch_decode as BD
     gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
     blobs = [np.load(os.path.join(gold, "encode_golden.npz"))["mp3_bytes"]]
@@ -202,6 +261,10 @@ def test_batched_decode_one_launch_per_chunk(card, tmp_path):
     assert sf.launches - before == len(chunks) == 4
     for p, got in zip(metas, outs):
         assert np.array_equal(got, dp.decode_pcm(p, "float32", card))
+    outs = BD.decode_files_batched(paths, dtype="float64", out="int16",
+                                   device=card, chunk_files=2)
+    for p, got in zip(metas, outs):
+        assert np.array_equal(got, dp.decode_pcm_i16_host(p))
 
 
 def test_card_lane_cost_equals_native(card):
@@ -230,18 +293,17 @@ def test_card_lane_cost_equals_native(card):
 
 # K, N, the song's rows (T = 18,432 granules, 2 channels) and the rows of
 # the batched decode's largest chunk (16 stereo files of 30 s, t_max = 2,298
-# granules): long IMDCT (32 rows a granule), short IMDCT (32 x 3), synthesis
-# V (18 sub-steps a granule)
+# granules): the float32 long IMDCT (32 rows a granule) and short IMDCT
+# (32 x 3)
 ROW_MATMULS = [
     pytest.param(18, 36, 2 * 18432 * 32, 32 * 2298 * 32, id="18-36"),
     pytest.param(6, 12, 2 * 18432 * 96, 32 * 2298 * 96, id="6-12"),
-    pytest.param(32, 64, 2 * 18432 * 18, 32 * 2298 * 18, id="32-64"),
 ]
 
 
 @pytest.mark.parametrize("k,n,song,chunk", ROW_MATMULS)
 def test_row_matmul_rounds_alike_in_any_batch(card, k, n, song, chunk):
-    """The plane's IMDCT and synthesis-V matmuls: the first rows of a
+    """The float32 plane's IMDCT matmuls: the first rows of a
     chunk-sized operand equal the same rows multiplied alone, bit for bit,
     at 1, 2 and the song's count of 65,536-row blocks (one plain matmul
     over all rows does not keep this on the card)."""

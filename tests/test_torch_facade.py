@@ -8,7 +8,8 @@ package's, on the CPU.
   the JAX package's own float32 plane already flips 1.4e-3 (a float32 error
   of ~2e-7 on a loud stationary signal crosses more truncation boundaries);
   its float PCM stays within 1e-5 of float64 on all of them.
-* ``precision="float64"``: WAV bytes equal the JAX package's exactly.
+* ``precision="float64"``: WAV bytes equal the JAX package's exactly (the
+  host plane under ``device="cpu"``; the default device is the card).
 * Encode, hide (then reveal), clear, capacity and the ID3 carry-over with
   ``device="cpu"``: bytes equal the JAX façade's.
 
@@ -29,7 +30,7 @@ torch.set_num_threads(1)
 
 from mp3stego_tpu import Steganography as JaxSteganography  # noqa: E402
 from mp3stego_tpu_torch import Steganography  # noqa: E402
-from mp3stego_tpu_torch.ops import synth_fir as sf  # noqa: E402
+from mp3stego_tpu_torch.ops import synth as sf  # noqa: E402
 
 GOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 LSF = ("mpeg2_24k_64", "mpeg2_22k05_80", "mpeg25_8k_32")
@@ -64,8 +65,8 @@ def _decode(stego, mp3, wav):
 def test_f64_wav_bytes_equal_jax(name, stream_path, tmp_path):
     kj, wj = _decode(JaxSteganography(quiet=True), stream_path[name],
                      str(tmp_path / "jax.wav"))
-    kp, wp = _decode(Steganography(quiet=True), stream_path[name],
-                     str(tmp_path / "port.wav"))
+    kp, wp = _decode(Steganography(quiet=True, device="cpu"),
+                     stream_path[name], str(tmp_path / "port.wav"))
     assert kp == kj
     assert wp == wj
 
@@ -119,13 +120,26 @@ def test_reveal_golden_messages(key, precision, tmp_path):
 
 def test_f32_default_device_raises_without_a_card(monkeypatch):
     """No silent CPU fallback: float32 with the default (CUDA) device and no
-    card raises at construction."""
+    card raises at construction, and so does the default float64 decode,
+    naming the way to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Steganography(quiet=True, precision="float32")
     with pytest.raises(RuntimeError, match="CUDA"):
         Steganography(quiet=True, precision="float32", device="cuda")
-    assert Steganography(quiet=True).device is None     # float64: host
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Steganography(quiet=True)
+
+
+@pytest.mark.parametrize("precision", ["float64", "float32"])
+def test_default_device_is_the_card(precision, monkeypatch):
+    """Both precisions resolve ``device=None`` to CUDA (the float64 decode
+    no longer stays on the host unless asked for the CPU)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    s = Steganography(quiet=True, precision=precision)
+    assert s.device == torch.device("cuda")
+    assert Steganography(quiet=True, precision=precision,
+                         device="cpu").device == torch.device("cpu")
 
 
 def test_cpu_decode_launches_no_kernel(stream_path, tmp_path):
@@ -254,16 +268,15 @@ def test_keep_id3_equals_jax(keep_id3, fixture_mp3, tmp_path):
 def test_encoder_default_device_raises_without_a_card(fixture_wav, tmp_path,
                                                       monkeypatch):
     """No silent CPU fallback for the encoder either: with the default
-    device and no card, encoding raises (decoding in float64 does not need
-    the card)."""
+    device and no card, encoding raises."""
+    from mp3stego_tpu_torch import Encoder
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    s = Steganography(quiet=True)
     with pytest.raises(RuntimeError, match="CUDA"):
-        s.encode_wav_to_mp3(fixture_wav, str(tmp_path / "o.mp3"))
+        Encoder(fixture_wav, str(tmp_path / "o.mp3"), 320).encode()
 
 
 def test_path_checks_exit_like_the_reference(stream_path, tmp_path):
-    s = Steganography(quiet=True)
+    s = Steganography(quiet=True, device="cpu")
     with pytest.raises(SystemExit, match="not found"):
         s.decode_mp3_to_wav(str(tmp_path / "missing.mp3"))
     with pytest.raises(SystemExit, match="must be mp3"):

@@ -171,9 +171,15 @@ def test_python_parser_matches_native(goldens, request):
 
 
 def test_tables_read_the_jax_package_pack():
+    """The port reads its own copy of the JAX package's pack (beside its
+    tables module), and every table it derives equals the JAX package's."""
     from mp3stego_tpu import tables as JT
-    assert PT._PACK_PATH == os.path.join(os.path.dirname(JT.__file__),
+    assert PT._PACK_PATH == os.path.join(os.path.dirname(PT.__file__),
                                          "iso_tables.npz")
+    with open(PT._PACK_PATH, "rb") as a, \
+            open(os.path.join(os.path.dirname(JT.__file__),
+                              "iso_tables.npz"), "rb") as b:
+        assert a.read() == b.read()
     for name in ("HUFF_CODE", "SYNTH_WINDOW", "BAND_INDEX_ISO", "PRE_TAB",
                  "QUAD_LUT", "TRANSFORM_HUF"):
         assert np.array_equal(getattr(PT, name), getattr(JT, name)), name

@@ -9,6 +9,11 @@ decodes a golden stego file with the torch plane on the CPU, re-encodes the
 golden WAV and hides a message with the torch planes on the CPU, then
 drives the batched decode and encode, the streaming decode and encode and a
 VBR encode through the CLI.
+
+The port also keeps its own copies of the JAX package's data files (the
+constant pack and the C++ host sources): they are held byte for byte equal
+to the originals, and no module of the port (nor ``chip_smoke.py``) builds
+a path into the JAX package's directory.
 """
 
 import os
@@ -69,7 +74,8 @@ with tempfile.TemporaryDirectory() as tmp:
         decode_files_batched, encode_files_batched)
     pcm = decode_files_batched([mp3, mp3], device="cpu", chunk_files=1)
     assert len(pcm) == 2 and pcm[0].shape == pcm[1].shape
-    info = decode_file_streaming(mp3, os.path.join(tmp, "s.wav"), 9)
+    info = decode_file_streaming(mp3, os.path.join(tmp, "s.wav"), 9,
+                                 device="cpu")
     assert info["bitrate"] == 320
     outs = encode_files_batched([(wav, os.path.join(tmp, "b.mp3"))],
                                 device="cpu")
@@ -95,3 +101,46 @@ def test_port_imports_and_decodes_without_jax():
     assert r.returncode == 0, r.stdout + r.stderr
     assert "NO_JAX_OK" in r.stdout
 
+
+
+# the port's copies of the JAX package's files: (copy, original)
+COPIES = [("mp3stego_tpu_torch/tables/iso_tables.npz",
+           "mp3stego_tpu/tables/iso_tables.npz")] + [
+    (f"mp3stego_tpu_torch/native/src/{f}", f"mp3stego_tpu/native/src/{f}")
+    for f in ("decode_plane_f64.cpp", "encode_plane.cpp", "mp3_parse.cpp",
+              "mp3_serialize.cpp", "rate_search.cpp", "raw_pack.cpp")]
+
+
+@pytest.mark.parametrize("copy,original", COPIES,
+                         ids=[os.path.basename(c) for c, _ in COPIES])
+def test_port_copy_equals_jax_package_file(copy, original):
+    with open(os.path.join(REPO, copy), "rb") as a, \
+            open(os.path.join(REPO, original), "rb") as b:
+        assert a.read() == b.read(), f"{copy} drifted from {original}"
+
+
+def test_port_copies_every_native_source():
+    src = os.path.join(REPO, "mp3stego_tpu", "native", "src")
+    want = sorted(f for f in os.listdir(src) if f.endswith(".cpp"))
+    assert [os.path.basename(c) for c, _ in COPIES[1:]] == want
+
+
+def test_port_builds_no_path_into_the_jax_package():
+    """No module of the port, and not chip_smoke.py, names the JAX
+    package's directory in a string (a path built from it)."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "mp3stego_tpu_torch")):
+        files += [os.path.join(root, n) for n in names
+                  if n.endswith((".py", ".cu", ".cpp"))]
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        for quoted in ('"mp3stego_tpu"', "'mp3stego_tpu'"):
+            assert quoted not in text, f"{path} names {quoted}"
+        # "mp3stego_tpu/..." may name a kernel's origin in a record, never a
+        # file that is opened, loaded or joined
+        for line in text.splitlines():
+            if "mp3stego_tpu/" in line:
+                assert not any(call in line for call in
+                               ("open(", "load(", "join(", "Path(")), line

@@ -61,7 +61,8 @@ def test_streaming_matches_whole_file(long_mp3, tmp_path, chunk):
     ref_wav = str(tmp_path / "ref.wav")
     parsed = _whole_file_wav(data, ref_wav)
     out_wav = str(tmp_path / f"s{chunk}.wav")
-    info = decode_file_streaming(path, out_wav, chunk_frames=chunk)
+    info = decode_file_streaming(path, out_wav, chunk_frames=chunk,
+                                 device="cpu")
     assert info["num_frames"] == parsed.num_frames == N_FRAMES
     assert info["bitrate"] == parsed.header.bit_rate // 1000
     assert _read(out_wav) == _read(ref_wav)
@@ -78,7 +79,7 @@ def test_streaming_duplicate_tail_quirk(long_mp3, tmp_path):
     ref_wav = str(tmp_path / "ref.wav")
     assert _whole_file_wav(broken, ref_wav).duplicate_last_pcm
     out_wav = str(tmp_path / "s.wav")
-    decode_file_streaming(str(p), out_wav, chunk_frames=100)
+    decode_file_streaming(str(p), out_wav, chunk_frames=100, device="cpu")
     assert _read(out_wav) == _read(ref_wav)
 
 
@@ -87,7 +88,8 @@ def test_streaming_progress_and_single_chunk(long_mp3, tmp_path):
     seen = []
     decode_file_streaming(path, str(tmp_path / "one.wav"),
                           chunk_frames=10_000,
-                          progress_cb=lambda d, t: seen.append((d, t)))
+                          progress_cb=lambda d, t: seen.append((d, t)),
+                          device="cpu")
     assert seen == [(N_FRAMES, N_FRAMES)]
 
 
@@ -96,7 +98,7 @@ def test_streaming_decode_equals_jax_package(long_mp3, tmp_path):
         decode_file_streaming as jax_streaming
     path, _ = long_mp3
     a, b = str(tmp_path / "p.wav"), str(tmp_path / "j.wav")
-    pinfo = decode_file_streaming(path, a, chunk_frames=77)
+    pinfo = decode_file_streaming(path, a, chunk_frames=77, device="cpu")
     jinfo = jax_streaming(path, b, chunk_frames=77)
     assert _read(a) == _read(b)
     assert pinfo == jinfo
@@ -115,7 +117,8 @@ def test_streaming_lsf_decode(tmp_path):
         ref_wav = str(tmp_path / f"{name}_ref.wav")
         parsed = _whole_file_wav(data, ref_wav)
         out_wav = str(tmp_path / f"{name}.wav")
-        info = decode_file_streaming(str(mp3), out_wav, chunk_frames=7)
+        info = decode_file_streaming(str(mp3), out_wav, chunk_frames=7,
+                                     device="cpu")
         assert _read(out_wav) == _read(ref_wav)
         assert info["stego_bits"] == dh.stego_bits(parsed)
 

@@ -162,7 +162,8 @@ def test_vbr_decode_all_surfaces(vbr_mp3, tmp_path):
                                   device="cpu"):
         np.testing.assert_array_equal(o, ref_f32)
     out_wav = tmp_path / "v.wav"
-    info = decode_file_streaming(str(mp3), str(out_wav), chunk_frames=13)
+    info = decode_file_streaming(str(mp3), str(out_wav), chunk_frames=13,
+                                 device="cpu")
     assert out_wav.read_bytes() == wav_header(
         p.header.sampling_rate, ref.shape[1], ref.nbytes) + ref.tobytes()
     assert info["bitrate"] == vbr.avg_bitrate_kbps(
@@ -187,7 +188,8 @@ def test_vbr_encoder_and_decoder_roundtrip(tmp_path):
     assert data == jax_path.read_bytes()
     tag = vbr.parse_vbr_tag(data, 0)
     assert tag is not None
-    kbps = Decoder(str(mp3_path), str(tmp_path / "out.wav")).decode()
+    kbps = Decoder(str(mp3_path), str(tmp_path / "out.wav"),
+                   device="cpu").decode()
     assert kbps == vbr.avg_bitrate_kbps(tag, dh.parse_mp3(data, 0).header)
 
 

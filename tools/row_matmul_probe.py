@@ -3,14 +3,15 @@
 
     python3 tools/row_matmul_probe.py [--out chiprun_out/row_matmul_probe.json]
 
-Run from the root of a checkout, on one CUDA card. The decode plane runs its
-IMDCT and synthesis-V matmuls through ``decode_plane._row_matmul`` (fixed
-65,536-row blocks of one batched matmul) so that a row rounds alike whatever
-the row count: a file then decodes to the same bits alone and inside a
-batch. This script checks that claim and what it costs:
+Run from the root of a checkout, on one CUDA card. The float32 decode plane
+runs its IMDCT matmuls through ``decode_plane._row_matmul`` (fixed 65,536-row
+blocks of one batched matmul) so that a row rounds alike whatever the row
+count: a file then decodes to the same bits alone and inside a batch (the
+synthesis is row-local by construction: one fused kernel per (file,
+channel) row). This script checks that claim and what it costs:
 
-* invariance: for each of the three matmuls (long IMDCT (18, 36), short
-  IMDCT (6, 12), synthesis V (32, 64)), a seeded operand with the rows of a
+* invariance: for each of the two matmuls (long IMDCT (18, 36), short
+  IMDCT (6, 12)), a seeded operand with the rows of a
   16-file stereo chunk of 30 s files (the batched decode's largest chunk);
   its first m rows multiplied alone against the same rows of the whole
   product, for m in 1,000, 70,000 and the song's row count, once through
@@ -44,8 +45,7 @@ SONG_COPIES = 256
 SONG_T = 2 * 36 * SONG_COPIES            # granules per channel of the song
 CHUNK_T = 2298                           # t_max of a chunk of 30 s slices
 # name, K, N, rows per granule and channel
-MATMULS = (("imdct_long", 18, 36, 32), ("imdct_short", 6, 12, 96),
-           ("synth_v", 32, 64, 18))
+MATMULS = (("imdct_long", 18, 36, 32), ("imdct_short", 6, 12, 96))
 
 
 def _card_line() -> str:
