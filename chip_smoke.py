@@ -6,27 +6,30 @@
 Run from the root of a checkout, on a machine with one CUDA card (Hopper:
 the kernels are built for sm_90a). It builds every kernel of the port's
 paths from the sources in the checkout (the fused synthesis kernel K1,
-``csrc/synth.cu``, in float32 and float64), holds each against its plain
-PyTorch version bit for bit (and times a library pair that computes the same
-function), drives every entry point at a size users send (one 240.7-second
-320 kbps stereo song through the façade: decode it with the defaults, which
-run float64 on the card, and in float32, measure its capacity, hide a
-message of 90 % of it, reveal it, clear it; a batched decode of 32 files in
-both precisions and a batched encode of 9; a VBR encode and the streaming
-decode and encode of the song; hide, reveal and a streaming decode through
-the CLI), checks every output against the bit-exact host planes, the
-single-file paths and the goldens, and times it. Each main path runs with
-the kernel's launch count set to 0 just before it and read just after; a
-path that launched no kernel fails. Every phase raises on a fault; nothing
-is caught. The last line of standard output is ``{"ok": true, "device":
-{...}}``; the line before it lists the kernels (launches during the
-main-path runs, error against the plain version, times, bound, library
-time), and the one before that the card's name and power limit.
+``csrc/synth.cu``, in float32 and float64, and the Huffman bit-scan,
+``csrc/huffman.cu``), holds each against its plain PyTorch version bit for
+bit (and times a library pair that computes K1's function), drives every
+entry point at a size users send (one 240.7-second 320 kbps stereo song
+through the façade: decode it with the defaults, which run float64 on the
+card, and in float32, measure its capacity, hide a message of 90 % of it,
+reveal it, clear it; a batched decode of 32 files in both precisions and a
+batched encode of 9; a VBR encode and the streaming decode and encode of the
+song, the encode's windows on the card, clear and hidden; hide, reveal and a
+streaming decode through the CLI; the song's decode and reveal with the
+device Huffman engine), checks every output against the bit-exact host
+planes, the single-file paths and the goldens, and times it. Each main path
+runs with every kernel's launch count set to 0 just before it and read just
+after; a path that launched none of its kernels fails. Every phase raises on
+a fault; nothing is caught. The last line of standard output is ``{"ok":
+true, "device": {...}}``; the line before it lists the kernels (launches
+during the main-path runs, error against the plain version, times, bound,
+library time), and the one before that the card's name and power limit.
 
 It imports nothing of JAX and nothing of the JAX package. Without a card, or
 outside a checkout, it exits non-zero before printing any result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -45,6 +48,7 @@ from mp3stego_tpu_torch.models.encoder import Encoder, MP3Encoder
 from mp3stego_tpu_torch.ops import _cuda
 from mp3stego_tpu_torch.ops import decode_plane as dp
 from mp3stego_tpu_torch.ops import encode_plane as EP
+from mp3stego_tpu_torch.ops import huffman_device as hd
 from mp3stego_tpu_torch.ops import synth as sf
 from mp3stego_tpu_torch.steganography import _frame_message
 from mp3stego_tpu_torch.utils.profiling import StageTimer
@@ -74,6 +78,11 @@ F32, F64 = torch.float32, torch.float64
 # not fuse (its products and sums round on their own), so half of each
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {F32: 67e12 / 2, F64: 34e12 / 2}
+# integer operations/s: an SM has 64 INT32 lanes beside its 128 FP32 lanes
+# (NVIDIA's Hopper architecture paper), so half the non-fused float32 rate
+PEAK_INT_OPS_S = 67e12 / 4
+# the hand kernels, each module with its wrapper's launch count
+KERNELS = {"synth_fused": sf, "huffman_scan": hd}
 
 
 def synthetic_parsed(t: int, seed: int = 0) -> ParsedMP3:
@@ -146,25 +155,29 @@ def _lsb_contract(name: str, got: np.ndarray, want: np.ndarray,
 
 
 class Paths:
-    """The fused kernel's launches per main path: each path runs with the
-    count set to 0 just before it and read just after, and fails if it
-    launched no kernel."""
+    """The hand kernels' launches per main path: each path runs with every
+    count set to 0 just before it and read just after, and fails if a kernel
+    it runs (``kernels``) launched no time."""
 
     def __init__(self):
-        self.log = []                        # (name, dtype, launches)
+        self.log = []                        # (name, dtype, {kernel: n})
 
-    def run(self, name: str, dtype, fn):
-        sf.launches = 0
+    def run(self, name: str, dtype, fn, kernels=("synth_fused",)):
+        for mod in KERNELS.values():
+            mod.launches = 0
         out = fn()
-        n = sf.launches
-        if n == 0:
-            raise AssertionError(f"{name}: the path never launched the fused "
-                                 f"synthesis kernel")
-        self.log.append((name, dtype, n))
+        counts = {k: mod.launches for k, mod in KERNELS.items()}
+        for k in kernels:
+            if counts[k] == 0:
+                raise AssertionError(f"{name}: the path never launched {k}")
+        self.log.append((name, dtype, counts))
         return out
 
-    def launches(self, dtype) -> int:
-        return sum(n for _, d, n in self.log if d == dtype)
+    def last(self, kernel: str = "synth_fused") -> int:
+        return self.log[-1][2][kernel]
+
+    def launches(self, kernel: str, dtype=None) -> int:
+        return sum(c[kernel] for _, d, c in self.log if dtype in (None, d))
 
 
 def hold(name: str, blk: torch.Tensor, out: str, channels: int,
@@ -284,8 +297,8 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
                   runs: Paths) -> dict:
     """Phases 8-11: the encode and hide path on the song and the goldens,
     with the façade's hide in float64 (the default) and in float32, each a
-    counted main path. Returns the song's clear encode bytes and the seeded
-    song's WAV."""
+    counted main path. Returns the song's clear encode bytes, the seeded
+    song's WAV, the 90 % hide's bits and bytes, its MP3 and its message."""
     # ---- phase 8: the Q31 analysis on the card against the host C++ twin
     w = read_wav(wav64, 320)
     seconds = w.num_of_samples / w.samplerate
@@ -460,9 +473,10 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
                       b.read())
     _say("11 float32", f"hide_message (float32) -> reveal gives the message "
                        f"back; kernel launches in the hide "
-                       f"{runs.log[-1][2]}; clear_file bytes equal a plain "
+                       f"{runs.last()}; clear_file bytes equal a plain "
                        f"encode of the same decode")
-    return dict(clear_bytes=clear_b, seeded_wav=wav_s)
+    return dict(clear_bytes=clear_b, seeded_wav=wav_s, hide_bits=bits,
+                hide_bytes=card_b, hidden=hidden, msg=msg)
 
 
 def _write(path: str, data: bytes) -> str:
@@ -487,8 +501,7 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     (file, channel) rows of each chunk) in float32 and float64, the batched
     encode, VBR, and the streaming decode and encode of the song."""
     from mp3stego_tpu_torch.bitstream import vbr
-    from mp3stego_tpu_torch.models.streaming import (
-        decode_file_streaming, encode_file_streaming)
+    from mp3stego_tpu_torch.models.streaming import decode_file_streaming
     from mp3stego_tpu_torch.ops import search_plane as SP
     from mp3stego_tpu_torch.parallel import (
         batch_decode as BD, decode_files_batched, encode_files_batched)
@@ -569,8 +582,8 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     i16 = runs.run("batched decode, float32 int16", F32,
                     lambda: decode_files_batched(paths, out="int16",
                                                  device=dev))
-    if runs.log[-1][2] != len(chunks):
-        raise AssertionError(f"batched decode: {runs.log[-1][2]} K1 "
+    if runs.last() != len(chunks):
+        raise AssertionError(f"batched decode: {runs.last()} K1 "
                              f"launches for {len(chunks)} chunks")
     audio_s, worst = 0.0, (0.0, "")
     for p, parsed, got in zip(paths, metas, i16):
@@ -689,19 +702,12 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     with open(wav_st, "rb") as a, open(wav64, "rb") as b:
         _expect_equal("host streaming decode vs whole-file float64",
                       a.read(), b.read())
-    mp3_st = os.path.join(tmp, "song_stream.mp3")
-    t0 = time.perf_counter()
-    encode_file_streaming(wav64, mp3_st, 320)
-    enc_s = time.perf_counter() - t0
-    with open(mp3_st, "rb") as f:
-        _expect_equal("streaming encode vs whole-file encode", f.read(),
-                      enc_out["clear_bytes"])
     _say("15 streaming", f"[{card}] song ({info['num_frames']} frames): "
                          f"streaming decode WAV on the card equals the "
                          f"whole-file float64 WAV ({dec_s * 1e3:.1f} ms, "
-                         f"{runs.log[-1][2]} K1 launches; host C++ plane "
-                         f"{host_s * 1e3:.1f} ms); streaming encode equals "
-                         f"the whole-file encode ({enc_s * 1e3:.1f} ms)")
+                         f"{runs.last()} K1 launches; host C++ plane "
+                         f"{host_s * 1e3:.1f} ms)")
+    streaming_encode_phase(dev, card, tmp, wav64, enc_out)
 
     # ---- the CLI: hide -> reveal, and a streaming decode, on the card
     gold = _write(os.path.join(tmp, "cli.mp3"), np.load(os.path.join(
@@ -729,6 +735,251 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     _say("15 cli", "python -m mp3stego_tpu_torch hide -> reveal gives the "
                    "message back; decode --stream-chunk-frames 7 writes the "
                    "façade's WAV")
+
+
+def streaming_encode_phase(dev, card: str, tmp: str, wav64: str,
+                           enc_out: dict) -> None:
+    """Phase 15's encode: the song's streaming encode with its default
+    planes on the card, clear and the 90 % hide, at windows of 512 and of 7
+    frames, each byte for byte the whole-file card encode; the host C++
+    chain (``device_search=False``) beside it. The analysis and the search
+    are plain torch (no hand kernel), so the card's part shows as the
+    allocations made on it and their peak (one window's tensors)."""
+    from mp3stego_tpu_torch.models.streaming import encode_file_streaming
+    out = os.path.join(tmp, "song_stream.mp3")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()       # what earlier phases hold
+    t0 = time.perf_counter()
+    _encode_bytes(wav64, dev)
+    whole_s = time.perf_counter() - t0
+    whole_peak = torch.cuda.max_memory_allocated() - base
+    for label, bits, want in (("clear", "", enc_out["clear_bytes"]),
+                              ("hide", enc_out["hide_bits"],
+                               enc_out["hide_bytes"])):
+        for chunk in (512, 7):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+            t0 = time.perf_counter()
+            info = encode_file_streaming(wav64, out, 320, chunk, hide_str=bits)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            allocs = torch.cuda.memory_stats()["allocation.all.allocated"] \
+                - allocs
+            peak = torch.cuda.max_memory_allocated() - base
+            if not allocs or not peak:
+                raise AssertionError(f"streaming {label} encode: nothing was "
+                                     f"allocated on the card")
+            with open(out, "rb") as f:
+                _expect_equal(f"streaming {label} encode, {chunk}-frame "
+                              f"windows, vs the whole-file card encode",
+                              f.read(), want)
+            if info["too_long"]:
+                raise AssertionError(f"streaming {label} encode: too_long")
+            windows = -(-info["frames"] // chunk)
+            _say("15 streaming", f"[{card}] {label} encode of the song on the "
+                                 f"card in {windows} windows of {chunk} "
+                                 f"frames: bytes equal the whole-file card "
+                                 f"encode's; wall {wall * 1e3:.1f} ms "
+                                 f"({wall / windows * 1e3:.2f} ms a window); "
+                                 f"{allocs} card allocations, "
+                                 f"torch.cuda.max_memory_allocated "
+                                 f"{peak / 2**20:.1f} MiB over the "
+                                 f"{base / 2**20:.1f} MiB held before")
+        t0 = time.perf_counter()
+        encode_file_streaming(wav64, out, 320, 512, hide_str=bits,
+                              device_search=False)
+        host_s = time.perf_counter() - t0
+        with open(out, "rb") as f:
+            _expect_equal(f"host C++ streaming {label} encode", f.read(), want)
+        _say("15 streaming", f"[{card}] {label}: the host C++ chain in "
+                             f"512-frame windows writes the same bytes in "
+                             f"{host_s * 1e3:.1f} ms")
+    _say("15 streaming", f"[{card}] whole-file clear card encode "
+                         f"{whole_s * 1e3:.1f} ms, "
+                         f"torch.cuda.max_memory_allocated "
+                         f"{whole_peak / 2**20:.1f} MiB over the "
+                         f"{base / 2**20:.1f} MiB held before")
+
+
+@contextlib.contextmanager
+def _huffman_engine(flag: str):
+    """MP3STEGO_TPU_DEVICE_HUFFMAN set to ``flag`` inside the block."""
+    os.environ["MP3STEGO_TPU_DEVICE_HUFFMAN"] = flag
+    try:
+        yield
+    finally:
+        del os.environ["MP3STEGO_TPU_DEVICE_HUFFMAN"]
+
+
+def huffman_bound(fields: torch.Tensor, words: torch.Tensor,
+                  out: torch.Tensor):
+    """The least time for the bit-scan's work on the card: (bytes that must
+    move: the main-data words, the lane fields and the 160 small-table
+    entries read once, the (2, T, 576) int32 plane written once; the 2^19-
+    entry codebook LUTs are the kernel's own expansion of ISO code tables of
+    a few hundred entries and are not counted) over HBM's rate, against (12
+    integer operations per big-values pair and 10 per count1 quad, the quads
+    counted up to each lane's last nonzero sample) over the INT32 rate.
+    Returns (ms, "bytes" or "operations", bytes, operations)."""
+    big2 = fields[:, 6].long().reshape(-1, 2, 2).permute(2, 0, 1) \
+        .reshape(2, -1)                               # (ch, t), as out
+    col = torch.arange(576, device=out.device)
+    last = torch.where(out != 0, col, -1).amax(-1)
+    quads = ((last + 1 - big2 + 3).clamp(min=0) // 4).sum()
+    ops = 12 * int(big2.sum()) // 2 + 10 * int(quads)
+    nbytes = 4 * words.numel() + 4 * fields.numel() + 4 * 160 \
+        + 4 * out.numel()
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = ops / PEAK_INT_OPS_S * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes", nbytes, ops
+    return by_ops, "operations", nbytes, ops
+
+
+def huffman_phase(dev, card: str, tmp: str, song: str, enc_out: dict,
+                  runs: Paths) -> dict:
+    """Phase 16: the device Huffman decode. The bit-scan kernel
+    (``csrc/huffman.cu``) bit for bit its plain version on the song's lanes,
+    the 5 multirate goldens, the MPEG-1 crafted streams (intensity, MS,
+    short, mixed, linbits escapes), a seeded bit-flipped copy of the song
+    and a mono stream, and equal to the host parse's samples where the
+    stream is intact; ``Decoder`` with MP3STEGO_TPU_DEVICE_HUFFMAN=1 on the
+    song in float64 and float32 writes the host parse's WAV bytes of the
+    same precision, and reveal through it reads the hidden song's message
+    back, each a counted main path. Times the kernel, its plain version,
+    the light parse and the decode walls of both engines. Returns the
+    kernel's row of the kernels line."""
+    from mp3stego_tpu_torch.models.decoder import Decoder
+    with open(song, "rb") as f:
+        song_b = f.read()
+    parsed = dh.parse_mp3(song_b)
+    sizes = np.asarray(parsed.frame_sizes, np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    rng = np.random.default_rng(16)
+    flipped = bytearray(song_b)
+    for _ in range(256):             # inside main data: the sync walk holds
+        fr = int(rng.integers(0, parsed.num_frames))
+        flipped[int(starts[fr]) + int(rng.integers(36, int(sizes[fr])))] ^= \
+            1 << int(rng.integers(0, 8))
+    mr = np.load(os.path.join(GOLD, "multirate_golden.npz"))
+    crafted = np.load(os.path.join(GOLD, "crafted_golden.npz"))
+    streams = {"song": song_b}
+    streams.update({t: mr[f"mp3_{t}"].tobytes() for t in (
+        "32000_64", "32000_192", "44100_128", "48000_96", "48000_320")})
+    streams.update({n: crafted[n].tobytes() for n in (
+        "is_long", "is_ms_long", "is_ms_short", "mixed_44k")})
+    streams["linbits"] = np.load(os.path.join(
+        GOLD, "huffman_golden.npz"))["linbits"].tobytes()
+    streams["song, 256 bits flipped"] = bytes(flipped)
+    with open(os.path.join(tmp, "b_mono.mp3"), "rb") as f:
+        streams["mono 30 s"] = f.read()
+    err, lanes = 0, []
+    for name, data in streams.items():
+        _, desc = dh.parse_mp3_light(data)
+        words, fields = (torch.from_numpy(a).to(dev) for a in hd.pack(desc))
+        got = hd.decode_samples(words, fields)
+        want = hd.decode_samples_plain(words, fields)
+        torch.cuda.synchronize()
+        err = max(err, int((got - want).abs().max()))
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{name}: huffman_scan != "
+                                 f"decode_samples_plain")
+        if "flipped" not in name:
+            host = dh.parse_mp3(data).raw_samples
+            if not np.array_equal(got.cpu().numpy(), np.moveaxis(
+                    host, 2, 0).reshape(2, -1, 576)):
+                raise AssertionError(f"{name}: huffman_scan != the host "
+                                     f"parse's samples")
+        lanes.append(f"{name} ({fields.shape[0]})")
+    _say("16 huffman", f"huffman_scan bitwise equal to decode_samples_plain "
+                       f"(and to the host parse's samples on the intact "
+                       f"streams) on {len(streams)} streams (lanes): "
+                       f"{', '.join(lanes)}")
+
+    # the kernel on the song's lanes: its time, the plain version's, the
+    # light parse's beside the native full parse's, and the bound
+    t0 = time.perf_counter()
+    _, desc = dh.parse_mp3_light(song_b)
+    light_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dh.parse_mp3(song_b)
+    native_s = time.perf_counter() - t0
+    words, fields = (torch.from_numpy(a).to(dev) for a in hd.pack(desc))
+    fns = {"kernel": lambda: hd.decode_samples(words, fields),
+           "plain": lambda: hd.decode_samples_plain(words, fields)}
+    out = fns["kernel"]()
+    fns["plain"]()
+    times = {k: [] for k in fns}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        times[which].append(_time_ms(fns[which], 1 if which == "plain"
+                                     else 50))
+    best = {k: min(v) for k, v in times.items()}
+    bound, by, nbytes, ops = huffman_bound(fields, words, out)
+    _say("16 huffman", f"[{card}] song: {fields.shape[0]} lanes, "
+                       f"{words.numel()} words: kernel {times['kernel']} ms, "
+                       f"bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+                       f"{ops / 1e6:.1f} M int ops), at "
+                       f"{bound / best['kernel']:.1%} of it; plain "
+                       f"{times['plain']} ms (plain/kernel "
+                       f"{best['plain'] / best['kernel']:.1f}x); "
+                       f"parse_mp3_light {light_s * 1e3:.1f} ms, native "
+                       f"parse_mp3 {native_s * 1e3:.1f} ms")
+    del words, fields, out
+
+    # Decoder on the song with each engine, in both precisions
+    both = ("synth_fused", "huffman_scan")
+    for precision, dtype in (("float64", F64), ("float32", F32)):
+        wavs = {e: os.path.join(tmp, f"song_{e}_{precision}.wav")
+                for e in ("host", "device")}
+
+        def decode(engine):
+            with _huffman_engine("1" if engine == "device" else "0"):
+                d = Decoder(song, wavs[engine], precision=precision)
+                d.decode()
+            return d
+
+        host_wall, host_walls, host_d = _median3(lambda: decode("host"))
+        dev_wall, dev_walls, dev_d = runs.run(
+            f"Decoder, device Huffman, {precision}", dtype,
+            lambda: _median3(lambda: decode("device")), kernels=both)
+        with open(wavs["device"], "rb") as a, open(wavs["host"], "rb") as b:
+            _expect_equal(f"song {precision}: device-Huffman WAV vs host "
+                          f"parse WAV", a.read(), b.read())
+        if dev_d[-1].output_bits != host_d[-1].output_bits:
+            raise AssertionError(f"{precision}: the engines' stego bits "
+                                 f"differ")
+        _say("16 huffman", f"[{card}] song {precision}: the device-Huffman "
+                           f"decode ({runs.last('huffman_scan')} scan and "
+                           f"{runs.last()} K1 launches in 4 decodes) writes "
+                           f"the host parse's WAV bytes and stego bits; wall "
+                           f"median {dev_wall * 1e3:.1f} ms of "
+                           f"{[round(w * 1e3, 1) for w in dev_walls]}, host "
+                           f"parse {host_wall * 1e3:.1f} ms of "
+                           f"{[round(w * 1e3, 1) for w in host_walls]}")
+    timer = StageTimer(sync=torch.cuda.synchronize)
+    hd.decode_pcm_i16_device(song_b, 0, dev, "float32", timer=timer)
+    _say("16 huffman", f"[{card}] device-Huffman float32 decode by stage: "
+                       + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                                   for k, v in timer.times.items()))
+
+    txt = os.path.join(tmp, "song_dh.txt")
+    with _huffman_engine("1"):
+        runs.run("façade reveal, device Huffman", F64,
+                 lambda: Steganography(quiet=True).reveal_massage(
+                     enc_out["hidden"], txt), kernels=both)
+    with open(txt) as f:
+        if f.read() != enc_out["msg"]:
+            raise AssertionError("reveal through the device Huffman engine "
+                                 "did not give the message back")
+    _say("16 huffman", f"reveal through the device Huffman engine gives the "
+                       f"{len(enc_out['msg'])}-char message back")
+    return dict(name="huffman_scan", route="cuda",
+                source="mp3stego_tpu_torch/csrc/huffman.cu",
+                replaces="mp3stego_tpu/ops/huffman_device.py:121",
+                launches=runs.launches("huffman_scan"), max_abs_err=err,
+                ms=best["kernel"], plain_ms=best["plain"], bound_ms=bound,
+                bound_by=by, library_ms=None)
 
 
 def library_pair(blk: torch.Tensor):
@@ -792,26 +1043,31 @@ def main() -> int:
         raise RuntimeError("TF32 could not be switched off")
     _say("0 card", "TF32 off (matmul and cuDNN)")
 
-    # ---- phase 1: build the kernel (nvcc, sm_90a) and the host library
-    # (g++), both started together
+    # ---- phase 1: build the kernels (one nvcc per source, sm_90a) and the
+    # host library (g++), all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         host_lib = pool.submit(native.get_lib)
-        _cuda.load("synth", sf._SIGNATURES)
+        built = [pool.submit(_cuda.load, name, mod._SIGNATURES)
+                 for name, mod in (("synth", sf), ("huffman", hd))]
+        for b in built:
+            b.result()
         if host_lib.result() is None:
             raise RuntimeError("the native host library did not build or "
                                "load")
-    info = _cuda.builds["synth"]
-    _say("1 build", f"csrc/synth.cu -> {os.path.relpath(info['path'], REPO)}"
-                    f" in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            _say("1 build", "ptxas: " + line.strip())
+    for name in ("synth", "huffman"):
+        info = _cuda.builds[name]
+        _say("1 build", f"csrc/{name}.cu -> "
+                        f"{os.path.relpath(info['path'], REPO)} in "
+                        f"{info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                _say("1 build", "ptxas: " + line.strip())
     for dtype in (F32, F64):
         g, smem = sf.tile(dtype)
         _say("1 build", f"{dtype}: {g} granules and {smem} B of shared "
                         f"memory per CTA")
-    _say("1 build", f"kernel and native host library (in parallel) in "
+    _say("1 build", f"kernels and native host library (in parallel) in "
                     f"{time.perf_counter() - t0:.2f} s")
 
     # ---- phase 2: K1 against its plain version, bit for bit, in both
@@ -893,7 +1149,7 @@ def main() -> int:
         want = _wav_i16(wav64)
         seconds = want.size / 2 / 44100
         _say("4 slice", f"{seconds:.2f} s song: the default decode (float64 "
-                        f"on the card, {runs.log[-1][2]} K1 launches in 4 "
+                        f"on the card, {runs.last()} K1 launches in 4 "
                         f"decodes) writes the host C++ plane's WAV bytes")
         _say("4 slice", f"[{card}] float64 card decode wall median "
                         f"{wall64 * 1e3:.1f} ms of "
@@ -989,7 +1245,7 @@ def main() -> int:
                     open(os.path.join(tmp, f"{n}_host.wav"), "rb") as b:
                 _expect_equal(f"{n}: default card decode vs host C++ plane",
                               a.read(), b.read())
-        _say("5 goldens", f"default decode on the card ({runs.log[-1][2]} K1 "
+        _say("5 goldens", f"default decode on the card ({runs.last()} K1 "
                           f"launches) writes the host C++ plane's WAV bytes "
                           f"on {len(files)} streams: {', '.join(files)}")
         for name in lsf_names:
@@ -1025,6 +1281,9 @@ def main() -> int:
 
         # ---- phases 12-15: batched decode and encode, VBR, streaming, CLI
         batch_phases(dev, card, tmp, song, wav64, enc_out, s64, runs, errs)
+
+        # ---- phase 16: the device Huffman decode (the bit-scan kernel)
+        huffman_row = huffman_phase(dev, card, tmp, song, enc_out, runs)
 
         # ---- phase 7: K1's time on the song's own blocks in both dtypes,
         # beside its plain version and the library pair, each with its bound
@@ -1076,15 +1335,17 @@ def main() -> int:
             del blk, lib, fns
             torch.cuda.empty_cache()
 
-    for name, dtype, n in runs.log:
-        _say("launches", f"{name} ({dtype}): {n}")
+    for name, dtype, counts in runs.log:
+        _say("launches", f"{name} ({dtype}): " + ", ".join(
+            f"{k} {n}" for k, n in counts.items()))
     print(card)
     print(json.dumps({"kernels": [dict(
         name=f"synth_fused ({'float32' if dtype == F32 else 'float64'})",
         route="cuda", source="mp3stego_tpu_torch/csrc/synth.cu",
         replaces="mp3stego_tpu/ops/pallas_kernels.py:42",
-        launches=runs.launches(dtype), max_abs_err=errs[dtype],
-        **timing[dtype]) for dtype in (F64, F32)]}))
+        launches=runs.launches("synth_fused", dtype),
+        max_abs_err=errs[dtype], **timing[dtype]) for dtype in (F64, F32)]
+        + [huffman_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

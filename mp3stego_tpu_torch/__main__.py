@@ -62,7 +62,7 @@ def _parser() -> argparse.ArgumentParser:
     e.add_argument("--stream-chunk-frames", type=int, default=0,
                    help="encode in bounded-memory windows of N frames "
                         "(byte-identical to the whole-file encode; CBR "
-                        "only, on the native host engine)")
+                        "only, the planes on --device)")
 
     h = sub.add_parser("hide", help="hide a message in an MP3")
     h.add_argument("input"), h.add_argument("output"), h.add_argument("message")
@@ -197,7 +197,8 @@ def main(argv=None) -> int:
                 from mp3stego_tpu_torch.models.streaming import \
                     encode_file_streaming
                 encode_file_streaming(args.input, args.output, args.bitrate,
-                                      chunk_frames=args.stream_chunk_frames)
+                                      chunk_frames=args.stream_chunk_frames,
+                                      device=args.device)
             else:
                 s.encode_wav_to_mp3(args.input, args.output, args.bitrate,
                                     vbr=args.vbr)

@@ -1036,6 +1036,116 @@ def _parse_frames_lsf(p: ParsedMP3, file_data: bytes, frames: list,
     return p
 
 
+def parse_mp3_light(file_data: bytes, offset: int = 0):
+    """Host pass of the device Huffman decode (``ops/huffman_device``):
+    everything _parse_mp3_python does EXCEPT the per-sample symbol scan.
+    MPEG-1 only (LSF raises ValueError). Returns
+    (ParsedMP3 with raw_samples zeroed, per-granule bit-scan descriptors):
+
+    descriptors: list over (frame, gr, ch) parse order of dicts with
+      md (bytes, the frame's reservoir-spliced main data), start_bit, max_bit,
+      region0, region1, big2, ts (3,), c1sel. Inactive (mono ch=1) slots have
+      big2 = 0 and max_bit = start_bit.
+    """
+    p = ParsedMP3()
+    n = len(file_data)
+    if (offset + HEADER_SIZE > n or file_data[offset] != 0xFF
+            or file_data[offset + 1] < 0xE0):
+        p.num_frames = 0
+        return p, []
+
+    first_h = parse_header(*file_data[offset:offset + 4])
+    if first_h.mpeg_version != 1:
+        raise ValueError("the device Huffman scan is MPEG-1-only; LSF "
+                         "streams decode through the host parse path")
+    p.header = first_h
+
+    frames = []
+    prev_hist = [0.0] * NUM_PREV_FRAMES
+    frame_size = frame_size_of(first_h)
+    cur = offset
+    while n > cur + HEADER_SIZE:
+        if file_data[cur] == 0xFF and file_data[cur + 1] >= 0xE0:
+            h = parse_header(*file_data[cur:cur + 4])
+            prev_hist = [frame_size] + prev_hist[:-1]
+            frame_size = frame_size_of(h)
+            if frame_size <= 0:
+                break
+            frames.append((cur, h, frame_size, list(prev_hist)))
+            cur += frame_size
+        else:
+            p.duplicate_last_pcm = len(frames) > 0
+            break
+
+    F = len(frames)
+    p.num_frames = F
+    if F == 0:
+        return p, []
+    _attach_vbr_tag(p, file_data, offset)
+    z = lambda *s: np.zeros(s, dtype=np.int32)  # noqa: E731
+    p.frame_sizes = np.array([f[2] for f in frames], dtype=np.int64)
+    p.raw_samples = np.zeros((F, 2, 2, 576), dtype=np.int32)
+    for name in ("block_type", "mixed_block_flag", "window_switching",
+                 "global_gain", "scale_fac_scale", "pre_flag"):
+        setattr(p, name, z(F, 2, 2))
+    p.sub_block_gain = z(F, 2, 2, 3)
+    p.scale_fac_l = z(F, 2, 2, 22)
+    p.scale_fac_s = z(F, 2, 2, 3, 13)
+    p.table_select = z(F, 2, 2, 3)
+    p.ms_stereo = np.zeros(2 * F, dtype=bool)
+    p.is_stereo = np.zeros(2 * F, dtype=bool)
+
+    descriptors = []
+    for fi, (foff, h, fsize, prev_sizes) in enumerate(frames):
+        start_si = 6 if h.crc == 0 else 4
+        si_bytes = file_data[foff + start_si:foff + fsize]
+        si_bits = np.unpackbits(np.frombuffer(si_bytes, dtype=np.uint8))
+        si = parse_side_info(si_bits, h)
+        md = assemble_main_data(file_data, foff, fsize, prev_sizes, si, h)
+        mdb = _MainDataBits(md)
+        long_win = T.BAND_INDEX_LONG[h.sr_idx]
+        bit = 0
+        for gr in range(2):
+            for ch in range(2):
+                if ch < h.channels:
+                    max_bit = int(bit + si.part2_3_length[gr][ch])
+                    start = unpack_scale_factors(mdb, si, gr, ch, bit)
+                    if si.window_switching[gr][ch] and si.block_type[gr][ch] == 2:
+                        region0, region1 = 36, 576
+                    else:
+                        r0c = int(si.region0_count[gr][ch])
+                        r1c = int(si.region1_count[gr][ch])
+                        region0 = int(long_win[min(r0c + 1, 22)])
+                        region1 = int(long_win[min(r0c + 1 + r1c + 1, 22)])
+                    descriptors.append(dict(
+                        md=md, start_bit=start, max_bit=max_bit,
+                        region0=region0, region1=region1,
+                        big2=min(int(si.big_value[gr][ch]) * 2, 576),
+                        ts=np.array(si.table_select[gr][ch], dtype=np.int32),
+                        c1sel=int(si.count1table_select[gr][ch])))
+                    bit = max_bit
+                else:
+                    descriptors.append(dict(
+                        md=b"", start_bit=0, max_bit=0, region0=0, region1=0,
+                        big2=0, ts=np.zeros(3, np.int32), c1sel=0))
+        p.side_infos.append(si)
+        p.block_type[fi] = si.block_type
+        p.mixed_block_flag[fi] = si.mixed_block_flag
+        p.window_switching[fi] = si.window_switching
+        p.global_gain[fi] = si.global_gain
+        p.scale_fac_scale[fi] = si.scale_fac_scale
+        p.pre_flag[fi] = si.pre_flag
+        p.sub_block_gain[fi] = si.sub_block_gain
+        p.scale_fac_l[fi] = si.scale_fac_l
+        p.scale_fac_s[fi] = si.scale_fac_s
+        p.table_select[fi] = si.table_select
+        p.ms_stereo[2 * fi:2 * fi + 2] = (
+            h.channel_mode == 1) and bool(h.mode_ext[0])
+        p.is_stereo[2 * fi:2 * fi + 2] = (
+            h.channel_mode == 1) and bool(h.mode_ext[1])
+    return p, descriptors
+
+
 def stego_bits(p: ParsedMP3) -> str:
     """table_select -> hidden bit string, ch-major within frame, skipping table 0
     (decoder/util.py:67-81 + Frame.py:676-685 flatten order)."""

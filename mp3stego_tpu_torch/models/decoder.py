@@ -10,6 +10,10 @@ plane (ops/decode_plane) -> int16 WAV. ``precision`` selects "float64" (the
 bit-exact plane) or "float32"; both run the torch plane on ``device``, CUDA
 by default (a missing card raises). Under ``device="cpu"`` float64 runs the
 host C++ plane, whose bytes the card's float64 plane equals.
+
+A second engine unpacks the Huffman samples on the device
+(``ops/huffman_device``, after the light host parse); ``_huffman_backend``
+picks it, and its WAV bytes are the host parse's.
 """
 
 import os
@@ -25,6 +29,26 @@ from mp3stego_tpu_torch.utils.profiling import StageTimer, byte_bar, trace
 from mp3stego_tpu_torch.utils.wav import write_wav
 
 PRECISIONS = ("float64", "float32")
+
+
+def _huffman_backend(precision: str, device: torch.device) -> str:
+    """Which engine unpacks the Huffman samples: "host" (the C++ parse, or
+    its Python twin) or "device" (``ops/huffman_device``).
+
+    The JAX package's rule: "host" whenever the native library loads (it
+    beats the device scan end to end, whose host half is a Python parse),
+    "device" when it does not. Only the host float64 plane (float64 on the
+    CPU), which needs the parsed samples on the host, always takes "host".
+    MP3STEGO_TPU_DEVICE_HUFFMAN=1/0 overrides."""
+    env = os.environ.get("MP3STEGO_TPU_DEVICE_HUFFMAN")
+    if env == "1":
+        return "device"
+    if env == "0":
+        return "host"
+    if precision == "float64" and device.type == "cpu":
+        return "host"
+    from mp3stego_tpu_torch import native
+    return "host" if native.get_lib() is not None else "device"
 
 
 def check_precision(precision: str, device=None) -> torch.device:
@@ -105,21 +129,32 @@ class Decoder:
             if dev.type == "cuda" else None
         timer = self.timer = StageTimer(sync=sync)
         start = time.time()
+        backend = _huffman_backend(self.__precision, dev)
         with trace():
-            with timer.stage("bitstream parse (host)"):
-                bar = byte_bar(len(self.__data) - self.__offset,
-                               enabled=not quiet)
-                parsed = dh.parse_mp3(self.__data, self.__offset,
-                                      progress_cb=bar.update)
-                bar.close()
-                self.__parsed = parsed
-                self.output_bits = dh.stego_bits(parsed)
-                if parsed.header is None:
-                    # no sync word at all (the reference IndexErrors here)
-                    sys.exit(f"File {self.__file_path} is not a valid "
-                             f"MP3 file.")
+            if backend == "device":
+                # the host does the sync walk, side info, reservoir and
+                # scalefactors; the Huffman scan and the plane run on dev
+                from mp3stego_tpu_torch.ops import huffman_device as hd
+                with timer.stage("decode (device huffman)"):
+                    pcm_i16, parsed = hd.decode_pcm_i16_device(
+                        self.__data, self.__offset, dev, self.__precision)
+            else:
+                with timer.stage("bitstream parse (host)"):
+                    bar = byte_bar(len(self.__data) - self.__offset,
+                                   enabled=not quiet)
+                    parsed = dh.parse_mp3(self.__data, self.__offset,
+                                          progress_cb=bar.update)
+                    bar.close()
+            self.__parsed = parsed
+            self.output_bits = dh.stego_bits(parsed)
+            if parsed.header is None:
+                # no sync word at all (the reference IndexErrors here)
+                sys.exit(f"File {self.__file_path} is not a valid "
+                         f"MP3 file.")
 
-            if self.__precision == "float64" and dev.type == "cpu":
+            if backend == "device":     # the PCM came with the scan
+                pass
+            elif self.__precision == "float64" and dev.type == "cpu":
                 with timer.stage("numeric plane (float64)"):
                     # fused native plane -> interleaved int16 (one pass);
                     # NumPy parity oracle when the toolchain is absent

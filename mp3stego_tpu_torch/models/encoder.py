@@ -18,6 +18,11 @@ The engines, all byte-identical (``MP3Encoder.encode``):
   message bits a granule can read; one host scan in cursor order picks each
   granule's result from its true cursor (``_encode_hide``). Exact in one
   pass, whatever the file's length.
+
+Both plane engines also take a window of frames (``models/streaming``):
+each (gr, ch) slot's step and stale addresses carry from one call to the
+next (``_slot_carry``), as do the reservoir, the padding slot lag and the
+stego cursor.
 * host C++ (``_encode_host``): the native analysis and sequential whole-file
   search; the card's oracle.
 * host oracle (``device_search=False``): the sequential per-frame search of
@@ -242,6 +247,9 @@ class MP3Encoder:
         self.redo_stats = None
         self.hide_stats = None
         self._nat_ser = None
+        # each (gr, ch) slot's step (nch, gpf) and stale addresses (nch,
+        # gpf, 3) after the frames encoded so far; None at the file's start
+        self._slot_carry = None
 
         self.mode = w.mpeg_mode
         self.bitrate = w.bitrate
@@ -424,14 +432,17 @@ class MP3Encoder:
         tot, en = SP.scfsi_sums(xr, self.band_row)
         return tot.cpu().numpy(), en.cpu().numpy()
 
-    def _encode_plane(self, num_frames: int, timer):
-        """Whole-file encode on the device planes: analysis + MDCT and the
-        rate-control search of every granule run in torch on ``device``;
-        the host redoes flagged granules with the exact oracle, applies the
-        reservoir chain and serializes."""
+    def _encode_plane(self, num_frames: int, timer, xr=None):
+        """Encode on the device planes: analysis + MDCT and the rate-control
+        search of every granule run in torch on ``device``; the host redoes
+        flagged granules with the exact oracle, applies the reservoir chain
+        and serializes. ``xr`` (nch * Tg, 576), resident, is the spectra of
+        the next ``num_frames`` frames of a windowed encode; None analyses
+        the whole file."""
         tg = num_frames * self.granules_per_frame
-        with timer.stage("analysis+mdct (device)"):
-            xr = self._analysis_device(num_frames)
+        if xr is None:
+            with timer.stage("analysis+mdct (device)"):
+                xr = self._analysis_device(num_frames)
         with timer.stage("framing"):
             paddings, mean_bits_f = self._framing(xr, num_frames)
         max_bits_lanes = self._lane_budgets(mean_bits_f)
@@ -690,8 +701,14 @@ class MP3Encoder:
         Returns the oracle's result."""
         from mp3stego_tpu_torch.ops import quant_np
         p = prev[g]
-        addr = (0, 0, 0) if p < 0 else tuple(
-            int(res[k][p]) for k in ("a1", "a2", "a3"))
+        if p >= 0:
+            addr = tuple(int(res[k][p]) for k in ("a1", "a2", "a3"))
+        elif self._slot_carry is not None:        # from an earlier window
+            tg = len(res["step"]) // self.wav.num_of_channels
+            addr = tuple(int(a) for a in self._slot_carry["addr"][
+                g // tg, g % self.granules_per_frame])
+        else:
+            addr = (0, 0, 0)
         lib = _native_rate_lib()
         if lib is not None and flag == SP.FLAG_ADDR:
             r = self._oracle_native(lib, row, max_bits, addr, hide)
@@ -786,11 +803,12 @@ class MP3Encoder:
         return scfsi.transpose(1, 0, 2)
 
     def _plane_finish(self, res: dict, en_tot_raw, en_raw, nf: int, paddings,
-                      mean_bits_f, tg: int, step_seed=None):
+                      mean_bits_f, tg: int):
         """Reservoir chain, stuffing, scfsi, global-gain slot chain and frame
-        serialization from the plane's per-granule results. ``step_seed``
-        (nch, gpf): each slot's step before these frames, for a chunked
-        encode (``models/streaming``); zeros at the file's start."""
+        serialization from the plane's per-granule results. A skipped
+        granule takes its slot's step before these frames from
+        ``_slot_carry`` (zeros at the file's start); each slot's step and
+        stale addresses after them go back into it for the next window."""
         gpf = self.granules_per_frame
         nch = self.wav.num_of_channels
         searched = res["xrmax0"] == 0
@@ -810,11 +828,13 @@ class MP3Encoder:
         smask = searched.reshape(nch, nf, gpf)
         last = np.where(smask, np.arange(nf)[None, :, None], -1)
         np.maximum.accumulate(last, axis=1, out=last)
-        seed = 0 if step_seed is None else step_seed.reshape(nch, 1, gpf)
+        seed = 0 if self._slot_carry is None else \
+            self._slot_carry["step"].reshape(nch, 1, gpf)
         carried = np.where(
             last >= 0,
             np.take_along_axis(steps, np.maximum(last, 0), axis=1), seed)
         gg = carried + 210
+        self._carry_slots(res, last[:, -1], carried[:, -1], nf)
 
         # reservoir chain + stuffing (exact float order, MP3_Encoder.py:812,
         # 1097-1145); stuffing mutates the serialized part2_3_length
@@ -899,6 +919,23 @@ class MP3Encoder:
             self.out_buffer += self.bw.take_frame()
         self.out_buffer += self.bw.take_frame()
 
+    def _carry_slots(self, res: dict, last_f, step, nf: int):
+        """Record in ``_slot_carry`` each slot's step ``step`` (nch, gpf)
+        and the addresses of its last searched granule (frame ``last_f``
+        (nch, gpf), -1 where these frames searched none: the slot keeps
+        its earlier addresses). The host C++ chain's results carry no
+        addresses; its own chain arrays hold them."""
+        nch, gpf = step.shape
+        addr = np.zeros((nch, gpf, 3), np.int64) if self._slot_carry is None \
+            else self._slot_carry["addr"]
+        if "a1" in res:
+            a = np.stack([res[k] for k in ("a1", "a2", "a3")], -1) \
+                .reshape(nch, nf, gpf, 3)
+            at = np.take_along_axis(
+                a, np.maximum(last_f, 0)[:, None, :, None], axis=1)[:, 0]
+            addr = np.where(last_f[..., None] >= 0, at, addr)
+        self._slot_carry = dict(step=step.copy(), addr=addr)
+
     def _plane_serialize_native(self, lib, res, p23, gg, scfsi_f, paddings,
                                 ix_l, nf, tg):
         """Whole-file serialization in ONE C call (mp3_format_frames): all
@@ -959,8 +996,11 @@ class MP3Encoder:
             raise RuntimeError("native serializer buffer overflow")
         self.out_buffer += out[:written].tobytes()
 
-    def _encode_hide(self, num_frames: int, timer):
-        """Hide on the device planes, exact in one pass over the file.
+    def _encode_hide(self, num_frames: int, timer, xr=None):
+        """Hide on the device planes, exact in one pass over the file (or,
+        given resident spectra ``xr``, over the next ``num_frames`` frames
+        of a windowed encode, the cursor continuing from
+        ``hide_str_offset``).
 
         The stego cursor couples the granules: a granule embeds from the
         count of nonzero table selections in every granule before it, in the
@@ -985,8 +1025,9 @@ class MP3Encoder:
         bits = self._hide_u8
         n_bits = len(self.hide_str)
 
-        with st("analysis+mdct (device)"):
-            xr = self._analysis_device(num_frames)
+        if xr is None:
+            with st("analysis+mdct (device)"):
+                xr = self._analysis_device(num_frames)
         paddings, mean_bits_f = self._plane_framing(num_frames)
         max_bits_lanes = self._lane_budgets(mean_bits_f)
         mb = torch.from_numpy(max_bits_lanes).to(self.device)

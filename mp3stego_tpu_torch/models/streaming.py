@@ -2,7 +2,10 @@
 
 The decode runs each window through the float64 decode plane on ``device``
 (CUDA by default; the host C++ plane under ``device="cpu"``). The encode runs
-on the host, as in the JAX package: the native Q31 analysis and the
+each window through the torch planes on ``device`` (CUDA by default): the
+Q31 analysis, the rate search and, for a hide, the eight-window pass and
+host scan of ``MP3Encoder._encode_hide``; ``device_search=False`` runs the
+JAX package's host engine instead, the native Q31 analysis and the
 sequential ``rate_search_file`` chain. Their outputs are byte-identical to
 the whole-file paths (``Decoder`` with precision "float64", ``MP3Encoder``).
 
@@ -23,10 +26,12 @@ frames.
 
 The encode's cross-frame couplings are small explicit state: the analysis
 reads 480 samples of filterbank history and one granule of MDCT context;
-the rate search carries each (gr, ch) slot's step seed, stale addresses and
-ix buffer through ``rate_search_file``'s chain arrays; the reservoir,
+the rate search carries each (gr, ch) slot's step seed and stale addresses
+(on the encoder, ``MP3Encoder._slot_carry``; the host chain also its ix
+buffer, through ``rate_search_file``'s chain arrays); the reservoir,
 padding slot lag, scfsi, stego cursor and the serializer's 32-bit cache
-persist on the encoder between chunks.
+persist on the encoder between chunks. On the card only one window's
+tensors are alive at a time.
 
 The inputs ride an mmap (decode) or a memmap (encode), and the pages a
 window has passed are dropped with ``madvise``.
@@ -35,6 +40,7 @@ window has passed are dropped with ``madvise``.
 import mmap
 
 import numpy as np
+import torch
 
 from mp3stego_tpu_torch import native
 from mp3stego_tpu_torch.bitstream import decoder_host as dh
@@ -43,7 +49,7 @@ from mp3stego_tpu_torch.bitstream.id3 import parse_id3
 from mp3stego_tpu_torch.models import encoder as enc_mod
 from mp3stego_tpu_torch.ops import decode_plane as dp
 from mp3stego_tpu_torch.ops import encode_plane as EP
-from mp3stego_tpu_torch.ops import quant as Q
+from mp3stego_tpu_torch.utils.profiling import StageTimer
 from mp3stego_tpu_torch.utils.wav import read_wav, wav_header
 
 # 9 reservoir frames + 1 frame (2 granules) for the plane's overlap/V carries
@@ -159,16 +165,25 @@ def _drop_pages(data, upto: int):
 
 def encode_file_streaming(wav_path: str, mp3_path: str, bitrate: int = 320,
                           chunk_frames: int = 512, hide_str: str = "",
-                          progress_cb=None) -> dict:
+                          progress_cb=None, device=None,
+                          device_search: bool = True) -> dict:
     """WAV -> MP3 in O(chunk) memory, byte-identical to the whole-file
     ``MP3Encoder`` (CBR; VBR's rate choice is a whole-file bisection).
-    Needs the native host engine (the C++ analysis and search twins).
-    Returns ``{frames, bytes, too_long}``."""
+
+    :param device: the planes' device, as ``MP3Encoder``'s: None means CUDA
+        (a missing card raises), "cpu" runs the same torch planes on the
+        CPU.
+    :param device_search: False runs each window on the native host engine
+        (the C++ analysis and ``rate_search_file`` chain), the planes'
+        oracle.
+    Both need the native host library (the serializer; the host engine
+    also its search twins). Returns ``{frames, bytes, too_long}``."""
     w = read_wav(wav_path, bitrate, use_mmap=True)
-    enc = enc_mod.MP3Encoder(w, hide_str=hide_str, device_search=False)
+    enc = enc_mod.MP3Encoder(w, hide_str=hide_str,
+                             device_search=device_search, device=device)
     lib = enc_mod._native_rate_lib()
     slib = native.get_lib()
-    if lib is None or slib is None:
+    if slib is None or (lib is None and not device_search):
         raise RuntimeError(
             "streaming encode requires the native host engine (g++ build)")
     # persistent serializer bit cache: chunks continue one bitstream.
@@ -182,8 +197,8 @@ def encode_file_streaming(wav_path: str, mp3_path: str, bitrate: int = 320,
     gpf = enc.granules_per_frame
     nch = w.num_of_channels
     nf_total = enc._num_frames()
-    chain_state = np.zeros(2 * 2 * 12, np.int64)
-    chain_ix = np.zeros(2 * 2 * 576, np.int32)
+    chain = (np.zeros(2 * 2 * 12, np.int64), np.zeros(2 * 2 * 576, np.int32))
+    timer = StageTimer(enabled=False)
 
     def stream_slice(t_lo: int, t_hi: int) -> np.ndarray:
         """(nch, t_hi - t_lo) int16 granule-time samples; out-of-range = 0
@@ -202,46 +217,20 @@ def encode_file_streaming(wav_path: str, mp3_path: str, bitrate: int = 320,
         while f0 < nf_total:
             f1 = min(nf_total, f0 + chunk_frames)
             nf = f1 - f0
-            tg = nf * gpf
             margin = 1 if f0 > 0 else 0           # MDCT left-context granule
             full = stream_slice((f0 * gpf - margin) * 576 - EP._PAST,
                                 f1 * gpf * 576)
-            spec = np.empty((nch, margin + tg, 576), np.int32)
-            slib.encode_analysis(np.ascontiguousarray(full), nch, margin + tg,
-                                 *EP._native_tables(), spec)
-            xr = np.ascontiguousarray(spec[:, margin:].reshape(-1, 576))
-
-            # seed for skipped granules at the chunk head = the chain's
-            # step BEFORE this chunk's searches overwrite it
-            seed = None
-            if f0 > 0:
-                qss = chain_state.reshape(2, 2, 12)[:, :, 0]
-                seed = np.array([[qss[gr][ch] for gr in range(gpf)]
-                                 for ch in range(nch)], np.int64)
-
-            paddings, mean_bits_f = enc._plane_framing(nf)
-            maxb_f = np.minimum(np.asarray(mean_bits_f, np.int64) // nch,
-                                Q.MAX_BITS_ALLOWANCE)
-            maxb = np.tile(np.repeat(maxb_f, gpf), nch).astype(np.int32)
-
-            lanes = nch * tg
-            raw = np.zeros((lanes, 12), np.int64)
-            ix = np.zeros((lanes, 576), np.int32)
-            en_tot = np.zeros(lanes, np.int32)
-            en21 = np.zeros((lanes, 21), np.int32)
-            lib.rate_search_file(
-                xr, maxb, nch, tg, gpf, enc.band_row * 23,
-                enc._hide_u8, len(hide_str), enc.hide_str_offset,
-                raw, ix, en_tot, en21,
-                chain_state, chain_ix, 1 if f0 else 0)
-            res = {k: np.ascontiguousarray(raw[:, c]) for c, k in enumerate(
-                ("step", "bits", "bv", "c1", "cts", "r0c", "r1c",
-                 "ch0", "ch1", "ch2", "xrmax0"))}
-            res["ix"] = ix
-            mpeg1 = enc.version == 3
-            enc._plane_finish(res, en_tot if mpeg1 else None,
-                              en21 if mpeg1 else None,
-                              nf, paddings, mean_bits_f, tg, step_seed=seed)
+            if device_search:
+                xr = EP.analysis_stream(
+                    torch.from_numpy(full).to(enc.device), skip=margin)
+                xr = xr.reshape(-1, 576)
+                if hide_str:
+                    enc._encode_hide(nf, timer, xr=xr)
+                else:
+                    enc._encode_plane(nf, timer, xr=xr)
+                del xr
+            else:
+                _host_window(enc, lib, slib, full, margin, nf, f0, chain)
             out_f.write(bytes(enc.out_buffer))
             total_bytes += len(enc.out_buffer)
             enc.out_buffer = bytearray()
@@ -251,6 +240,40 @@ def encode_file_streaming(wav_path: str, mp3_path: str, bitrate: int = 320,
             f0 = f1
     too_long = enc.hide_str_offset < len(hide_str) - 1
     return dict(frames=nf_total, bytes=total_bytes, too_long=too_long)
+
+
+def _host_window(enc, lib, slib, full, margin: int, nf: int, f0: int,
+                 chain):
+    """One window on the native host engine: the C++ analysis of ``full``
+    (its ``margin`` context granules dropped) and the ``rate_search_file``
+    chain, continuing ``chain`` (state, ix) from the previous window."""
+    gpf = enc.granules_per_frame
+    nch = enc.wav.num_of_channels
+    tg = nf * gpf
+    chain_state, chain_ix = chain
+    spec = np.empty((nch, margin + tg, 576), np.int32)
+    slib.encode_analysis(np.ascontiguousarray(full), nch, margin + tg,
+                         *EP._native_tables(), spec)
+    xr = np.ascontiguousarray(spec[:, margin:].reshape(-1, 576))
+    paddings, mean_bits_f = enc._plane_framing(nf)
+    maxb = enc._lane_budgets(mean_bits_f)
+    lanes = nch * tg
+    raw = np.zeros((lanes, 12), np.int64)
+    ix = np.zeros((lanes, 576), np.int32)
+    en_tot = np.zeros(lanes, np.int32)
+    en21 = np.zeros((lanes, 21), np.int32)
+    lib.rate_search_file(
+        xr, maxb, nch, tg, gpf, enc.band_row * 23,
+        enc._hide_u8, len(enc.hide_str), enc.hide_str_offset,
+        raw, ix, en_tot, en21, chain_state, chain_ix, 1 if f0 else 0)
+    res = {k: np.ascontiguousarray(raw[:, c]) for c, k in enumerate(
+        ("step", "bits", "bv", "c1", "cts", "r0c", "r1c",
+         "ch0", "ch1", "ch2", "xrmax0"))}
+    res["ix"] = ix
+    mpeg1 = enc.version == 3
+    enc._plane_finish(res, en_tot if mpeg1 else None,
+                      en21 if mpeg1 else None,
+                      nf, paddings, mean_bits_f, tg)
 
 
 def _release_consumed(buf, frames_done: int, gpf: int, nch: int, past: int):

@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()                  # guards _name_locks
+_name_locks = {}                          # one build at a time per source
 _libs = {}
 # name -> {"path", "seconds", "log"}: what this process built or found
 builds = {}
@@ -68,8 +69,11 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
 
     ``signatures`` maps each C entry point to ``(restype, argtypes)``; every
     pointer and the stream must be ``ctypes.c_void_p`` so that 64-bit
-    addresses are not cut. Raises if the build or the load fails."""
+    addresses are not cut. Raises if the build or the load fails. Distinct
+    sources build in parallel when loaded from several threads."""
     with _lock:
+        lock = _name_locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             info = _build(name)

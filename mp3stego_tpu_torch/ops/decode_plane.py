@@ -472,7 +472,7 @@ def _pack_raw_native(raw_samples: np.ndarray, F: int):
         cap = n  # rare: many linbits samples; retry with the exact count
 
 
-def host_prepare(p, native_pack: bool = True) -> dict:
+def host_prepare(p, native_pack: bool = True, raw: bool = True) -> dict:
     """Turn a ParsedMP3 into the device-plane input dict.
 
     Only per-granule side-info fields cross to the device (a few hundred bytes
@@ -484,7 +484,10 @@ def host_prepare(p, native_pack: bool = True) -> dict:
     tensor) runs in C++ when the native library is loadable (one fused pass vs
     three NumPy passes); ``native_pack=False``
     forces the NumPy oracle. Exception list order differs between the two
-    (t-major vs ch-major) — downstream is a scatter, so order is free."""
+    (t-major vs ch-major) — downstream is a scatter, so order is free.
+    ``raw=False`` leaves the sample plane out (``RAW_KEYS``): the device
+    Huffman decode (``ops/huffman_device``) supplies it on the device as
+    ``raw_dense``."""
     F = p.num_frames
     sr = p.header.sr_idx
     G = F * 2  # time-ordered granules
@@ -496,14 +499,15 @@ def host_prepare(p, native_pack: bool = True) -> dict:
     # Huffman sample plane as int8 + sparse int16 escapes: almost all values
     # are |x| <= 15; only linbits samples exceed int8. This halves (vs int16)
     # the dominant host->device transfer.
-    packed = _pack_raw_native(p.raw_samples, F) if native_pack else None
+    packed = _pack_raw_native(p.raw_samples, F) \
+        if raw and native_pack else None
     if packed is not None:
         raw_i8, exc_t, exc_ch, exc_s, exc_val = packed
-    else:
-        raw = to_ct(p.raw_samples)                  # (2, T, 576) int32
-        exc_ch, exc_t, exc_s = np.nonzero((raw > 127) | (raw < -128))
-        exc_val = raw[exc_ch, exc_t, exc_s].astype(np.int16)
-        raw_i8 = np.clip(raw, -128, 127).astype(np.int8)
+    elif raw:
+        r = to_ct(p.raw_samples)                    # (2, T, 576) int32
+        exc_ch, exc_t, exc_s = np.nonzero((r > 127) | (r < -128))
+        exc_val = r[exc_ch, exc_t, exc_s].astype(np.int16)
+        raw_i8 = np.clip(r, -128, 127).astype(np.int8)
 
     bt = to_ct(p.block_type)                        # (2, T)
     mixed = to_ct(p.mixed_block_flag).astype(bool)
@@ -521,15 +525,17 @@ def host_prepare(p, native_pack: bool = True) -> dict:
     s_mix, k_mix = _mix_geometry(sr)
     col = np.arange(576)
 
-    return dict(
-        is_pos=is_pos,                               # (T,4,22) int8
-        is_mask=is_mask,                             # (T,) bool
-        is_tab=is_tab,                               # (T,) int8 coef row
+    planes = {} if not raw else dict(
         raw_i8=raw_i8,
         exc_t=exc_t.astype(np.int32),
         exc_ch=exc_ch.astype(np.int8),
         exc_s=exc_s.astype(np.int16),
-        exc_val=exc_val,
+        exc_val=exc_val)
+    return dict(
+        is_pos=is_pos,                               # (T,4,22) int8
+        is_mask=is_mask,                             # (T,) bool
+        is_tab=is_tab,                               # (T,) int8 coef row
+        **planes,
         mode=mode,
         gg=to_ct(p.global_gain).astype(np.int16),
         sfscale=to_ct(p.scale_fac_scale).astype(np.int8),
@@ -598,6 +604,9 @@ T_AXIS0_KEYS = ("ms_mask", "is_mask", "is_pos", "is_tab")
 # sparse int16 escape values for the rare |sample| > 127 (linbits) entries;
 # padded entries use an out-of-bounds index and are dropped by the scatter
 EXC_KEYS = ("exc_t", "exc_ch", "exc_s", "exc_val")
+# the sample plane; a prep without it carries "raw_dense" (2, T, 576) int32
+# on the device instead (ops/huffman_device)
+RAW_KEYS = ("raw_i8",) + EXC_KEYS
 CONST_KEYS = ("reorder_perm", "walk_is_short", "walk_sfb", "walk_win",
               "pre_ext", "slot_exp", "slot_is", "mix_short_cols",
               "mix_raw_cols", "mix_lin_cols", "mix_long_band")
@@ -638,11 +647,12 @@ def prep_to_torch(prep: dict, device) -> dict:
     """``host_prepare``'s numpy dict -> tensors on ``device``.
 
     Takes exactly the dict that ``host_prepare`` (of either package) returns,
-    keyed by ``ALL_KEYS``; the narrow int8/int16 planes and bool masks cross
-    as they are and widen on the device."""
+    keyed by ``ALL_KEYS`` (less ``RAW_KEYS`` for ``raw=False``); the narrow
+    int8/int16 planes and bool masks cross as they are and widen on the
+    device."""
     device = torch.device(device)
     return {k: torch.from_numpy(np.ascontiguousarray(prep[k])).to(device)
-            for k in ALL_KEYS}
+            for k in ALL_KEYS if k in prep}
 
 
 @functools.lru_cache(maxsize=None)
@@ -723,6 +733,11 @@ def _row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(-1, n)[:m].reshape(x.shape[:-1] + (n,))
 
 
+def _plane_device(prep: dict) -> torch.device:
+    """The device of a prep's sample plane (``raw_i8`` or ``raw_dense``)."""
+    return (prep["raw_dense"] if "raw_dense" in prep else prep["raw_i8"]).device
+
+
 def granule_blocks(prep: dict, dtype, stages: dict = None) -> torch.Tensor:
     """Granule-local half of the decode plane: requantize -> MS/intensity
     stereo -> reorder/alias -> windowed IMDCT blocks. Returns (ch, T, 32, 36).
@@ -746,17 +761,22 @@ def _requantize_stage(prep, dtype):
     # q = exp1 - 2*exp2x2 as 2^(q>>2) * 2^((q&3)/4), both factors exact.
     # float64: decode_granules_np's ((sign*pow43) * e1lut) * e2lut.
     with record_function("requantize"):
-        c = _c(dtype, prep["raw_i8"].device)
-        r = prep["raw_i8"].to(torch.int32)                   # (2,T,576)
-        ch_, tt_ = r.shape[0], r.shape[1]
-        # |x| <= 128 on the int8 plane (the sign survives the clip); the
-        # linbits escapes overwrite their samples with exact table rows
-        a = c.pow43[r.abs().long()]
-        exc_t = prep["exc_t"].long()
-        ok = exc_t < tt_
-        idx = ((prep["exc_ch"].long() * tt_ + exc_t) * 576
-               + prep["exc_s"].long())
-        a.view(-1)[idx[ok]] = c.pow43[prep["exc_val"].long().abs()[ok]]
+        c = _c(dtype, _plane_device(prep))
+        if "raw_dense" in prep:
+            # the device Huffman decode's int32 plane: exact table rows
+            r = prep["raw_dense"]                            # (2,T,576)
+            a = c.pow43[r.abs().long()]
+        else:
+            r = prep["raw_i8"].to(torch.int32)               # (2,T,576)
+            ch_, tt_ = r.shape[0], r.shape[1]
+            # |x| <= 128 on the int8 plane (the sign survives the clip);
+            # the linbits escapes overwrite their samples with exact rows
+            a = c.pow43[r.abs().long()]
+            exc_t = prep["exc_t"].long()
+            ok = exc_t < tt_
+            idx = ((prep["exc_ch"].long() * tt_ + exc_t) * 576
+                   + prep["exc_s"].long())
+            a.view(-1)[idx[ok]] = c.pow43[prep["exc_val"].long().abs()[ok]]
 
         gg = prep["gg"].to(torch.int32)                      # (2,T)
         sbg = prep["sbg"].to(torch.int32)                    # (2,T,3)
@@ -914,7 +934,7 @@ def decode_granules(prep: dict, dtype=torch.float32, stages: dict = None,
     launches once and no IMDCT tail or V history reaches the next file.
     ``channels=1`` keeps channel 0 only."""
     rows = files * channels
-    if prep["raw_i8"].device.type == "cuda":
+    if _plane_device(prep).type == "cuda":
         if rows > MAX_SYNTH_ROWS:
             raise ValueError(f"{rows} (file, channel) rows exceed the "
                              f"synthesis kernel's {MAX_SYNTH_ROWS}")

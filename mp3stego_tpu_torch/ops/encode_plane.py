@@ -106,8 +106,22 @@ def run_analysis_device(pcm_i16: np.ndarray, num_granules: int, device,
     of MDCT context and 480 samples of history before it, so the result is
     the same for every chunk size."""
     full = torch.from_numpy(_padded_streams(pcm_i16, num_granules)).to(device)
+    return analysis_stream(full, chunk_g)
+
+
+def analysis_stream(full: torch.Tensor, chunk_g: int = CHUNK_G,
+                    skip: int = 0) -> torch.Tensor:
+    """Resident int16 streams (ch, 480 + Tg * 576), their 480 samples of
+    filterbank history in front, -> (ch, Tg - skip, 576) int32 spectra of
+    granules ``skip`` onward, in chunks of ``chunk_g`` granules.
+
+    A window of a longer stream (``models/streaming``) passes its slice with
+    the history before it and ``skip=1``: its first granule is the MDCT
+    context of the next, so the window's spectra equal the same granules of
+    the whole stream's."""
+    num_granules = (full.shape[1] - _PAST) // 576
     parts = []
-    a = 0
+    a = skip
     while a < num_granules:
         s = max(0, a - 1)                      # 1 granule of MDCT context
         e = min(num_granules, s + chunk_g + 1)
@@ -116,7 +130,7 @@ def run_analysis_device(pcm_i16: np.ndarray, num_granules: int, device,
         a = e
     if not parts:
         return torch.zeros((full.shape[0], 0, 576), dtype=torch.int32,
-                           device=device)
+                           device=full.device)
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 

@@ -1,0 +1,286 @@
+"""The device Huffman decode: the per-granule bit-scan of the sample values,
+as a hand-written CUDA kernel, and its plain PyTorch version.
+
+The host keeps the sync walk, the side info, the bit-reservoir splice and
+the scalefactors (``bitstream.decoder_host.parse_mp3_light``); the device
+walks each granule's Huffman code and writes the (2, T, 576) int32 sample
+plane that the decode plane reads as ``raw_dense``
+(``ops/decode_plane._requantize_stage``). It is the port of the JAX
+package's ``ops/huffman_device.decode_samples_device``, an XLA
+``fori_loop`` that decodes 8 symbols of every granule per step in lockstep.
+
+Layout (``pack``). Lane ``g`` is one granule of one channel, in parse order
+frame ▸ gr ▸ ch (G = 4 F lanes); its samples go to ``out[ch, 2 f + gr]``.
+Each frame's spliced main data is stored once, as big-endian 32-bit words,
+the frames back to back with ``PAD_WORDS`` zero words at the end. Each lane
+has 8 int32 fields (``FIELDS``): its frame's first word and word count, the
+first sample bit (after the scalefactors) and the end bit
+(``part2_3_length``), the two region boundaries, 2 x big_values, and its
+three table selections and count1 table packed as ``ts0 | ts1 << 5 | ts2 <<
+10 | c1sel << 15``. A lane reads its frame's words only: bits past them
+read as zeros, as in the JAX package's zero-padded rows.
+
+Semantics (the JAX package's, each step of the reference's
+decoder/Frame.py:443-559):
+
+* big-values pairs ``2k < big2``: the region's table picks a codebook
+  (tables 0, 4 and 14 decode as a skip); the next 19 bits index its LUT of
+  packed ``x << 9 | y << 5 | length``; a length of 0 (no codeword: a corrupt
+  stream) skips the pair and consumes nothing; each of x and y then reads
+  ``linbits`` more bits where it is the escape ``maxval - 1``, and a sign
+  bit where it is nonzero;
+* count1 quads from ``big2`` while the cursor is below the end bit and the
+  quad's first sample is below 572: table B is 4 inverted bits, table A the
+  6-bit ``QUAD_LUT``; then a sign bit per nonzero value.
+
+* ``decode_samples`` — the wrapper. A CPU tensor takes the plain version; a
+  CUDA tensor launches ``csrc/huffman.cu`` (one thread walks one lane with a
+  64-bit bit cache refilled 32 bits at a time; the codebook LUTs in global
+  memory, the small tables in shared memory) or raises. There is no
+  fallback from the card to the plain version, nor to the host parse.
+* ``decode_samples_plain`` — the plain PyTorch version: every lane at once,
+  one pair (then one quad) per step, reading the stream at each lane's cursor
+  straight from the words. The kernel equals it bit for bit.
+* ``launches`` — how many times the kernel was launched in this process.
+"""
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from mp3stego_tpu_torch import tables as T
+
+launches = 0
+LUT_BITS = T.LUT_BITS            # 19: the longest big-values codeword
+PAD_WORDS = 4
+FIELDS = ("wbase", "wlen", "start_bit", "max_bit", "region0", "region1",
+          "big2", "tsc")
+PAIRS, QUADS = 288, 144
+
+_SIGNATURES = {
+    "huffman_scan": (ctypes.c_int, (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _host_tables():
+    """(LUTs (books, 2^19) int32, the small tables (160,) int32: book row
+    per table id (-1 for a skip), linbits, maxval (32 each), QUAD_LUT
+    (64))."""
+    books = sorted({int(b) for b in T.DEC_CODEBOOK_OF if b != 0})
+    row_of = {b: i for i, b in enumerate(books)}
+    luts = np.zeros((len(books), 1 << LUT_BITS), dtype=np.int32)
+    for b in books:
+        luts[row_of[b]] = T.dec_lut(b)
+    book_row = np.array([row_of.get(int(b), -1) if i not in (0, 4, 14)
+                         else -1 for i, b in enumerate(T.DEC_CODEBOOK_OF)],
+                        dtype=np.int32)
+    small = np.concatenate([book_row, T.DEC_LINBITS, T.DEC_MAXVAL,
+                            T.QUAD_LUT]).astype(np.int32)
+    return luts, small
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(device: torch.device):
+    """``_host_tables`` on ``device``: (LUTs flat (books * 2^19,), small)."""
+    luts, small = _host_tables()
+    return (torch.from_numpy(luts.reshape(-1)).to(device),
+            torch.from_numpy(small).to(device))
+
+
+def pack(descriptors: list) -> tuple:
+    """``parse_mp3_light`` descriptors -> (words (W,) int32 holding the
+    big-endian uint32 words of each frame's main data once, fields (G, 8)
+    int32 in ``FIELDS`` order). Lanes of one frame share its ``md`` object;
+    an empty ``md`` (a mono stream's second channel) gets no words."""
+    chunks, fields = [], np.zeros((len(descriptors), 8), np.int64)
+    base, prev_md, nwords, wbase = 0, None, 0, 0
+    for i, d in enumerate(descriptors):
+        md = d["md"]
+        if md is not prev_md:
+            nwords = (len(md) + 3) // 4
+            wbase = base
+            if nwords:
+                chunks.append(md + b"\0" * (4 * nwords - len(md)))
+                base += nwords
+            prev_md = md
+        ts = d["ts"]
+        fields[i] = (wbase if nwords else 0, nwords, d["start_bit"],
+                     d["max_bit"], d["region0"], d["region1"], d["big2"],
+                     int(ts[0]) | int(ts[1]) << 5 | int(ts[2]) << 10
+                     | int(d["c1sel"]) << 15)
+    data = b"".join(chunks) + b"\0" * (4 * PAD_WORDS)
+    words = np.frombuffer(data, dtype=">u4").astype(np.uint32).view(np.int32)
+    return words, fields.astype(np.int32)
+
+
+def _check(words: torch.Tensor, fields: torch.Tensor):
+    if words.dim() != 1 or words.dtype != torch.int32 \
+            or words.shape[0] < PAD_WORDS:
+        raise ValueError(f"decode_samples wants words (W >= {PAD_WORDS},) "
+                         f"int32, got {tuple(words.shape)} {words.dtype}")
+    if fields.dim() != 2 or fields.shape[1] != 8 \
+            or fields.dtype != torch.int32 or fields.shape[0] % 4:
+        raise ValueError(f"decode_samples wants fields (4 F, 8) int32, got "
+                         f"{tuple(fields.shape)} {fields.dtype}")
+    if words.device != fields.device:
+        raise ValueError(f"words on {words.device}, fields on "
+                         f"{fields.device}")
+
+
+def decode_samples_plain(words: torch.Tensor,
+                         fields: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on ``words``' device: every lane
+    in lockstep, 288 pair steps then 144 quad steps, each peek read from
+    the words at the lane's bit cursor. Returns (2, 2 F, 576) int32."""
+    _check(words, fields)
+    dev = words.device
+    g = fields.shape[0]
+    luts, small = _tables(dev)
+    book_row, linbits, maxval = small[:32], small[32:64], small[64:96]
+    quad_lut = small[96:]
+    w64 = words.to(torch.int64) & 0xFFFFFFFF
+    f = fields.to(torch.int64).unbind(1)
+    wbase, wlen, bit, max_bit, region0, region1, big2, tsc = f
+    ts = [(tsc >> (5 * r)) & 31 for r in range(3)]
+    c1sel = (tsc >> 15) & 1
+    last = w64.shape[0] - 1
+    lanes = torch.arange(g, device=dev)
+    out = torch.zeros((g, 576), dtype=torch.int64, device=dev)
+
+    def word(i):
+        """Word ``i`` of each lane's frame; zero past its words."""
+        return torch.where(i < wlen, w64[(wbase + i).clamp(0, last)], 0)
+
+    def peek(n: int, at):
+        """The ``n`` bits (n <= 32) of each lane's stream from bit ``at``."""
+        i = at >> 5
+        wide = (word(i) << 32) | word(i + 1)
+        return (wide >> (64 - n - (at & 31))) & ((1 << n) - 1)
+
+    for k in range(PAIRS):
+        sample = 2 * k
+        table = torch.where(sample < region0, ts[0],
+                            torch.where(sample < region1, ts[1], ts[2]))
+        book = book_row[table]
+        decodable = (sample < big2) & (table != 0) & (book >= 0)
+        packed = luts[book.clamp(min=0) * (1 << LUT_BITS) + peek(LUT_BITS, bit)]
+        size = (packed & 31).to(torch.int64)
+        hit = decodable & (size > 0)
+        bit = bit + torch.where(hit, size, 0)
+        lb = linbits[table].to(torch.int64)
+        mv = maxval[table].to(torch.int64)
+        vals = []
+        for v in ((packed >> 9).to(torch.int64),
+                  ((packed >> 5) & 15).to(torch.int64)):
+            esc = hit & (lb != 0) & (v == mv - 1)
+            ext = torch.where(esc, peek(16, bit) >> (16 - lb), 0)
+            bit = bit + torch.where(esc, lb, 0)
+            signed = hit & (v > 0)
+            neg = signed & (peek(1, bit) > 0)
+            bit = bit + signed.to(torch.int64)
+            vals.append(torch.where(neg, -(v + ext), v + ext))
+        for j, v in enumerate(vals):
+            out[:, sample + j] = torch.where(hit, v, out[:, sample + j])
+
+    for q in range(QUADS):
+        sample = big2 + 4 * q
+        active = (bit < max_bit) & (sample + 4 < 576)
+        use_b = c1sel == 1
+        b4 = peek(4, bit)
+        qpacked = quad_lut[peek(6, bit)].to(torch.int64)
+        p = qpacked >> 5
+        size = torch.where(use_b, 4, qpacked & 31)
+        bit = bit + torch.where(active, size, 0)
+        for i in range(4):
+            s = 3 - i
+            v = torch.where(use_b, 1 - ((b4 >> s) & 1), (p >> s) & 1)
+            signed = active & (v > 0)
+            neg = signed & (peek(1, bit) > 0)
+            bit = bit + signed.to(torch.int64)
+            pos = (sample + i).clamp(max=575)
+            cur = out[lanes, pos]
+            out[lanes, pos] = torch.where(active, torch.where(neg, -v, v),
+                                          cur)
+    return out.to(torch.int32).reshape(-1, 2, 2, 576) \
+        .permute(2, 0, 1, 3).reshape(2, -1, 576)
+
+
+def decode_samples(words: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:
+    """(words (W,), fields (4 F, 8)) int32 -> the sample plane (2, 2 F,
+    576) int32, ``out[ch, 2 f + gr]``.
+
+    On CUDA tensors this launches the hand-written kernel on the current
+    stream; a launch fault raises. CPU tensors take
+    ``decode_samples_plain``."""
+    global launches
+    _check(words, fields)
+    if words.device.type == "cpu":
+        return decode_samples_plain(words, fields)
+    if words.device.type != "cuda":
+        raise ValueError(f"decode_samples runs on CPU or CUDA tensors, got "
+                         f"{words.device}")
+    words, fields = words.contiguous(), fields.contiguous()
+    from mp3stego_tpu_torch.ops import _cuda
+    lib = _cuda.load("huffman", _SIGNATURES)
+    luts, small = _tables(words.device)
+    g = fields.shape[0]
+    out = torch.empty((2, g // 2, 576), dtype=torch.int32, device=words.device)
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    with torch.cuda.device(words.device):
+        rc = lib.huffman_scan(words.data_ptr(), fields.data_ptr(), g,
+                              luts.data_ptr(), small.data_ptr(),
+                              out.data_ptr(), words.shape[0], stream)
+    if rc != 0:
+        raise RuntimeError(f"huffman_scan kernel launch failed: CUDA error "
+                           f"{rc}")
+    launches += 1
+    return out
+
+
+def decode_raw_device(descriptors: list, device) -> torch.Tensor:
+    """``parse_mp3_light`` descriptors -> the (2, T, 576) int32 sample plane,
+    resident on ``device`` (the decode plane's ``raw_dense``)."""
+    words, fields = pack(descriptors)
+    dev = torch.device(device)
+    return decode_samples(torch.from_numpy(words).to(dev),
+                          torch.from_numpy(fields).to(dev))
+
+
+def decode_pcm_i16_device(data: bytes, offset: int, device,
+                          precision: str = "float32", timer=None):
+    """A whole decode with the Huffman bit-scan on ``device``: the light host
+    parse, the scan, then the decode plane in ``precision`` from the
+    resident sample plane, the int16 conversion in its synthesis kernel.
+    Returns (interleaved int16 PCM (samples, channels), the ParsedMP3, whose
+    ``raw_samples`` stay zero). MPEG-1 only: an LSF stream raises
+    ``ValueError``. ``timer`` (``utils.profiling.StageTimer``) splits the
+    time into light parse, huffman scan, host_prepare, h2d, device plane and
+    d2h."""
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    from mp3stego_tpu_torch.utils.profiling import StageTimer
+    timer = timer or StageTimer(enabled=False)
+    with timer.stage("light parse (host)"):
+        parsed, descriptors = dh.parse_mp3_light(data, offset)
+    if parsed.num_frames == 0:
+        return np.zeros((0, 2), np.int16), parsed
+    dev = torch.device(device)
+    with timer.stage("huffman scan (device)"):
+        raw = decode_raw_device(descriptors, dev)
+    with timer.stage("host_prepare"):
+        prep = dp.host_prepare(parsed, raw=False)
+    with timer.stage("h2d"):
+        prep = dp.prep_to_torch(prep, dev)
+        prep["raw_dense"] = raw
+    ch = parsed.header.channels
+    with timer.stage("device plane"):
+        inter = dp.decode_granules_i16(prep, dp.DTYPES[precision],
+                                       channels=ch)[0]
+    with timer.stage("d2h"):
+        inter = inter.cpu().numpy()
+    return dp._finish_inter(parsed, inter), parsed

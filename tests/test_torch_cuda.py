@@ -1,4 +1,7 @@
-"""Card tests of the torch port: the hand-written fused synthesis kernel (on
+"""Card tests of the torch port: the hand-written Huffman bit-scan kernel
+(bit for bit its plain version on the goldens, crafted and corrupt streams,
+and the device-Huffman decode's WAV bytes), the streaming encode on the
+card, the hand-written fused synthesis kernel (on
 a song's rows, odd tile counts and a batch's (file, channel) rows, in float32
 and float64, float and int16 epilogues), the device decode plane in both
 precisions (float64 with the host plane's bytes), the default façade decode,
@@ -152,6 +155,94 @@ def test_default_facade_decode_is_the_card_and_the_host_bytes(card,
         str(mp3), str(tmp_path / "h.wav"))
     assert (tmp_path / "c.wav").read_bytes() == \
         (tmp_path / "h.wav").read_bytes()
+
+
+def _huffman_streams():
+    """name -> MP3 bytes: the fixture, the MPEG-1 multirate goldens, the
+    MPEG-1 crafted streams, the linbits-escape stream and a seeded
+    bit-flipped fixture."""
+    import os
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    fixture = np.load(os.path.join(gold, "encode_golden.npz"))[
+        "mp3_bytes"].tobytes()
+    mr = np.load(os.path.join(gold, "multirate_golden.npz"))
+    crafted = np.load(os.path.join(gold, "crafted_golden.npz"))
+    out = {"fixture": fixture}
+    out.update({t: mr[f"mp3_{t}"].tobytes() for t in (
+        "32000_64", "32000_192", "44100_128", "48000_96", "48000_320")})
+    out.update({n: crafted[n].tobytes() for n in (
+        "is_long", "is_ms_long", "is_ms_short", "mixed_44k")})
+    out["linbits"] = np.load(os.path.join(gold, "huffman_golden.npz"))[
+        "linbits"].tobytes()
+    b = bytearray(fixture)
+    rng = np.random.default_rng(5)
+    for i in rng.integers(400, len(b), 24):
+        b[int(i)] ^= 1 << int(rng.integers(0, 8))
+    out["flipped"] = bytes(b)
+    return out
+
+
+@pytest.mark.parametrize("name", list(_huffman_streams()))
+def test_huffman_kernel_equals_plain_version(card, name):
+    """The hand-written bit-scan kernel, bit for bit its plain version (one
+    launch), and both the host parse's samples."""
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    from mp3stego_tpu_torch.ops import huffman_device as hd
+    data = _huffman_streams()[name]
+    _, desc = dh.parse_mp3_light(data, 0)
+    words, fields = (torch.from_numpy(a).to(card) for a in hd.pack(desc))
+    before = hd.launches
+    got = hd.decode_samples(words, fields)
+    want = hd.decode_samples_plain(words, fields)
+    torch.cuda.synchronize()
+    assert hd.launches == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+    host = dh.parse_mp3(data, 0, backend="python").raw_samples
+    assert np.array_equal(got.cpu().numpy(), np.moveaxis(host, 2, 0)
+                          .reshape(2, -1, 576))
+
+
+@pytest.mark.parametrize("precision", ["float32", "float64"])
+def test_device_huffman_decode_writes_host_bytes(card, precision, tmp_path,
+                                                 monkeypatch):
+    """``Decoder`` with MP3STEGO_TPU_DEVICE_HUFFMAN=1 on the card: one scan
+    launch, the host parse's WAV bytes and stego bits."""
+    from mp3stego_tpu_torch.models.decoder import Decoder
+    from mp3stego_tpu_torch.ops import huffman_device as hd
+    mp3 = tmp_path / "f.mp3"
+    mp3.write_bytes(_huffman_streams()["fixture"])
+    monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", "0")
+    host = Decoder(str(mp3), str(tmp_path / "h.wav"), precision=precision)
+    host.decode()
+    monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", "1")
+    before = hd.launches
+    dev = Decoder(str(mp3), str(tmp_path / "d.wav"), precision=precision)
+    dev.decode()
+    assert hd.launches == before + 1
+    assert (tmp_path / "d.wav").read_bytes() == \
+        (tmp_path / "h.wav").read_bytes()
+    assert dev.output_bits == host.output_bits
+
+
+@pytest.mark.parametrize("hide", [False, True])
+def test_card_streaming_encode_equals_whole_file(card, hide, tmp_path):
+    """The streaming encode's default planes on the card, at 7-frame
+    windows, write the whole-file card encode's bytes."""
+    import os
+    from mp3stego_tpu_torch.models.encoder import MP3Encoder
+    from mp3stego_tpu_torch.models.streaming import encode_file_streaming
+    from mp3stego_tpu_torch.utils.wav import read_wav
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    wav = tmp_path / "g.wav"
+    wav.write_bytes(np.load(os.path.join(gold, "stego_golden.npz"))[
+        "wav_bytes"].tobytes())
+    msg = "0110100111" * 30 if hide else ""
+    enc = MP3Encoder(read_wav(str(wav), 320), hide_str=msg)
+    enc.encode()
+    info = encode_file_streaming(str(wav), str(tmp_path / "s.mp3"), 320, 7,
+                                 hide_str=msg)
+    assert (tmp_path / "s.mp3").read_bytes() == bytes(enc.out_buffer)
+    assert info["too_long"] is (enc.hide_str_offset < len(msg) - 1)
 
 
 def _square_noise_pcm(n, seed):

@@ -1,6 +1,6 @@
-"""The torch port imports, decodes, encodes and hides, and runs its
-batched, streaming, VBR and CLI entry points, with JAX and the JAX package
-refused.
+"""The torch port imports, decodes (with either Huffman engine), encodes and
+hides, and runs its batched, streaming, VBR and CLI entry points, with JAX
+and the JAX package refused.
 
 A fresh interpreter installs a ``sys.meta_path`` finder that refuses the
 top-level names ``jax``, ``jaxlib`` and ``mp3stego_tpu`` (exact match:
@@ -81,9 +81,23 @@ with tempfile.TemporaryDirectory() as tmp:
                                 device="cpu")
     with open(outs[0], "rb") as f:
         assert f.read() == enc["mp3_bytes"].tobytes()
-    encode_file_streaming(wav, os.path.join(tmp, "st.mp3"), chunk_frames=5)
+    encode_file_streaming(wav, os.path.join(tmp, "st.mp3"), chunk_frames=5,
+                          device="cpu")
     with open(os.path.join(tmp, "st.mp3"), "rb") as f:
         assert f.read() == enc["mp3_bytes"].tobytes()
+    # the device Huffman engine (light parse + the scan's plain version)
+    from mp3stego_tpu_torch.models.decoder import Decoder
+    from mp3stego_tpu_torch.ops import huffman_device
+    os.environ["MP3STEGO_TPU_DEVICE_HUFFMAN"] = "1"
+    d = Decoder(mp3, os.path.join(tmp, "dh.wav"), precision="float32",
+                device="cpu")
+    d.decode()
+    del os.environ["MP3STEGO_TPU_DEVICE_HUFFMAN"]
+    assert "decode (device huffman)" in d.timer.times
+    s.decode_mp3_to_wav(mp3, os.path.join(tmp, "h32.wav"))
+    with open(os.path.join(tmp, "dh.wav"), "rb") as a, \
+            open(os.path.join(tmp, "h32.wav"), "rb") as b:
+        assert a.read() == b.read()
     assert main(["--device", "cpu", "encode", wav, os.path.join(tmp, "v.mp3"),
                  "--bitrate", "128", "--vbr"]) == 0
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]

@@ -2,8 +2,10 @@
 (``mp3stego_tpu_torch.models.streaming``), mirroring tests/test_streaming.py
 and tests/test_streaming_encode.py: every window and chunk alignment writes
 the bytes of the whole-file path (the float64 decode, ``MP3Encoder``), and
-the same bytes as the JAX package's streaming twins. Tolerance: identical
-bytes.
+the same bytes as the JAX package's streaming twins. The encode runs on
+both engines: the host C++ chain (``device_search=False``) and the torch
+planes the card runs by default, here on the CPU (``device="cpu"``), each
+held to the whole-file encode and to the other. Tolerance: identical bytes.
 """
 
 import numpy as np
@@ -152,7 +154,7 @@ def test_streaming_encode_byte_identity(tmp_path, chunk):
     ref = _whole_file(wav, 192)
     out = tmp_path / "out.mp3"
     info = encode_file_streaming(wav, str(out), bitrate=192,
-                                 chunk_frames=chunk)
+                                 chunk_frames=chunk, device_search=False)
     assert out.read_bytes() == ref
     assert info["bytes"] == len(ref)
     assert info["frames"] * 1152 >= 2 * 44100
@@ -166,7 +168,8 @@ def test_streaming_encode_hide_chain(tmp_path):
     ref = _whole_file(wav, 128, hide_str=msg)
     out = tmp_path / "out.mp3"
     info = encode_file_streaming(wav, str(out), bitrate=128,
-                                 chunk_frames=9, hide_str=msg)
+                                 chunk_frames=9, hide_str=msg,
+                                 device_search=False)
     assert out.read_bytes() == ref
     assert info["too_long"] is False
     p = dh.parse_mp3(out.read_bytes(), 0)
@@ -177,7 +180,8 @@ def test_streaming_encode_mono_48k(tmp_path):
     wav = _wav_file(tmp_path, sr=48000, mono=True)
     ref = _whole_file(wav, 96)
     out = tmp_path / "out.mp3"
-    encode_file_streaming(wav, str(out), bitrate=96, chunk_frames=11)
+    encode_file_streaming(wav, str(out), bitrate=96, chunk_frames=11,
+                          device_search=False)
     assert out.read_bytes() == ref
 
 
@@ -189,7 +193,8 @@ def test_streaming_encode_lsf(tmp_path, sr, br, monkeypatch):
     wav = _wav_file(tmp_path, secs=1.5, sr=sr)
     ref = _whole_file(wav, br)
     out = tmp_path / "out.mp3"
-    encode_file_streaming(wav, str(out), bitrate=br, chunk_frames=13)
+    encode_file_streaming(wav, str(out), bitrate=br, chunk_frames=13,
+                          device_search=False)
     assert out.read_bytes() == ref
     assert dh.parse_mp3(out.read_bytes(), 0).header.sampling_rate == sr
 
@@ -199,7 +204,8 @@ def test_streaming_encode_uses_mmap(tmp_path):
     wav = _wav_file(tmp_path, secs=0.5)
     assert isinstance(read_wav(wav, 128, use_mmap=True).buffer, np.memmap)
     out = tmp_path / "out.mp3"
-    encode_file_streaming(wav, str(out), bitrate=128, chunk_frames=3)
+    encode_file_streaming(wav, str(out), bitrate=128, chunk_frames=3,
+                          device_search=False)
     assert out.read_bytes() == _whole_file(wav, 128)
 
 
@@ -209,8 +215,139 @@ def test_streaming_encode_equals_jax_package(tmp_path):
     wav = _wav_file(tmp_path, secs=1.0)
     a, b = tmp_path / "p.mp3", tmp_path / "j.mp3"
     pinfo = encode_file_streaming(wav, str(a), bitrate=160, chunk_frames=5,
-                                  hide_str="110" * 30)
+                                  hide_str="110" * 30, device_search=False)
     jinfo = jax_streaming(wav, str(b), bitrate=160, chunk_frames=5,
                           hide_str="110" * 30)
     assert a.read_bytes() == b.read_bytes()
     assert pinfo == jinfo
+
+
+# ------------------------------------------------- encode on the torch planes
+
+
+def _both_engines(wav, bitrate, chunk, tmp_path, hide_str=""):
+    """The streaming encode on the torch planes (CPU) and on the host
+    chain: (planes bytes, planes info, host bytes, host info)."""
+    a, b = tmp_path / "planes.mp3", tmp_path / "host.mp3"
+    pinfo = encode_file_streaming(wav, str(a), bitrate=bitrate,
+                                  chunk_frames=chunk, hide_str=hide_str,
+                                  device="cpu")
+    hinfo = encode_file_streaming(wav, str(b), bitrate=bitrate,
+                                  chunk_frames=chunk, hide_str=hide_str,
+                                  device_search=False)
+    return a.read_bytes(), pinfo, b.read_bytes(), hinfo
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 512])
+def test_streaming_encode_planes_clear(tmp_path, chunk):
+    wav = _wav_file(tmp_path)
+    ref = _whole_file(wav, 192)
+    got, info, host, hinfo = _both_engines(wav, 192, chunk, tmp_path)
+    assert got == ref == host
+    assert info == hinfo == dict(frames=77, bytes=len(ref), too_long=False)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 512])
+def test_streaming_encode_planes_hide(tmp_path, chunk):
+    """The stego cursor, the eight-window pass and the host scan continue
+    across windows; the message spans many of them."""
+    wav = _wav_file(tmp_path, secs=2.5)
+    msg = "1011001110" * 40
+    ref = _whole_file(wav, 128, hide_str=msg)
+    got, info, host, hinfo = _both_engines(wav, 128, chunk, tmp_path, msg)
+    assert got == ref == host
+    assert info == hinfo and info["too_long"] is False
+    assert dh.stego_bits(dh.parse_mp3(got, 0))[:len(msg)] == msg
+
+
+@pytest.mark.parametrize("chunk", [7, 512])
+def test_streaming_encode_planes_too_long(tmp_path, chunk):
+    """A message longer than the channel: ``too_long`` as the whole-file
+    encode reports it, the same bytes."""
+    wav = _wav_file(tmp_path, secs=0.5)
+    msg = "".join(np.random.default_rng(chunk).choice(["0", "1"], 4000))
+    enc = MP3Encoder(read_wav(wav, 128), hide_str=msg, device="cpu")
+    enc.encode()
+    want_too_long = enc.hide_str_offset < len(msg) - 1
+    assert want_too_long
+    got, info, host, hinfo = _both_engines(wav, 128, chunk, tmp_path, msg)
+    assert got == bytes(enc.out_buffer) == host
+    assert info["too_long"] is hinfo["too_long"] is True
+
+
+def test_streaming_encode_planes_mono_48k(tmp_path):
+    wav = _wav_file(tmp_path, sr=48000, mono=True)
+    got, _, host, _ = _both_engines(wav, 96, 11, tmp_path)
+    assert got == _whole_file(wav, 96) == host
+
+
+@pytest.mark.parametrize("sr,br", [(22050, 64), (11025, 32)])
+def test_streaming_encode_planes_lsf(tmp_path, sr, br, monkeypatch):
+    monkeypatch.setenv("MP3STEGO_TPU_LSF_COMPLIANT", "1")
+    wav = _wav_file(tmp_path, secs=1.5, sr=sr)
+    got, _, host, _ = _both_engines(wav, br, 13, tmp_path)
+    assert got == _whole_file(wav, br) == host
+
+
+def test_streaming_encode_planes_carry_stale_addresses(tmp_path,
+                                                       monkeypatch):
+    """A quiet signal whose granules often quantize to count1 values only
+    (big_values 0): a lane flagged FLAG_ADDR at a window's head reads the
+    addresses its slot carried from the previous window
+    (``MP3Encoder._slot_carry``), as the whole-file encode reads them."""
+    from mp3stego_tpu_torch.models import encoder as enc_mod
+    rng = np.random.default_rng(3)
+    t = np.arange(2 * 44100)
+    sig = 30 * (np.sin(2 * np.pi * 3000 * t / 44100)
+                * (rng.random(t.size) < 0.02)
+                + 0.3 * rng.standard_normal(t.size))
+    pcm = np.clip(sig, -32768, 32767).astype(np.int16)
+    wav = str(tmp_path / "quiet.wav")
+    write_wav(wav, 44100, np.stack([pcm, np.roll(pcm, 50)], axis=1))
+    heads = []
+    redo = enc_mod.MP3Encoder._redo_lane
+
+    def spy(self, res, g, row, max_bits, prev, hide, flag):
+        if prev[g] < 0 and self._slot_carry is not None:
+            heads.append(flag)
+        return redo(self, res, g, row, max_bits, prev, hide, flag)
+
+    monkeypatch.setattr(enc_mod.MP3Encoder, "_redo_lane", spy)
+    got, _, host, _ = _both_engines(wav, 128, 3, tmp_path)
+    assert heads and all(f == enc_mod.SP.FLAG_ADDR for f in heads)
+    assert got == _whole_file(wav, 128) == host
+
+
+def test_streaming_encode_planes_window_spectra(tmp_path, monkeypatch):
+    """Each window's spectra, analysed from its slice with the history and
+    the context granule in front, are bitwise the same granules of the
+    whole stream's analysis."""
+    from mp3stego_tpu_torch.ops import encode_plane as EP
+    wav = _wav_file(tmp_path, secs=1.0)
+    w = read_wav(wav, 128)
+    enc = MP3Encoder(w, device="cpu")
+    whole = enc._analysis_device(enc._num_frames())
+    seen = []
+    stream = EP.analysis_stream
+
+    def spy(full, chunk_g=EP.CHUNK_G, skip=0):
+        out = stream(full, chunk_g, skip)
+        seen.append(out)
+        return out
+
+    monkeypatch.setattr(EP, "analysis_stream", spy)
+    encode_file_streaming(wav, str(tmp_path / "o.mp3"), bitrate=128,
+                          chunk_frames=10, device="cpu")
+    assert [x.shape[1] for x in seen] == [20] * 3 + [whole.shape[0] // 2
+                                                     - 60]
+    got = torch.cat([x.reshape(2, -1, 576) for x in seen], dim=1)
+    assert torch.equal(got.reshape(-1, 576), whole)
+
+
+def test_streaming_encode_default_device_is_the_card(tmp_path):
+    """Without a card the default (CUDA) planes raise, naming the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    wav = _wav_file(tmp_path, secs=0.2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        encode_file_streaming(wav, str(tmp_path / "o.mp3"), bitrate=128)
