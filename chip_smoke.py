@@ -6,9 +6,10 @@
 Run from the root of a checkout, on a machine with one CUDA card (Hopper:
 the kernels are built for sm_90a). It builds every kernel of the port's
 paths from the sources in the checkout (the fused synthesis kernel K1,
-``csrc/synth.cu``, in float32 and float64, and the Huffman bit-scan,
-``csrc/huffman.cu``), holds each against its plain PyTorch version bit for
-bit (and times a library pair that computes K1's function), drives every
+``csrc/synth.cu``, in float32 and float64, the Huffman bit-scan,
+``csrc/huffman.cu``, and the rate-control search K4, ``csrc/search.cu``),
+holds each against its plain PyTorch version bit for bit (and times a
+library pair that computes K1's function), drives every
 entry point at a size users send (one 240.7-second 320 kbps stereo song
 through the façade: decode it with the defaults, which run float64 on the
 card, and in float32, measure its capacity, hide a message of 90 % of it,
@@ -49,6 +50,7 @@ from mp3stego_tpu_torch.ops import _cuda
 from mp3stego_tpu_torch.ops import decode_plane as dp
 from mp3stego_tpu_torch.ops import encode_plane as EP
 from mp3stego_tpu_torch.ops import huffman_device as hd
+from mp3stego_tpu_torch.ops import search_plane as SP
 from mp3stego_tpu_torch.ops import synth as sf
 from mp3stego_tpu_torch.steganography import _frame_message
 from mp3stego_tpu_torch.utils.profiling import StageTimer
@@ -81,8 +83,25 @@ PEAK_OPS_S = {F32: 67e12 / 2, F64: 34e12 / 2}
 # integer operations/s: an SM has 64 INT32 lanes beside its 128 FP32 lanes
 # (NVIDIA's Hopper architecture paper), so half the non-fused float32 rate
 PEAK_INT_OPS_S = 67e12 / 4
+# integer operations of K4's function, counted from search_plane's quantize
+# and _cost (the note in csrc/search.cu) and charged to the work counts each
+# lane writes: an evaluation past the quick reject quantizes 576 samples (7
+# each: |x|, product, rounding add, shift, range test, gather, max), one past
+# the ixmax gate finds the run lengths (4 a sample), then each count1 quad
+# costs 19 (4 sign tests and 3 adds, the pattern's 3 shifts and 3 adds, 2
+# table lengths and 4 adds) and each big-values pair 27 (pair index 4, signs
+# 3, escapes 3, the 4 table lengths with their signs 8, the pair's region 2,
+# its 5 sums, its max 2), 4 more in hide and window mode (the re-cost under
+# the emitted table); nothing past the quick reject, and the per-evaluation
+# constants (subdivide, table select) left out
+K4_OPS_QUANTIZE = 576 * 7
+K4_OPS_RUNS = 576 * 4
+K4_OPS_QUAD = 19
+K4_OPS_PAIR = 27
+K4_OPS_PAIR_HIDE = K4_OPS_PAIR + 4
 # the hand kernels, each module with its wrapper's launch count
-KERNELS = {"synth_fused": sf, "huffman_scan": hd}
+KERNELS = {"synth_fused": sf, "huffman_scan": hd, "search": SP}
+ENCODE = ("search",)                         # the kernels an encode runs
 
 
 def synthetic_parsed(t: int, seed: int = 0) -> ParsedMP3:
@@ -356,7 +375,8 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
     t0 = time.perf_counter()
     host_b, _ = _encode_bytes(wav64, dev, host=True)
     host_s = time.perf_counter() - t0
-    wall, walls, outs = _median3(lambda: _encode_bytes(wav64, dev))
+    wall, walls, outs = runs.run("clear encode", None, lambda: _median3(
+        lambda: _encode_bytes(wav64, dev)), kernels=ENCODE)
     card_b, enc = outs[-1]
     clear_b = card_b
     _expect_equal("song encode: card vs host C++", card_b, host_b)
@@ -403,7 +423,8 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
     host_b, _ = _encode_bytes(wav64, dev, bits, host=True)
     host_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    wall, walls, outs = _median3(lambda: _encode_bytes(wav64, dev, bits))
+    wall, walls, outs = runs.run("hide encode", None, lambda: _median3(
+        lambda: _encode_bytes(wav64, dev, bits)), kernels=ENCODE)
     card_b, enc = outs[-1]
     peak = torch.cuda.max_memory_allocated()
     _expect_equal("song hide: card vs host C++", card_b, host_b)
@@ -438,7 +459,8 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
     hidden = os.path.join(tmp, "song_hidden.mp3")
     t0 = time.perf_counter()
     if runs.run("façade hide, float64 decode", F64,
-                 lambda: s64.hide_message(song, hidden, msg)):
+                lambda: s64.hide_message(song, hidden, msg),
+                kernels=("synth_fused", "search")):
         raise AssertionError("a 90 % message did not fit")
     facade_s = time.perf_counter() - t0
     with open(hidden, "rb") as f:
@@ -456,14 +478,18 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
     # ---- phase 11: the float32 round trip (K1 on the decode inside hide)
     hidden32 = os.path.join(tmp, "song_hidden32.mp3")
     if runs.run("façade hide, float32 decode", F32,
-                 lambda: s32.hide_message(song, hidden32, msg)):
+                lambda: s32.hide_message(song, hidden32, msg),
+                kernels=("synth_fused", "search")):
         raise AssertionError("float32 hide: the message did not fit")
+    hide_launches = runs.log[-1][2]
     s32.reveal_massage(hidden32, txt)
     with open(txt) as f:
         if f.read() != msg:
             raise AssertionError("float32 hide: reveal failed")
     cleared = os.path.join(tmp, "song_clear32.mp3")
-    s32.clear_file(song, cleared)
+    runs.run("façade clear, float32 decode", F32,
+             lambda: s32.clear_file(song, cleared),
+             kernels=("synth_fused", "search"))
     wav32 = os.path.join(tmp, "song32b.wav")
     s32.decode_mp3_to_wav(song, wav32)
     plain = os.path.join(tmp, "song_plain32.mp3")
@@ -472,9 +498,9 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
         _expect_equal("clear_file vs encode of the same decode", a.read(),
                       b.read())
     _say("11 float32", f"hide_message (float32) -> reveal gives the message "
-                       f"back; kernel launches in the hide "
-                       f"{runs.last()}; clear_file bytes equal a plain "
-                       f"encode of the same decode")
+                       f"back; kernel launches in the hide {hide_launches}, "
+                       f"in clear_file {runs.log[-1][2]}; clear_file bytes "
+                       f"equal a plain encode of the same decode")
     return dict(clear_bytes=clear_b, seeded_wav=wav_s, hide_bits=bits,
                 hide_bytes=card_b, hidden=hidden, msg=msg)
 
@@ -502,7 +528,6 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     encode, VBR, and the streaming decode and encode of the song."""
     from mp3stego_tpu_torch.bitstream import vbr
     from mp3stego_tpu_torch.models.streaming import decode_file_streaming
-    from mp3stego_tpu_torch.ops import search_plane as SP
     from mp3stego_tpu_torch.parallel import (
         batch_decode as BD, decode_files_batched, encode_files_batched)
 
@@ -635,7 +660,8 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     jobs.append((mono_wav, os.path.join(tmp, "enc_mono.mp3")))
     enc_audio = 9 * 30.0
     encode_files_batched(jobs, device=dev)           # warm-up
-    wall, walls, _ = _median3(lambda: encode_files_batched(jobs, device=dev))
+    wall, walls, _ = runs.run("batched encode", None, lambda: _median3(
+        lambda: encode_files_batched(jobs, device=dev)), kernels=ENCODE)
     t0 = time.perf_counter()
     singles = [_encode_bytes(wav, dev)[0] for wav, _ in jobs]
     single_s = time.perf_counter() - t0
@@ -652,8 +678,9 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
                             f"time {single_s * 1e3:.1f} ms")
 
     # ---- phase 14: VBR encode of the song at 128 kbps average
-    wall, walls, outs = _median3(
-        lambda: _encode_bytes(wav64, dev, kbps=128, vbr=True))
+    wall, walls, outs = runs.run("VBR encode", None, lambda: _median3(
+        lambda: _encode_bytes(wav64, dev, kbps=128, vbr=True)),
+        kernels=ENCODE)
     vbr_b, venc = outs[-1]
     host_b, _ = _encode_bytes(wav64, dev, kbps=128, vbr=True, host=True)
     _expect_equal("song VBR: card vs host C++", vbr_b, host_b)
@@ -661,12 +688,19 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     xr_card = venc._analysis_device(nf)
     lib = native.get_lib()
     xr_host = np.ascontiguousarray(xr_card.cpu().numpy())
+    errs["search"] = 0
     for step in venc.vbr_steps:
         want = np.empty(xr_host.shape[0], np.int64)
         lib.rate_cost_step(xr_host, xr_host.shape[0], step - 127,
                            venc.band_row * 23, 1 << 20, want)
-        got = SP.cost_step(xr_card, step - 127, venc.band_row).cpu().numpy()
-        if not np.array_equal(got, want):
+        got = SP.cost_step(xr_card, step - 127, venc.band_row)
+        plain = SP.cost_step_torch(xr_card, step - 127, venc.band_row)
+        errs["search"] = max(errs["search"],
+                             int((got - plain).abs().max()))
+        if not torch.equal(got, plain):
+            raise AssertionError(f"cost_step kernel != cost_step_torch at "
+                                 f"grid step {step}")
+        if not np.array_equal(got.cpu().numpy(), want):
             raise AssertionError(f"card lane cost != rate_cost_step at grid "
                                  f"step {step}")
     tag = vbr.parse_vbr_tag(vbr_b, 0)
@@ -677,8 +711,9 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     if kbps != vbr.avg_bitrate_kbps(tag, dh.parse_mp3(vbr_b).header):
         raise AssertionError(f"VBR decode reports {kbps} kbps")
     _say("14 vbr", f"[{card}] song at 128 kbps average: {len(vbr_b)} bytes "
-                   f"equal the host C++ engine's; card lane cost equals "
-                   f"rate_cost_step on all {xr_host.shape[0]} lanes at the "
+                   f"equal the host C++ engine's; the cost_step kernel "
+                   f"equals cost_step_torch bit for bit and rate_cost_step "
+                   f"on all {xr_host.shape[0]} lanes at the "
                    f"{len(venc.vbr_steps)} steps the bisection visited "
                    f"{venc.vbr_steps}; Xing tag parses back ({tag.frames} "
                    f"frames); façade decode reports {kbps} kbps; wall median "
@@ -707,7 +742,7 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
                          f"whole-file float64 WAV ({dec_s * 1e3:.1f} ms, "
                          f"{runs.last()} K1 launches; host C++ plane "
                          f"{host_s * 1e3:.1f} ms)")
-    streaming_encode_phase(dev, card, tmp, wav64, enc_out)
+    streaming_encode_phase(dev, card, tmp, wav64, enc_out, runs)
 
     # ---- the CLI: hide -> reveal, and a streaming decode, on the card
     gold = _write(os.path.join(tmp, "cli.mp3"), np.load(os.path.join(
@@ -738,13 +773,14 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
 
 
 def streaming_encode_phase(dev, card: str, tmp: str, wav64: str,
-                           enc_out: dict) -> None:
+                           enc_out: dict, runs: Paths) -> None:
     """Phase 15's encode: the song's streaming encode with its default
     planes on the card, clear and the 90 % hide, at windows of 512 and of 7
     frames, each byte for byte the whole-file card encode; the host C++
-    chain (``device_search=False``) beside it. The analysis and the search
-    are plain torch (no hand kernel), so the card's part shows as the
-    allocations made on it and their peak (one window's tensors)."""
+    chain (``device_search=False``) beside it, each a counted main path
+    (K4 searches every window). The analysis is plain torch, so the card's
+    part also shows as the allocations made on it and their peak (one
+    window's tensors)."""
     from mp3stego_tpu_torch.models.streaming import encode_file_streaming
     out = os.path.join(tmp, "song_stream.mp3")
     torch.cuda.reset_peak_memory_stats()
@@ -761,7 +797,10 @@ def streaming_encode_phase(dev, card: str, tmp: str, wav64: str,
             torch.cuda.reset_peak_memory_stats()
             allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
             t0 = time.perf_counter()
-            info = encode_file_streaming(wav64, out, 320, chunk, hide_str=bits)
+            info = runs.run(
+                f"streaming {label} encode, {chunk}-frame windows", None,
+                lambda: encode_file_streaming(wav64, out, 320, chunk,
+                                              hide_str=bits), kernels=ENCODE)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             allocs = torch.cuda.memory_stats()["allocation.all.allocated"] \
@@ -982,6 +1021,204 @@ def huffman_phase(dev, card: str, tmp: str, song: str, enc_out: dict,
                 bound_by=by, library_ms=None)
 
 
+def _random_lanes(rng, n: int, scale_bits: int) -> np.ndarray:
+    """Random spectra with realistic dynamic ranges (some quiet, some
+    hot); lane 0 is silent."""
+    xr = np.zeros((n, 576), np.int32)
+    for i in range(n):
+        b = int(rng.integers(4, scale_bits))
+        row = rng.integers(-(1 << b), 1 << b, size=576)
+        cut = int(rng.integers(10, 576))
+        row[cut:] = row[cut:] // (1 << min(b, 12))
+        xr[i] = row.astype(np.int32)
+    xr[0] = 0
+    return xr
+
+
+def search_lanes(name: str):
+    """Seeded K4 lanes, built without JAX (the tests hold the JAX search
+    to the port's on them, and the card run holds the kernel to its plain
+    version): ``fixture``, the golden encode's spectra under their own
+    budgets; ``loud``, 96 random lanes up to 31 bits; ``escape``, sparse
+    full-scale spikes on a quiet floor under generous budgets (tables 16-31,
+    linbits); ``forced``, 32 lanes that reach every host flag: quiet lanes
+    whose first nonzero evaluation quantizes to 0/1 only (``FLAG_ADDR``) and
+    loud lanes under a negative budget that step past steptab
+    (``FLAG_OOB``) and never fit (``FLAG_ITER``). Returns (spectra (N, 576)
+    int32, budgets (N,) int32)."""
+    if name == "fixture":
+        mdct = np.load(os.path.join(GOLD, "encode_golden.npz"))["mdct_freq"]
+        xr = mdct.transpose(1, 0, 2, 3).reshape(-1, 576)  # ch*tg + 2f + gr
+        enc = MP3Encoder(WavFile(
+            file_path="lanes.wav", bitrate=320, num_of_channels=2,
+            samplerate=44100, bits_per_sample=16,
+            num_of_samples=xr.shape[0] // 2 * 576, mpeg_mode=0,
+            buffer=np.zeros(xr.shape[0] * 576, np.int16)), device="cpu")
+        _, mean_bits = enc._plane_framing(mdct.shape[0])
+        return (np.ascontiguousarray(xr, np.int32),
+                enc._lane_budgets(mean_bits))
+    rng = np.random.default_rng({"loud": 7, "escape": 11, "forced": 5}[name])
+    if name == "loud":
+        return (_random_lanes(rng, 96, 31),
+                rng.integers(500, 4000, size=96).astype(np.int32))
+    if name == "escape":
+        xr = rng.integers(-2000, 2000, size=(96, 576)).astype(np.int64)
+        spikes = rng.random((96, 576)) < 0.03
+        xr[spikes] = rng.integers(-(2 ** 31 - 1), 2 ** 31 - 1,
+                                  size=spikes.sum())
+        return xr.astype(np.int32), np.full(96, 4095, np.int32)
+    xr = _random_lanes(rng, 32, 28)
+    mb = rng.integers(800, 3000, size=32).astype(np.int32)
+    xr[1:5] = 0
+    xr[1:5, :40] = rng.choice([-65536, 65536], size=(4, 40))     # ADDR
+    xr[5:7] = rng.integers(-2 ** 30, 2 ** 30, size=(2, 576))
+    mb[5:7] = -1                                              # OOB + ITER
+    return xr, mb
+
+
+def hold_search(name: str, got: dict, want: dict) -> int:
+    """K4's results against its plain version's, bit for bit on every row,
+    count and the ix plane; returns the largest difference (0)."""
+    err = 0
+    for k in SP.ROWS + SP.COUNTS + ("ix",):
+        if got[k].shape != want[k].shape:
+            raise AssertionError(f"{name}: {k} {tuple(got[k].shape)} vs the "
+                                 f"plain {tuple(want[k].shape)}")
+        if got[k].numel():
+            err = max(err, int((got[k].long() - want[k].long()).abs().max()))
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"{name}: the search kernel != its plain "
+                                 f"version on {k} (max |d| {err})")
+    return err
+
+
+def search_bound(n: int, res: dict, hide: bool):
+    """The least time for K4's work on the card: (bytes that must move: the
+    n spectra and budgets read once, the rows and counts and the ix plane of
+    each lane search written once) over HBM's rate, against (the integer
+    operations of the function on this run's data: the kernel's own work
+    counts, each times its ``K4_OPS_*``) over the INT32 rate. Returns (ms,
+    "bytes" or "operations", bytes, operations)."""
+    m = res["ix"].shape[0]
+    nbytes = 4 * n * 576 + 4 * n + 4 * len(SP.ROWS + SP.COUNTS) * m \
+        + 4 * m * 576
+    work = {k: int(res[k].sum()) for k in ("quantized", "costed", "quads",
+                                           "pairs")}
+    ops = (work["quantized"] * K4_OPS_QUANTIZE + work["costed"] * K4_OPS_RUNS
+           + work["quads"] * K4_OPS_QUAD
+           + work["pairs"] * (K4_OPS_PAIR_HIDE if hide else K4_OPS_PAIR))
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = ops / PEAK_INT_OPS_S * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes", nbytes, ops
+    return by_ops, "operations", nbytes, ops
+
+
+def search_phase(dev, card: str, wav64: str, enc_out: dict, runs: Paths,
+                 errs: dict) -> dict:
+    """Phase 17: the rate-control search K4 (``csrc/search.cu``) bit for bit
+    its plain version on the card: every lane of the song (clear, at the
+    phase-9 budgets), the 8 windows of the 90 % hide's first block (4,096
+    lanes in cursor order), every lane of the seeded song, and the
+    forced-flag lanes (clear and windows); then the kernel and the plain
+    version by CUDA events at the song's shapes (the clear search, one
+    window block), each beside its bound. Returns the kernel's row of the
+    kernels line; its error folds in phase 14's (``errs["search"]``:
+    ``cost_step`` against ``cost_step_torch`` on the song's lanes)."""
+    from mp3stego_tpu_torch.models.encoder import _HIDE_BLOCK
+
+    def lanes(wav):
+        enc = MP3Encoder(read_wav(wav, 320), device=dev)
+        nf = enc._num_frames()
+        mb = enc._lane_budgets(enc._plane_framing(nf)[1])
+        return enc, nf, enc._analysis_device(nf), \
+            torch.from_numpy(mb).to(dev)
+
+    enc, nf, xr, mb = lanes(wav64)
+    band = enc.band_row
+    clear = SP.search(xr, mb, band)
+    err = max(errs["search"], hold_search("song, clear", clear,
+                                          SP.search_torch(xr, mb, band)))
+    # the hide's first block: the first lanes in the reference's cursor
+    # order f > ch > gr (lane g = ch * tg + f * gpf + gr)
+    gpf = enc.granules_per_frame
+    tg = nf * gpf
+    order = (np.arange(nf)[:, None, None] * gpf
+             + np.arange(2)[None, :, None] * tg
+             + np.arange(gpf)[None, None, :]).reshape(-1)
+    blk = torch.from_numpy(order[:_HIDE_BLOCK]).to(dev)
+    xb, mbb = xr[blk], mb[blk]
+    win = SP.search_windows(xb, mbb, band)
+    err = max(err, hold_search("song, the hide's first block, 8 windows",
+                               win, SP.search_windows_torch(xb, mbb, band)))
+    _, _, xs, ms = lanes(enc_out["seeded_wav"])
+    err = max(err, hold_search("seeded song, clear", SP.search(xs, ms, band),
+                               SP.search_torch(xs, ms, band)))
+    del xs, ms
+    xf, mf = (torch.from_numpy(a).to(dev) for a in search_lanes("forced"))
+    forced = SP.search(xf, mf, 0)
+    err = max(err, hold_search("forced lanes, clear", forced,
+                               SP.search_torch(xf, mf, 0)))
+    err = max(err, hold_search("forced lanes, 8 windows",
+                               SP.search_windows(xf, mf, 0),
+                               SP.search_windows_torch(xf, mf, 0)))
+    flags = forced["flags"].cpu().numpy()
+    for bit in (SP.FLAG_ADDR, SP.FLAG_OOB, SP.FLAG_ITER):
+        if not (flags & bit).any():
+            raise AssertionError(f"the forced lanes raised no flag {bit}")
+    torch.cuda.synchronize()
+    _say("17 K4", f"rate_search bitwise equal to search_torch / "
+                  f"search_windows_torch on every row, count and ix: the "
+                  f"song's {xr.shape[0]} lanes, the 8 windows of the hide's "
+                  f"first block ({xb.shape[0]} lanes), the seeded song's "
+                  f"lanes and the {xf.shape[0]} forced-flag lanes (clear and "
+                  f"windows; ADDR, OOB and ITER raised)")
+
+    fns = {"kernel": lambda: SP.search(xr, mb, band),
+           "plain": lambda: SP.search_torch(xr, mb, band),
+           "window kernel": lambda: SP.search_windows(xb, mbb, band),
+           "window plain": lambda: SP.search_windows_torch(xb, mbb, band)}
+    times = {k: [] for k in fns}
+    for pre in ("", "window "):
+        for which in ("plain", "kernel", "kernel", "plain"):
+            times[pre + which].append(_time_ms(
+                fns[pre + which], 1 if which == "plain" else 10))
+    best = {k: min(v) for k, v in times.items()}
+    bound, by, nbytes, ops = search_bound(xr.shape[0], clear, False)
+    wbound, wby, wbytes, wops = search_bound(xb.shape[0], win, True)
+    c_rows = SP.rows_to_host(clear)
+    w_rows = SP.rows_to_host(win)
+
+    def work(rows):
+        return (f"{int(rows['evals'].sum())} evaluations, "
+                f"{int(rows['quantized'].sum())} past the quick reject, "
+                f"{int(rows['costed'].sum())} costed over "
+                f"{int(rows['quads'].sum())} quads and "
+                f"{int(rows['pairs'].sum())} pairs")
+
+    _say("17 K4", f"[{card}] song clear search, {xr.shape[0]} lanes, "
+                  f"{work(c_rows)} (at most "
+                  f"{c_rows['rounds']} inner rounds): kernel "
+                  f"{times['kernel']} ms, bound {bound:.4f} ms by {by} "
+                  f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G int ops), at "
+                  f"{bound / best['kernel']:.1%} of it; plain "
+                  f"{times['plain']} ms (plain/kernel "
+                  f"{best['plain'] / best['kernel']:.1f}x)")
+    _say("17 K4", f"[{card}] hide block, {xb.shape[0]} lanes x 8 windows, "
+                  f"{work(w_rows)}: kernel "
+                  f"{times['window kernel']} ms, bound {wbound:.4f} ms by "
+                  f"{wby} ({wbytes / 1e6:.1f} MB, {wops / 1e9:.3f} G int "
+                  f"ops), at {wbound / best['window kernel']:.1%} of it; "
+                  f"plain {times['window plain']} ms (plain/kernel "
+                  f"{best['window plain'] / best['window kernel']:.1f}x)")
+    return dict(name="rate_search", route="cuda",
+                source="mp3stego_tpu_torch/csrc/search.cu",
+                replaces="mp3stego_tpu/ops/search_plane.py:385",
+                launches=runs.launches("search"), max_abs_err=err,
+                ms=best["kernel"], plain_ms=best["plain"], bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
 def library_pair(blk: torch.Tensor):
     """K1's function as one ``bmm`` (V) and one grouped ``conv1d`` (the
     FIR), TF32 off, in ``blk``'s dtype: the library yardstick, used nowhere
@@ -1046,16 +1283,17 @@ def main() -> int:
     # ---- phase 1: build the kernels (one nvcc per source, sm_90a) and the
     # host library (g++), all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         host_lib = pool.submit(native.get_lib)
         built = [pool.submit(_cuda.load, name, mod._SIGNATURES)
-                 for name, mod in (("synth", sf), ("huffman", hd))]
+                 for name, mod in (("synth", sf), ("huffman", hd),
+                                   ("search", SP))]
         for b in built:
             b.result()
         if host_lib.result() is None:
             raise RuntimeError("the native host library did not build or "
                                "load")
-    for name in ("synth", "huffman"):
+    for name in ("synth", "huffman", "search"):
         info = _cuda.builds[name]
         _say("1 build", f"csrc/{name}.cu -> "
                         f"{os.path.relpath(info['path'], REPO)} in "
@@ -1285,6 +1523,11 @@ def main() -> int:
         # ---- phase 16: the device Huffman decode (the bit-scan kernel)
         huffman_row = huffman_phase(dev, card, tmp, song, enc_out, runs)
 
+        # ---- phase 17: K4 bit for bit its plain version on the song, a
+        # hide block's 8 windows, the seeded song and the forced-flag lanes;
+        # its time at the song's shapes, with its bound
+        search_row = search_phase(dev, card, wav64, enc_out, runs, errs)
+
         # ---- phase 7: K1's time on the song's own blocks in both dtypes,
         # beside its plain version and the library pair, each with its bound
         timing = {}
@@ -1345,7 +1588,7 @@ def main() -> int:
         replaces="mp3stego_tpu/ops/pallas_kernels.py:42",
         launches=runs.launches("synth_fused", dtype),
         max_abs_err=errs[dtype], **timing[dtype]) for dtype in (F64, F32)]
-        + [huffman_row]}))
+        + [huffman_row, search_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1054,29 +1054,13 @@ def parse_mp3_light(file_data: bytes, offset: int = 0):
         p.num_frames = 0
         return p, []
 
-    first_h = parse_header(*file_data[offset:offset + 4])
-    if first_h.mpeg_version != 1:
+    if parse_header(*file_data[offset:offset + 4]).mpeg_version != 1:
         raise ValueError("the device Huffman scan is MPEG-1-only; LSF "
                          "streams decode through the host parse path")
-    p.header = first_h
-
-    frames = []
-    prev_hist = [0.0] * NUM_PREV_FRAMES
-    frame_size = frame_size_of(first_h)
-    cur = offset
-    while n > cur + HEADER_SIZE:
-        if file_data[cur] == 0xFF and file_data[cur + 1] >= 0xE0:
-            h = parse_header(*file_data[cur:cur + 4])
-            prev_hist = [frame_size] + prev_hist[:-1]
-            frame_size = frame_size_of(h)
-            if frame_size <= 0:
-                break
-            frames.append((cur, h, frame_size, list(prev_hist)))
-            cur += frame_size
-        else:
-            p.duplicate_last_pcm = len(frames) > 0
-            break
-
+    # the host parse's own sync walk: a free-format stream's frames take
+    # the stride measured from its first sync words
+    frames, _, p.header, p.duplicate_last_pcm = walk_frames(file_data,
+                                                            offset)
     F = len(frames)
     p.num_frames = F
     if F == 0:

@@ -31,14 +31,29 @@ from mp3stego_tpu_torch.utils.wav import write_wav
 PRECISIONS = ("float64", "float32")
 
 
-def _huffman_backend(precision: str, device: torch.device) -> str:
-    """Which engine unpacks the Huffman samples: "host" (the C++ parse, or
-    its Python twin) or "device" (``ops/huffman_device``).
+def _device_scan_reads(data: bytes, offset: int) -> bool:
+    """Whether the device engine's light parse reads the stream that starts
+    at ``offset``: False for an MPEG-2/2.5 (LSF) or free-format head, which
+    only the host parse decodes (a stream with no sync word there decodes to
+    nothing on either engine)."""
+    if (offset + dh.HEADER_SIZE > len(data) or data[offset] != 0xFF
+            or data[offset + 1] < 0xE0):
+        return True
+    h = dh.parse_header(*data[offset:offset + dh.HEADER_SIZE])
+    return h.mpeg_version == 1 and not h.free_format
+
+
+def _huffman_backend(precision: str, device: torch.device, data: bytes = b"",
+                     offset: int = 0) -> str:
+    """Which engine unpacks the Huffman samples of ``data`` (the stream from
+    ``offset``): "host" (the C++ parse, or its Python twin) or "device"
+    (``ops/huffman_device``).
 
     The JAX package's rule: "host" whenever the native library loads (it
     beats the device scan end to end, whose host half is a Python parse),
-    "device" when it does not. Only the host float64 plane (float64 on the
-    CPU), which needs the parsed samples on the host, always takes "host".
+    "device" when it does not. The host float64 plane (float64 on the CPU),
+    which needs the parsed samples on the host, and the streams the light
+    parse does not read (LSF and free-format heads) always take "host".
     MP3STEGO_TPU_DEVICE_HUFFMAN=1/0 overrides."""
     env = os.environ.get("MP3STEGO_TPU_DEVICE_HUFFMAN")
     if env == "1":
@@ -46,6 +61,8 @@ def _huffman_backend(precision: str, device: torch.device) -> str:
     if env == "0":
         return "host"
     if precision == "float64" and device.type == "cpu":
+        return "host"
+    if not _device_scan_reads(data, offset):
         return "host"
     from mp3stego_tpu_torch import native
     return "host" if native.get_lib() is not None else "device"
@@ -129,7 +146,8 @@ class Decoder:
             if dev.type == "cuda" else None
         timer = self.timer = StageTimer(sync=sync)
         start = time.time()
-        backend = _huffman_backend(self.__precision, dev)
+        backend = _huffman_backend(self.__precision, dev, self.__data,
+                                   self.__offset)
         with trace():
             if backend == "device":
                 # the host does the sync walk, side info, reservoir and

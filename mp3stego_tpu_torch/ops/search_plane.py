@@ -1,19 +1,19 @@
-"""Rate-control search on the device: the encoder's bisection and inner loop
-for every granule at once, in eager torch, exact.
+"""Rate-control search on the device (kernel K4): the encoder's bisection and
+inner loop for every granule at once, exact. Its CUDA wrapper and its plain
+version.
 
 The reference searches each granule on its own (about 8 evaluations of
 quantize -> run lengths -> table select -> bit count, MP3_Encoder.py:958-996,
-1064-1095). Here every granule ("lane") runs the same search in lockstep: 8
-bisection rounds, then the inner loop, which steps each pending lane by one
-until it fits (at most ``ITER_CAP`` rounds, one host sync each). A round
-evaluates only the lanes still searching.
+1064-1095). Every granule ("lane") runs that trajectory: a bisection of up
+to 8 rounds over the quantizer step, then the inner loop, which steps the
+lane by one until it fits (at most ``ITER_CAP`` rounds).
 
 Exactness. The quantizer is the reference's exactly (``ops/quant.py``
 quantize, MP3_Encoder.py:403-409): an ``int2idx`` gather where
 ``ln < 10000``, and the float64 fallback elsewhere, as
 ``trunc(sqrt(sqrt(d) * d))`` with ``d = xrabs * steptab * 4.656612875e-10``
-multiplied in that order. Each eager op rounds once (nothing is fused into
-an FMA) and the device's float64 ``sqrt`` is correctly rounded, so every
+multiplied in that order. Each product and root rounds once (nothing is
+fused into an FMA) and float64 ``sqrt`` is correctly rounded, so every
 evaluation equals the host oracle's. ``xrabs`` is the int32-wrapped ``|xr|``
 (INT32_MIN stays negative; its NaN converts to INT32_MIN as on x86).
 
@@ -33,8 +33,28 @@ Hide mode (``hide=``) runs the stego pair transform inside the search at a
 given per-lane cursor (``_cost``); ``search_windows`` searches each lane
 under all eight 3-bit message windows, which the encoder's hide resolves
 against the true cursors (``models/encoder.MP3Encoder._encode_hide``).
+
+* ``search``, ``search_windows``, ``cost_step`` — the wrappers. A CPU tensor
+  takes the plain version; a CUDA tensor launches ``csrc/search.cu`` (one
+  warp runs one lane's whole trajectory; it replaces the JAX package's XLA
+  search program, ``mp3stego_tpu/ops/search_plane.py::_search_body``) or
+  raises. There is no fallback from the card to the plain version.
+* ``search_torch``, ``search_windows_torch``, ``cost_step_torch`` — the
+  plain PyTorch versions: every lane in lockstep, each round evaluating
+  the lanes still searching, one host sync a round. The kernel equals them
+  bit for bit on every row, ``ix`` and count.
+* ``launches`` — how many times the kernel was launched in this process.
+
+Results are resident: the ``ROWS`` (N,) int32, ``COUNTS`` (N,) int32 and
+``ix`` (N, 576) int32. The counts are the evaluations each lane ran and, of
+them, its inner-loop rounds, then the function's work over them (the
+kernel's bound): the evaluations past quantize's quick reject, those past
+the ixmax gate, and over these the count1 quads and big-values pairs
+costed. ``rows_to_host`` and ``to_host`` fetch them and add
+``rounds``, the most inner-loop rounds any lane ran.
 """
 
+import ctypes
 import functools
 
 import numpy as np
@@ -54,6 +74,22 @@ FLAG_ITER = 8          # inner-loop iteration cap hit
 
 ROWS = ("step", "bits", "bv", "c1", "a1", "a2", "a3", "r0c", "r1c",
         "ch0", "ch1", "ch2", "cts", "flags", "xrmax0")
+COUNTS = ("evals", "inner", "quantized", "costed", "quads", "pairs")
+_KEYS = ROWS + COUNTS             # the kernel's output rows, in this order
+
+launches = 0
+CTAS_PER_SM = 3                   # the persistent grid (158 registers)
+_WARPS = 4                        # lanes (warps) per CTA, as in search.cu
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "rate_search": (ctypes.c_int, (
+        _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,       # xr .. windows
+        _P, ctypes.c_longlong, ctypes.c_longlong, _P,          # hide
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong,         # mode, step, big
+        _P, _P, _P, _P, _P,                                    # tables
+        _P, _P, _P, ctypes.c_int, _P)),                        # outputs, grid
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,7 +116,8 @@ def quantize(labs64, xrabs_f64, xrmax64, s, c):
     """Quantize lanes (M, 576) at per-lane steps ``s`` (M,), exactly.
 
     Returns (ix (M, 576) int32, ixmax (M,) with 16384 where quantize bails,
-    oob (M,) bool: the step lies outside steptab and was clamped)."""
+    oob (M,) bool: the step lies outside steptab and was clamped, bail (M,)
+    bool: the quick reject)."""
     sidx = (s + 127).clamp(0, 127)
     oob = (s + 127) != sidx
     scalei = c["steptabi"][sidx]                                   # (M,) i64
@@ -94,7 +131,7 @@ def quantize(labs64, xrabs_f64, xrmax64, s, c):
     ixf = torch.where(d < 0, -2147483648.0, ixf).to(torch.int32)
     ix = torch.where(ln < 10000, ix, ixf)
     ixmax = torch.where(bail, 16384, ix.max(dim=1).values)
-    return ix, ixmax, oob
+    return ix, ixmax, oob, bail
 
 
 def _floordiv(a, b: int):
@@ -211,18 +248,27 @@ def _cost(ix, addr_in, band, c, hide=None):
                 choice=choice, cts=cts, has_bv=has_bv)
 
 
-def search(xr: torch.Tensor, max_bits: torch.Tensor, sr_idx: int,
-           hide=None) -> dict:
-    """Search every lane of resident spectra ``xr`` (N, 576) int32 under
-    per-lane budgets ``max_bits`` (N,) int32, on their device.
+def _hide_tensors(hide, n: int, dev):
+    """(bits, cursors) -> (bits (max(L, 1),) uint8, cursors (N,) int64, L)
+    on ``dev``; an empty message keeps one zero bit so that the bit read
+    stays in range."""
+    hbits = torch.as_tensor(np.asarray(hide[0], np.uint8), device=dev)
+    n_bits = hbits.shape[0]
+    if n_bits == 0:
+        hbits = torch.zeros(1, dtype=torch.uint8, device=dev)
+    hcur = torch.as_tensor(hide[1], device=dev).to(torch.int64)
+    if hcur.shape != (n,):
+        raise ValueError(f"hide cursors must be ({n},), got "
+                         f"{tuple(hcur.shape)}")
+    return hbits, hcur.contiguous(), n_bits
 
-    :param sr_idx: row of ``tables.BAND_ALL`` (the encoder's band row).
-    :param hide: optional (bits (L,) uint8 0/1 message, cursors (N,) int
-        pinned per lane): runs the stego pair transform in every evaluation.
-    :return: dict of resident tensors: the ``ROWS`` (N,) int32 and ``ix``
-        (N, 576) int32, the signed quantized samples of each lane's final
-        evaluation; plus ``rounds``, the inner-loop rounds run (an int).
-    """
+
+def search_torch(xr: torch.Tensor, max_bits: torch.Tensor, sr_idx: int,
+                 hide=None) -> dict:
+    """Plain PyTorch version of :func:`search` on ``xr``'s device: every
+    lane in lockstep, 8 bisection rounds then the inner loop, each round
+    evaluating the lanes still searching."""
+    _check(xr, max_bits)
     dev = xr.device
     c = _consts(dev)
     band = c["band"][sr_idx]
@@ -232,28 +278,29 @@ def search(xr: torch.Tensor, max_bits: torch.Tensor, sr_idx: int,
     xrabs_f64 = xrabs32.to(torch.float64)
     xrmax64 = xrabs32.clamp(min=0).max(dim=1).values.to(torch.int64)
     need = xrmax64 > 0
-    max_bits = max_bits.to(torch.int32)
     if hide is not None:
-        hbits = torch.as_tensor(np.asarray(hide[0], np.uint8), device=dev)
-        n_bits = hbits.shape[0]
-        if n_bits == 0:                # keep the gather's index range valid
-            hbits = torch.zeros(1, dtype=torch.uint8, device=dev)
+        hbits, hcur, n_bits = _hide_tensors(hide, n, dev)
         hbits = hbits.to(torch.int64)
-        hcur = torch.as_tensor(hide[1], device=dev).to(torch.int64)
 
     flags = torch.zeros(n, dtype=torch.int32, device=dev)
     addr = torch.zeros((n, 3), dtype=torch.int32, device=dev)
     virgin = torch.ones(n, dtype=torch.bool, device=dev)
+    counts = {k: torch.zeros(n, dtype=torch.int32, device=dev)
+              for k in COUNTS}
 
     def evaluate(lanes, s):
         """Evaluate ``lanes`` at steps ``s``; update their address, virgin
         and flag state like the reference's _eval. Returns (bits with
         100000 where ixmax > 8192, the gate ixmax <= 8192, cost dict, ix)."""
-        ix, ixmax, oob = quantize(labs64[lanes], xrabs_f64[lanes],
-                                  xrmax64[lanes], s, c)
+        ix, ixmax, oob, bail = quantize(labs64[lanes], xrabs_f64[lanes],
+                                        xrmax64[lanes], s, c)
         sub = None if hide is None else (hbits, hcur[lanes], n_bits)
         co = _cost(ix, addr[lanes], band, c, sub)
         gate = ixmax <= MAX_STEP
+        for k, v in (("evals", 1), ("quantized", ~bail), ("costed", gate),
+                     ("quads", torch.where(gate, co["c1"], 0)),
+                     ("pairs", torch.where(gate, co["bv"], 0))):
+            counts[k][lanes] += v
         consumed = gate & ~co["has_bv"] & (co["c1"] > 0) & virgin[lanes]
         flags[lanes] |= (torch.where(oob, FLAG_OOB, 0)
                          | torch.where(consumed, FLAG_ADDR, 0))
@@ -283,12 +330,11 @@ def search(xr: torch.Tensor, max_bits: torch.Tensor, sr_idx: int,
     done = ~need
     out = {k: torch.zeros(n, dtype=torch.int32, device=dev) for k in ROWS}
     ix_out = torch.zeros((n, 576), dtype=torch.int32, device=dev)
-    rounds = 0
-    while rounds < ITER_CAP:
+    for _ in range(ITER_CAP):
         lanes = torch.nonzero(~done).squeeze(1)
         if lanes.numel() == 0:
             break
-        rounds += 1
+        counts["inner"][lanes] += 1
         s1 = step[lanes] + 1
         step[lanes] = s1
         bits, gate, co, ix = evaluate(lanes, s1)
@@ -306,9 +352,139 @@ def search(xr: torch.Tensor, max_bits: torch.Tensor, sr_idx: int,
         ix_out[f] = torch.where(xr[f] < 0, -ixf, ixf)
     out["flags"] = flags | torch.where(done, 0, FLAG_ITER)
     out["xrmax0"] = (~need).to(torch.int32)
+    out.update(counts)
     out["ix"] = ix_out
-    out["rounds"] = rounds
     return out
+
+
+def _check(xr: torch.Tensor, max_bits: torch.Tensor = None):
+    """What the wrappers take: spectra (N, 576) int32 and budgets (N,)
+    int32 on one device; on the card, both C-contiguous."""
+    if xr.dim() != 2 or xr.shape[1] != 576 or xr.dtype != torch.int32:
+        raise ValueError(f"the search wants spectra (N, 576) int32, got "
+                         f"{tuple(xr.shape)} {xr.dtype}")
+    if max_bits is not None:
+        if max_bits.shape != (xr.shape[0],) or max_bits.dtype != torch.int32:
+            raise ValueError(f"the search wants budgets ({xr.shape[0]},) "
+                             f"int32, got {tuple(max_bits.shape)} "
+                             f"{max_bits.dtype}")
+        if max_bits.device != xr.device:
+            raise ValueError(f"spectra on {xr.device}, budgets on "
+                             f"{max_bits.device}")
+    if xr.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the search runs on CPU or CUDA tensors, got "
+                         f"{xr.device}")
+    if xr.device.type == "cuda" and not (
+            xr.is_contiguous()
+            and (max_bits is None or max_bits.is_contiguous())):
+        raise ValueError("the CUDA search takes C-contiguous spectra and "
+                         "budgets")
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tables(device: torch.device, sr_idx: int) -> tuple:
+    """:func:`_consts` packed for the kernel: steptab (128,) float64,
+    steptabi (128,) int32, the small tables (201,) int32 (linmax 34, linbits
+    34, SUBDV_TABLE 46, TRANSFORM_HUF 64, the band row 23), int2idx (10000,)
+    int16 and the Huffman lengths (34 * 256,) uint8 [t, x, y]."""
+    c = _consts(device)
+    small = torch.cat([c["linmax"], c["linbits"], c["subdv"].reshape(-1),
+                       c["transform"], c["band"][sr_idx]])
+    return (c["steptab"], c["steptabi"].to(torch.int32), small,
+            c["int2idx"].to(torch.int16), c["hlen"].to(torch.uint8))
+
+
+@functools.lru_cache(maxsize=None)
+def _window_bits(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(WINDOW_BITS).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_cap(device: torch.device) -> int:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * CTAS_PER_SM
+
+
+def _launch(xr, max_bits, sr_idx: int, m: int, windows: bool = False,
+            hide=None, mode: int = 0, step: int = 0, big: int = 0):
+    """One launch of ``csrc/search.cu`` over ``m`` lane searches of the
+    spectra ``xr`` (N, 576) on the card: mode 0 searches (rows (21, m),
+    ix (m, 576)), mode 1 costs one step (bits (N,) int64). ``hide`` =
+    (bits (L,) uint8, L, cursors (N,) int64 or None in window mode)."""
+    global launches
+    from mp3stego_tpu_torch.ops import _cuda
+    lib = _cuda.load("search", _SIGNATURES)
+    dev = xr.device
+    tabs = _kernel_tables(dev, sr_idx)
+    if mode == 0:
+        rows = torch.empty((len(_KEYS), m), dtype=torch.int32, device=dev)
+        ix = torch.empty((m, 576), dtype=torch.int32, device=dev)
+        res = dict(zip(_KEYS, rows.unbind(0)), ix=ix)
+        outs = (rows.data_ptr(), ix.data_ptr(), None)
+    else:
+        cost = torch.empty(m, dtype=torch.int64, device=dev)
+        outs = (None, None, cost.data_ptr())
+    if m == 0:
+        return res if mode == 0 else cost
+    hb, n_bits, hcur = hide if hide is not None else (None, 0, None)
+    blocks = min(-(-m // _WARPS), _grid_cap(dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.rate_search(
+            xr.data_ptr(), None if max_bits is None else max_bits.data_ptr(),
+            xr.shape[0], m, int(windows),
+            None if hb is None else hb.data_ptr(),
+            0 if hb is None else hb.shape[0], n_bits,
+            None if hcur is None else hcur.data_ptr(),
+            mode, step, big, *(t.data_ptr() for t in tabs), *outs, blocks,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"rate_search kernel launch failed: CUDA error "
+                           f"{rc}")
+    launches += 1
+    return res if mode == 0 else cost
+
+
+def search(xr: torch.Tensor, max_bits: torch.Tensor, sr_idx: int,
+           hide=None) -> dict:
+    """Search every lane of resident spectra ``xr`` (N, 576) int32 under
+    per-lane budgets ``max_bits`` (N,) int32, on their device.
+
+    :param sr_idx: row of ``tables.BAND_ALL`` (the encoder's band row).
+    :param hide: optional (bits (L,) uint8 0/1 message, cursors (N,) int
+        pinned per lane): runs the stego pair transform in every evaluation.
+    :return: dict of resident tensors: the ``ROWS`` and ``COUNTS`` (N,)
+        int32 and ``ix`` (N, 576) int32, the signed quantized samples of
+        each lane's final evaluation.
+
+    On CUDA tensors this launches the hand-written kernel (one launch) on
+    the current stream; a build or launch fault raises. CPU tensors take
+    :func:`search_torch`."""
+    _check(xr, max_bits)
+    if xr.device.type == "cpu":
+        return search_torch(xr, max_bits, sr_idx, hide)
+    n = xr.shape[0]
+    if hide is not None:
+        hbits, hcur, n_bits = _hide_tensors(hide, n, xr.device)
+        hide = (hbits, n_bits, hcur)
+    return _launch(xr, max_bits, sr_idx, n, hide=hide)
+
+
+def cost_step_torch(xr: torch.Tensor, step: int, sr_idx: int,
+                    big: int = 1 << 20) -> torch.Tensor:
+    """Plain PyTorch version of :func:`cost_step`."""
+    _check(xr)
+    dev = xr.device
+    c = _consts(dev)
+    n = xr.shape[0]
+    xrabs32 = xr.abs()                               # int32: wraps INT32_MIN
+    xrmax64 = xrabs32.clamp(min=0).max(dim=1).values.to(torch.int64)
+    s = torch.full((n,), step, dtype=torch.int32, device=dev)
+    ix, ixmax, _, _ = quantize(xr.to(torch.int64).abs(),
+                               xrabs32.to(torch.float64), xrmax64, s, c)
+    co = _cost(ix, torch.zeros((n, 3), dtype=torch.int32, device=dev),
+               c["band"][sr_idx], c)
+    return torch.where(ixmax > MAX_STEP, big, co["bits"].to(torch.int64))
 
 
 def cost_step(xr: torch.Tensor, step: int, sr_idx: int,
@@ -319,32 +495,28 @@ def cost_step(xr: torch.Tensor, step: int, sr_idx: int,
     bails or whose ixmax exceeds 8192 costs ``big``. The same evaluation as
     :func:`search`'s, so it equals the native ``rate_cost_step``
     (rate_search.cpp) on every lane. Returns (N,) int64 on ``xr``'s
-    device."""
-    dev = xr.device
-    c = _consts(dev)
-    n = xr.shape[0]
-    xrabs32 = xr.abs()                               # int32: wraps INT32_MIN
-    xrmax64 = xrabs32.clamp(min=0).max(dim=1).values.to(torch.int64)
-    s = torch.full((n,), step, dtype=torch.int32, device=dev)
-    ix, ixmax, _ = quantize(xr.to(torch.int64).abs(),
-                            xrabs32.to(torch.float64), xrmax64, s, c)
-    co = _cost(ix, torch.zeros((n, 3), dtype=torch.int32, device=dev),
-               c["band"][sr_idx], c)
-    return torch.where(ixmax > MAX_STEP, big, co["bits"].to(torch.int64))
+    device: one kernel launch on CUDA tensors, :func:`cost_step_torch` on
+    CPU tensors."""
+    _check(xr)
+    if xr.device.type == "cpu":
+        return cost_step_torch(xr, step, sr_idx, big)
+    return _launch(xr, None, sr_idx, xr.shape[0], mode=1, step=step, big=big)
 
 
 def rows_to_host(res: dict) -> dict:
-    """The resident ``ROWS`` of search results -> NumPy, in one copy."""
-    rows = torch.stack([res[k] for k in ROWS]).cpu().numpy()
-    return {k: rows[r] for r, k in enumerate(ROWS)}
+    """The resident ``ROWS`` and ``COUNTS`` of search results -> NumPy, in
+    one copy, plus ``rounds``: the most inner-loop rounds any lane ran."""
+    rows = torch.stack([res[k] for k in _KEYS]).cpu().numpy()
+    out = {k: rows[r] for r, k in enumerate(_KEYS)}
+    out["rounds"] = int(out["inner"].max(initial=0))
+    return out
 
 
 def to_host(res: dict) -> dict:
-    """Resident search results -> NumPy: the rows in one copy, ``ix`` in
-    another; ``rounds`` passes through."""
+    """Resident search results -> NumPy: the rows and counts in one copy,
+    ``ix`` in another."""
     out = rows_to_host(res)
     out["ix"] = res["ix"].cpu().numpy()
-    out["rounds"] = res["rounds"]
     return out
 
 
@@ -379,6 +551,16 @@ def window_of(bits: np.ndarray, cur: np.ndarray) -> np.ndarray:
     return 4 * b[cur] + 2 * b[cur + 1] + b[cur + 2]
 
 
+def search_windows_torch(xr: torch.Tensor, max_bits: torch.Tensor,
+                         sr_idx: int) -> dict:
+    """Plain PyTorch version of :func:`search_windows`: the 8 windows'
+    lanes as one search of 8 copies of the spectra."""
+    n = xr.shape[0]
+    cur = torch.arange(8, device=xr.device).repeat_interleave(n) * 3
+    return search_torch(xr.repeat(8, 1), max_bits.repeat(8), sr_idx,
+                        hide=(WINDOW_BITS, cur))
+
+
 def search_windows(xr: torch.Tensor, max_bits: torch.Tensor,
                    sr_idx: int) -> dict:
     """:func:`search` of every lane under each of the eight 3-bit message
@@ -389,11 +571,15 @@ def search_windows(xr: torch.Tensor, max_bits: torch.Tensor,
     under any cursor ``c`` with ``c + 3 <= len(bits)`` its result is its
     result under the window ``window_of(bits, c)``. Returns the resident
     results of 8 * N lanes, window-major: row ``w * N + i`` is lane ``i``
-    under window ``w``."""
-    n = xr.shape[0]
-    cur = torch.arange(8, device=xr.device).repeat_interleave(n) * 3
-    return search(xr.repeat(8, 1), max_bits.repeat(8), sr_idx,
-                  hide=(WINDOW_BITS, cur))
+    under window ``w``. On CUDA tensors, one kernel launch that reads each
+    lane's spectrum in place for all 8 windows; CPU tensors take
+    :func:`search_windows_torch`."""
+    _check(xr, max_bits)
+    if xr.device.type == "cpu":
+        return search_windows_torch(xr, max_bits, sr_idx)
+    wb = _window_bits(xr.device)
+    return _launch(xr, max_bits, sr_idx, 8 * xr.shape[0], windows=True,
+                   hide=(wb, wb.shape[0], None))
 
 
 def scfsi_sums(xr: torch.Tensor, sr_idx: int):

@@ -126,8 +126,7 @@ def _run_sub_batch(sub: list, dev: torch.device, pool) -> list:
     for (i, mp3_path, enc, nf), xr, fr, maxb in zip(sub, xrs, framing,
                                                     budgets):
         b = a + xr.shape[0]
-        res = SP.to_host({k: v if k == "rounds" else v[a:b]
-                          for k, v in res_d.items()})
+        res = SP.to_host({k: v[a:b] for k, v in res_d.items()})
         en = (None, None) if scfsi is None else \
             tuple(s[a:b].cpu().numpy() for s in scfsi)
         futures.append((i, pool.submit(_finish_file, enc, nf, res, xr, maxb,

@@ -1,4 +1,8 @@
-"""Card tests of the torch port: the hand-written Huffman bit-scan kernel
+"""Card tests of the torch port: the hand-written rate-search kernel K4
+(bit for bit its plain version on every row, count and ix plane, in clear,
+hide and window mode and for the one-step VBR cost, on the golden fixture's
+spectra and seeded, forced-flag and INT32_MIN lanes; one launch a call; the
+wrapper refuses what it cannot launch), the hand-written Huffman bit-scan kernel
 (bit for bit its plain version on the goldens, crafted and corrupt streams,
 and the device-Huffman decode's WAV bytes), the streaming encode on the
 card, the hand-written fused synthesis kernel (on
@@ -356,6 +360,86 @@ def test_batched_decode_one_launch_per_chunk(card, tmp_path):
                                    device=card, chunk_files=2)
     for p, got in zip(metas, outs):
         assert np.array_equal(got, dp.decode_pcm_i16_host(p))
+
+
+def _search_lanes(name: str):
+    """(spectra (N, 576) int32, budgets (N,) int32): the lanes of
+    ``chip_smoke.search_lanes`` (the golden fixture's spectra, the seeded
+    loud, escape and forced-flag lanes of tests/test_torch_search_plane.py)
+    and lanes holding INT32_MIN."""
+    if name != "int32_min":
+        from chip_smoke import search_lanes
+        return search_lanes(name)
+    rng = np.random.default_rng(3)
+    xr = (rng.integers(-2 ** 31, 2 ** 31, size=(24, 576))
+          >> rng.integers(0, 30, size=(24, 1))).astype(np.int32)
+    xr[::3, ::7] = -2 ** 31
+    xr[1, :] = 0
+    xr[1, 5] = -2 ** 31
+    return xr, rng.integers(200, 4000, size=24).astype(np.int32)
+
+
+SEARCH_MODES = ["clear", "hide", "hide_no_bits", "windows", "cost"]
+
+
+@pytest.mark.parametrize("mode", SEARCH_MODES)
+@pytest.mark.parametrize("name", ["fixture", "loud", "escape", "forced",
+                                  "int32_min"])
+def test_search_kernel_equals_plain_version(card, name, mode):
+    """K4 (``csrc/search.cu``) against its plain version, both on the card,
+    in one launch: every row, evaluation count and the ix plane bit for
+    bit; ``cost_step`` at every step."""
+    from mp3stego_tpu_torch.ops import search_plane as SP
+    xr, mb = _search_lanes(name)
+    xr_d, mb_d = torch.from_numpy(xr).to(card), torch.from_numpy(mb).to(card)
+    if mode == "cost":
+        for s in range(-127, 1):
+            before = SP.launches
+            got = SP.cost_step(xr_d, s, 0)
+            assert SP.launches == before + 1
+            assert torch.equal(got, SP.cost_step_torch(xr_d, s, 0)), s
+        return
+    hide = None
+    if mode == "hide":           # ascending cursors, the last past the end
+        rng = np.random.default_rng(3)
+        hide = (rng.integers(0, 2, size=3 * len(xr) // 2).astype(np.uint8),
+                np.cumsum(rng.integers(0, 4, size=len(xr))))
+    elif mode == "hide_no_bits":
+        hide = (np.zeros(0, np.uint8), np.zeros(len(xr), np.int64))
+    before = SP.launches
+    if mode == "windows":
+        got = SP.search_windows(xr_d, mb_d, 0)
+        want = SP.search_windows_torch(xr_d, mb_d, 0)
+    else:
+        got = SP.search(xr_d, mb_d, 0, hide)
+        want = SP.search_torch(xr_d, mb_d, 0, hide)
+    torch.cuda.synchronize()
+    assert SP.launches == before + 1
+    for k in SP.ROWS + SP.COUNTS + ("ix",):
+        assert got[k].shape == want[k].shape, k
+        assert torch.equal(got[k], want[k]), k
+    if name == "forced" and mode == "clear":
+        flags = got["flags"].cpu().numpy()
+        for bit in (SP.FLAG_ADDR, SP.FLAG_OOB, SP.FLAG_ITER):
+            assert (flags & bit).any(), bit
+
+
+def test_search_kernel_refuses_what_it_cannot_launch(card):
+    from mp3stego_tpu_torch.ops import search_plane as SP
+    xr, mb = _search_lanes("loud")
+    xr_d, mb_d = torch.from_numpy(xr).to(card), torch.from_numpy(mb).to(card)
+    with pytest.raises(ValueError, match="int32"):
+        SP.search(xr_d.to(torch.int64), mb_d, 0)
+    with pytest.raises(ValueError, match="int32"):
+        SP.cost_step(xr_d.to(torch.int64), -30, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        SP.search(xr_d.T.contiguous().T, mb_d, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        SP.search_windows(xr_d, torch.stack([mb_d, mb_d], 1)[:, 0], 0)
+    with pytest.raises(ValueError, match="576"):
+        SP.search(xr_d[:, :288].contiguous(), mb_d, 0)
+    with pytest.raises(ValueError, match="budgets"):
+        SP.search(xr_d, mb_d[:5], 0)
 
 
 def test_card_lane_cost_equals_native(card):

@@ -247,7 +247,7 @@ def test_every_lane_through_the_host_redo(native_rate, gold, fixture_wav,
     NumPy one) with the true address chains must still write the golden
     bytes."""
     _no_native_rate(monkeypatch, native_rate)
-    orig = SP.search
+    orig = SP.search_torch        # the CPU's search, windows included
 
     def flag_all(xr, max_bits, sr_idx, hide=None):
         res = orig(xr, max_bits, sr_idx, hide)
@@ -255,7 +255,7 @@ def test_every_lane_through_the_host_redo(native_rate, gold, fixture_wav,
             .to(torch.int32)
         return res
 
-    monkeypatch.setattr(SP, "search", flag_all)
+    monkeypatch.setattr(SP, "search_torch", flag_all)
     enc = _encode(fixture_wav)
     # 138 of the fixture's 144 granules are searched (6 are silent)
     assert enc.redo_stats["lanes"] == enc.redo_stats["ADDR"] == 138
@@ -270,7 +270,7 @@ def test_every_hide_lane_through_the_host_redo(native_rate, gold,
     redoes each granule on the host at its true cursor, with the address
     chain, and must still write the ``hidden_long`` golden."""
     _no_native_rate(monkeypatch, native_rate)
-    orig = SP.search
+    orig = SP.search_torch        # the CPU's search, windows included
 
     def flag_all(xr, max_bits, sr_idx, hide=None):
         res = orig(xr, max_bits, sr_idx, hide)
@@ -278,7 +278,7 @@ def test_every_hide_lane_through_the_host_redo(native_rate, gold,
             .to(torch.int32)
         return res
 
-    monkeypatch.setattr(SP, "search", flag_all)
+    monkeypatch.setattr(SP, "search_torch", flag_all)
     msg, want, _ = _golden_case("hidden_long", gold)
     enc = _encode(fixture_wav, hide=_frame_message(msg))
     # the scan redoes the lanes the message reaches, the tail redo the rest

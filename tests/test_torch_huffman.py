@@ -12,7 +12,12 @@ and tests/test_backend_select.py:
   package's, field by field; LSF raises the same ``ValueError``;
 * ``Decoder`` with the device engine (``device="cpu"``) writes the host
   parse's WAV bytes in float32 and float64 and reveals the same bits;
-* ``_huffman_backend`` picks the engine by the JAX package's rule.
+* ``_huffman_backend`` picks the engine by the JAX package's rule, and
+  "host" for the streams the light parse does not read (LSF and
+  free-format heads) unless MP3STEGO_TPU_DEVICE_HUFFMAN=1 forces "device";
+  with the native library patched away, an LSF or free-format decode
+  writes the host parse's bytes, and the forced device engine reads a
+  free-format stream at its measured stride.
 
 Every parse here uses the JAX package's Python engine (``backend="python"``)
 as the reference, so nothing depends on whether the JAX package's native
@@ -298,3 +303,95 @@ def test_huffman_backend_selection(monkeypatch):
     assert sel("float64", cpu) == "device"         # explicit override
     monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", "0")
     assert sel("float32", cuda) == "host"
+
+
+def _free_format(data: bytes) -> bytes:
+    """``data`` (a CBR MPEG-1 stream) with every frame's bitrate index set
+    to 0, "free": the frames keep their sizes, which only the spacing of
+    the sync words now gives."""
+    b = bytearray(data)
+    sizes = pdh.parse_mp3(data, 0, backend="python").frame_sizes
+    for start in np.concatenate([[0], np.cumsum(sizes)[:-1]]):
+        b[int(start) + 2] &= 0x0F
+    return bytes(b)
+
+
+@pytest.fixture(scope="module")
+def free_format_mp3(stego_golden):
+    """The port's 128 kbps encode of the stego golden's WAV, free-format."""
+    from mp3stego_tpu_torch.models.encoder import MP3Encoder
+    from mp3stego_tpu_torch.utils.wav import read_wav
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        wav = os.path.join(d, "g.wav")
+        with open(wav, "wb") as f:
+            f.write(stego_golden["wav_bytes"].tobytes())
+        enc = MP3Encoder(read_wav(wav, 128), device="cpu")
+        enc.encode()
+    return _free_format(bytes(enc.out_buffer))
+
+
+def test_huffman_backend_keeps_lsf_and_free_format_on_the_host(
+        streams, free_format_mp3, monkeypatch):
+    """Without the native library the device engine is the default, but
+    not for a stream whose head the light parse does not read."""
+    from mp3stego_tpu_torch import native
+    sel = pdec._huffman_backend
+    monkeypatch.delenv("MP3STEGO_TPU_DEVICE_HUFFMAN", raising=False)
+    monkeypatch.setattr(native, "get_lib", lambda: None)
+    heads = {name: streams[name] for name in LSF}
+    heads["free_format"] = free_format_mp3
+    assert pdh.parse_header(*free_format_mp3[:4]).free_format
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        for precision in ("float32", "float64"):
+            for name, data in heads.items():
+                assert sel(precision, dev, data, 0) == "host", (name, dev)
+            assert sel(precision, dev, streams["fixture"], 0) == (
+                "host" if (precision, dev.type) == ("float64", "cpu")
+                else "device")
+    monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", "1")
+    assert sel("float32", torch.device("cpu"), free_format_mp3, 0) == "device"
+
+
+@pytest.mark.parametrize("name", ["torch_lsf_mpeg2_24k_64",
+                                  "torch_lsf_mpeg2_22k05_80",
+                                  "torch_lsf_mpeg25_8k_32"])
+def test_lsf_decode_without_native_library_writes_host_bytes(
+        name, streams, tmp_path, monkeypatch):
+    from mp3stego_tpu_torch import native
+    monkeypatch.setattr(native, "get_lib", lambda: None)
+    path = tmp_path / "lsf.mp3"
+    path.write_bytes(streams[name])
+    host, _ = _decode(str(path), str(tmp_path / "h.wav"), "float32", "0",
+                      monkeypatch)
+    monkeypatch.delenv("MP3STEGO_TPU_DEVICE_HUFFMAN")
+    d = pdec.Decoder(str(path), str(tmp_path / "d.wav"), precision="float32",
+                     device="cpu")
+    d.decode(quiet=True)
+    assert "decode (device huffman)" not in d.timer.times
+    assert (tmp_path / "d.wav").read_bytes() == host and len(host) > 44
+
+
+def test_free_format_decode_writes_host_bytes(free_format_mp3, tmp_path,
+                                              monkeypatch):
+    """The default engine takes the host parse; the forced device engine
+    reads every frame at the measured stride, so neither writes a short
+    WAV."""
+    from mp3stego_tpu_torch import native
+    monkeypatch.setattr(native, "get_lib", lambda: None)
+    path = tmp_path / "free.mp3"
+    path.write_bytes(free_format_mp3)
+    host, dh_ = _decode(str(path), str(tmp_path / "h.wav"), "float32", "0",
+                        monkeypatch)
+    frames = pdh.parse_mp3(free_format_mp3, 0, backend="python").num_frames
+    assert frames > 30 and len(host) == 44 + 2 * 2 * 1152 * frames
+    monkeypatch.delenv("MP3STEGO_TPU_DEVICE_HUFFMAN")
+    d = pdec.Decoder(str(path), str(tmp_path / "a.wav"), precision="float32",
+                     device="cpu")
+    d.decode(quiet=True)
+    assert "decode (device huffman)" not in d.timer.times
+    assert (tmp_path / "a.wav").read_bytes() == host
+    dev, dd = _decode(str(path), str(tmp_path / "d.wav"), "float32", "1",
+                      monkeypatch)
+    assert "decode (device huffman)" in dd.timer.times
+    assert dev == host and dd.output_bits == dh_.output_bits

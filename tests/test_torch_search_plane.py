@@ -18,8 +18,6 @@
 Tolerance: exact everywhere.
 """
 
-import os
-
 import numpy as np
 import pytest
 
@@ -30,6 +28,7 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
+from chip_smoke import search_lanes  # noqa: E402
 from mp3stego_tpu.models.encoder import MP3Encoder as JaxMP3Encoder  # noqa: E402
 from mp3stego_tpu.ops import quant as JQ  # noqa: E402
 from mp3stego_tpu.ops import search_plane as JSP  # noqa: E402
@@ -38,7 +37,6 @@ from mp3stego_tpu_torch.models.encoder import MP3Encoder  # noqa: E402
 from mp3stego_tpu_torch.ops import search_plane as SP  # noqa: E402
 from mp3stego_tpu_torch.utils.wav import WavFile  # noqa: E402
 
-GOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 CMP = ("step", "bits", "bv", "c1", "a1", "a2", "a3", "r0c", "r1c", "ch0",
        "ch1", "ch2", "cts")
 # the flags both planes send to the host oracle
@@ -53,43 +51,11 @@ def _wav(cls, n_lanes: int):
                mpeg_mode=0, buffer=np.zeros(n_lanes * 576, np.int16))
 
 
-def _random_lanes(rng, n: int, scale_bits: int) -> np.ndarray:
-    """Random spectra with realistic dynamic ranges (some quiet, some hot)."""
-    xr = np.zeros((n, 576), np.int32)
-    for i in range(n):
-        b = int(rng.integers(4, scale_bits))
-        row = rng.integers(-(1 << b), 1 << b, size=576)
-        cut = int(rng.integers(10, 576))
-        row[cut:] = row[cut:] // (1 << min(b, 12))
-        xr[i] = row.astype(np.int32)
-    xr[0] = 0                        # silent lane: not searched
-    return xr
-
-
-def _fixture_spectra():
-    mdct = np.load(os.path.join(GOLD, "encode_golden.npz"))["mdct_freq"]
-    nf = mdct.shape[0]
-    xr = mdct.transpose(1, 0, 2, 3).reshape(-1, 576)   # lane ch*tg + 2f + gr
-    enc = MP3Encoder(_wav(WavFile, xr.shape[0]), device="cpu")
-    _, mean_bits = enc._plane_framing(nf)
-    return xr, enc._lane_budgets(mean_bits)
-
-
 def _case(name: str):
-    """(spectra (N, 576) int32, budgets (N,) int32) of a test case."""
-    if name == "fixture":
-        return _fixture_spectra()
-    rng = np.random.default_rng({"loud": 7, "escape": 11}[name])
-    n = 96
-    if name == "loud":
-        return (_random_lanes(rng, n, 31),
-                rng.integers(500, 4000, size=n).astype(np.int32))
-    # escape: sparse full-scale spikes on a quiet floor under generous
-    # budgets, so regions peak far above 15 (tables 16..31, linbits)
-    xr = rng.integers(-2000, 2000, size=(n, 576)).astype(np.int64)
-    spikes = rng.random((n, 576)) < 0.03
-    xr[spikes] = rng.integers(-(2 ** 31 - 1), 2 ** 31 - 1, size=spikes.sum())
-    return xr.astype(np.int32), np.full(n, 4095, np.int32)
+    """(spectra (N, 576) int32, budgets (N,) int32) of a test case: the
+    golden fixture's spectra, or seeded loud or escape lanes
+    (``chip_smoke.search_lanes``, which the card run shares)."""
+    return search_lanes(name)
 
 
 def _hide_ctx(n: int, seed: int):
@@ -147,15 +113,16 @@ def test_quantize_equals_host_oracle_at_every_step(name):
     float_cells = 0
     for step in range(-127, 1):
         s = torch.full((len(xr),), step, dtype=torch.int32)
-        ix, ixmax, oob = SP.quantize(labs64, xr_t.abs().to(torch.float64),
-                                     xrmax64, s, c)
+        ix, ixmax, oob, bail = SP.quantize(
+            labs64, xr_t.abs().to(torch.float64), xrmax64, s, c)
         assert not oob.any()
-        ix, ixmax = ix.numpy(), ixmax.numpy()
+        ix, ixmax, bail = ix.numpy(), ixmax.numpy(), bail.numpy()
         scalei = np.int64(JQ.STEPTABI[step + 127])
         ln = (np.abs(xr.astype(np.int64)) * scalei + 2 ** 31) >> 32
         for g in range(len(xr)):
             want, want_max = JQ.quantize(xr[g], xrabs[g], int(xrmax[g]),
                                          step)
+            assert bail[g] == (want is None), (step, g)
             if want is None:                                   # bails
                 assert ixmax[g] == 16384
                 continue
@@ -202,14 +169,7 @@ def _forced_lanes():
     nonzero evaluation (the bisection's first step, -60) quantizes to 0/1
     only, so big_values == 0 with count1 > 0 (ADDR), and loud lanes under a
     negative budget that step past steptab (OOB) and never fit (ITER)."""
-    rng = np.random.default_rng(5)
-    xr = _random_lanes(rng, 32, 28)
-    mb = rng.integers(800, 3000, size=32).astype(np.int32)
-    xr[1:5] = 0
-    xr[1:5, :40] = rng.choice([-65536, 65536], size=(4, 40))     # ADDR
-    xr[5:7] = rng.integers(-2 ** 30, 2 ** 30, size=(2, 576))
-    mb[5:7] = -1                                              # OOB + ITER
-    return xr, mb
+    return search_lanes("forced")
 
 
 def test_forced_host_flags_equal_jax():
