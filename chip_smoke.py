@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with one CUDA card (Hopper:
 the kernels are built for sm_90a). It builds every kernel of the port's
 paths from the sources in the checkout (the fused synthesis kernel K1,
 ``csrc/synth.cu``, in float32 and float64, the Huffman bit-scan,
-``csrc/huffman.cu``, and the rate-control search K4, ``csrc/search.cu``),
+``csrc/huffman.cu``, the Q31 encode analysis K3, ``csrc/analysis.cu``, and
+the rate-control search K4, ``csrc/search.cu``),
 holds each against its plain PyTorch version bit for bit (and times a
 library pair that computes K1's function), drives every
 entry point at a size users send (one 240.7-second 320 kbps stereo song
@@ -99,9 +100,15 @@ K4_OPS_RUNS = 576 * 4
 K4_OPS_QUAD = 19
 K4_OPS_PAIR = 27
 K4_OPS_PAIR_HIDE = K4_OPS_PAIR + 4
+# integer operations of K3's function per (channel, granule) (the note in
+# csrc/analysis.cu): 66,816 Q31 products (window 18 x 512, filter 18 x 32 x
+# 64, MDCT 32 x 18 x 36), a multiply-high and an add each, and 31 x 8 alias
+# butterflies of 8 (4 products, 2 sums, 2 shifts)
+K3_OPS_GRANULE = 2 * (18 * 512 + 18 * 32 * 64 + 32 * 18 * 36) + 8 * 31 * 8
 # the hand kernels, each module with its wrapper's launch count
-KERNELS = {"synth_fused": sf, "huffman_scan": hd, "search": SP}
-ENCODE = ("search",)                         # the kernels an encode runs
+KERNELS = {"synth_fused": sf, "huffman_scan": hd, "search": SP,
+           "analysis": EP}
+ENCODE = ("search", "analysis")              # the kernels an encode runs
 
 
 def synthetic_parsed(t: int, seed: int = 0) -> ParsedMP3:
@@ -311,6 +318,121 @@ def _expect_equal(name, got: bytes, want: bytes):
                              f"expected {len(want)} at byte {diff}")
 
 
+def analysis_bound(ch: int, tg: int):
+    """The least time for K3's work on the card: (bytes that must move: the
+    int16 streams and the tables read once, the int32 spectra written once)
+    over HBM's rate, against (``K3_OPS_GRANULE`` a (channel, granule)) over
+    the INT32 rate. Returns (ms, "bytes" or "operations", bytes,
+    operations)."""
+    lanes = ch * tg
+    nbytes = 2 * ch * (EP._PAST + tg * 576) + 4 * lanes * 576 \
+        + 4 * (512 + 32 * 64 + 18 * 36 + 16)
+    ops = lanes * K3_OPS_GRANULE
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = ops / PEAK_INT_OPS_S * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes", nbytes, ops
+    return by_ops, "operations", nbytes, ops
+
+
+def hold_analysis(name: str, full: torch.Tensor, skip: int = 0,
+                  native=None) -> torch.Tensor:
+    """K3 on ``full`` against its plain version and, where given, the
+    native twin's spectra, bit for bit; returns the kernel's result."""
+    got = EP.analysis_stream(full, skip=skip)
+    want = EP.analysis_stream_torch(full, skip=skip)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{name}: analysis kernel != "
+                             f"analysis_stream_torch")
+    if native is not None and not np.array_equal(got.cpu().numpy(), native):
+        raise AssertionError(f"{name}: analysis kernel != native "
+                             f"encode_analysis")
+    return got
+
+
+def analysis_phase(dev, card: str, wav64: str):
+    """Phase 8: K3 (``csrc/analysis.cu``) bit for bit its plain version
+    and the native ``encode_analysis`` on the song, a mono stream, a
+    1-granule stream, a full-scale square wave whose sums wrap, and a
+    512-frame window sliced as the streaming encode does (``skip=1``,
+    equal to the whole stream's granules too); then the kernel, the plain
+    version, the host preparation, the upload and the host C++ twin, each
+    timed. Returns (the song's seconds, K3's measured fields of the kernels
+    line)."""
+    enc = MP3Encoder(read_wav(wav64, 320), device=dev)
+    nf = enc._num_frames()
+    tg = nf * enc.granules_per_frame
+    seconds = enc.wav.num_of_samples / enc.wav.samplerate
+    t0 = time.perf_counter()
+    streams = enc._channel_streams_i16(nf)
+    t1 = time.perf_counter()
+    padded = EP._padded_streams(streams, tg)
+    t2 = time.perf_counter()
+    full = torch.from_numpy(padded).to(dev)
+    up_ms = _time_ms(lambda: torch.from_numpy(padded).to(dev), 3)
+    t3 = time.perf_counter()
+    native = EP.run_analysis_native(streams, tg)
+    host_ms = (time.perf_counter() - t3) * 1e3
+    got = hold_analysis("song", full, native=native)
+
+    lo = 1 + tg // 8                          # a 512-frame window
+    hi = min(tg, lo + 1024)
+    win = full[:, (lo - 1) * 576:hi * 576 + EP._PAST].contiguous()
+    if not torch.equal(hold_analysis("512-frame window, skip=1", win, 1),
+                       got[:, lo:hi]):
+        raise AssertionError("window slice != the whole stream's granules")
+    del got
+    n = min(300, tg)
+    mono = streams[:1, :n * 576]
+    hold_analysis("mono", torch.from_numpy(EP._padded_streams(mono, n))
+                  .to(dev), native=EP.run_analysis_native(mono, n))
+    one = streams[:, tg // 2 * 576:(tg // 2 + 1) * 576]
+    hold_analysis("1 granule", torch.from_numpy(EP._padded_streams(one, 1))
+                  .to(dev), native=EP.run_analysis_native(one, 1))
+    t = np.arange(300 * 576)
+    sq = np.where((t // 50) % 2 == 0, 32767, -32768)
+    sq = np.stack([sq, np.roll(sq, 17)]).astype(np.int16)
+    wrap = hold_analysis("full-scale square", torch.from_numpy(
+        EP._padded_streams(sq, 300)).to(dev),
+        native=EP.run_analysis_native(sq, 300))
+    if not wrap.abs().max() > 2 ** 30:
+        raise AssertionError("the square wave's sums did not wrap")
+    _say("8 analysis", f"K3 bitwise equal to analysis_stream_torch and the "
+                       f"native encode_analysis on the song {tuple(full.shape)}"
+                       f" int16, a mono stream, 1 granule and a full-scale "
+                       f"square wave; a 512-frame window slice (skip=1) "
+                       f"equals its plain version and the whole stream's "
+                       f"granules {lo}..{hi - 1}")
+
+    fns = {"kernel": lambda: EP.analysis_stream(full),
+           "plain": lambda: EP.analysis_stream_torch(full)}
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        times[which].append(_time_ms(fns[which], 1 if which == "plain"
+                                     else 20))
+    best = {k: min(v) for k, v in times.items()}
+    bound, by, nbytes, ops = analysis_bound(full.shape[0], tg)
+    _say("8 analysis", f"[{card}] song, {full.shape[0]} x {tg} granules: "
+                       f"kernel {times['kernel']} ms, bound {bound:.4f} ms by "
+                       f"{by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G int "
+                       f"ops), at {bound / best['kernel']:.1%} of it; plain "
+                       f"{times['plain']} ms (plain/kernel "
+                       f"{best['plain'] / best['kernel']:.1f}x)")
+    _say("8 analysis", f"[{card}] host preparation: _channel_streams_i16 "
+                       f"{(t1 - t0) * 1e3:.2f} ms, _padded_streams "
+                       f"{(t2 - t1) * 1e3:.2f} ms; upload "
+                       f"({padded.nbytes / 1e6:.1f} MB) {up_ms:.2f} ms (CUDA "
+                       f"events); host C++ twin {host_ms:.1f} ms")
+    del full
+    torch.cuda.empty_cache()
+    return seconds, dict(max_abs_err=0, ms=best["kernel"],
+                         plain_ms=best["plain"], bound_ms=bound, bound_by=by,
+                         library_ms=None)
+
+
 def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
                   s64: Steganography, s32: Steganography,
                   runs: Paths) -> dict:
@@ -318,23 +440,9 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
     with the façade's hide in float64 (the default) and in float32, each a
     counted main path. Returns the song's clear encode bytes, the seeded
     song's WAV, the 90 % hide's bits and bytes, its MP3 and its message."""
-    # ---- phase 8: the Q31 analysis on the card against the host C++ twin
-    w = read_wav(wav64, 320)
-    seconds = w.num_of_samples / w.samplerate
-    tg = 2 * -(-w.num_of_samples // 1152)          # granules per channel
-    streams = np.stack([w.buffer[0::2], w.buffer[1::2]])
-    t0 = time.perf_counter()
-    want = EP.run_analysis_native(streams, tg)
-    host_ms = (time.perf_counter() - t0) * 1e3
-    got = EP.run_analysis_device(streams, tg, dev)
-    card_ms = _time_ms(lambda: EP.run_analysis_device(streams, tg, dev), 3)
-    if not np.array_equal(got.cpu().numpy(), want):
-        raise AssertionError("card analysis != native encode_analysis")
-    _say("8 analysis", f"[{card}] {tuple(got.shape)} int32: bitwise equal to "
-                       f"the native encode_analysis; card {card_ms:.2f} ms "
-                       f"(CUDA events, int16 upload included), host C++ "
-                       f"{host_ms:.1f} ms")
-    del got
+    # ---- phase 8: K3 on the card bit for bit its plain version and the
+    # host C++ twin, on the song and the edge streams; its time
+    seconds, k3 = analysis_phase(dev, card, wav64)
 
     # ---- phase 9: encode, goldens byte for byte, then the song
     sg = np.load(os.path.join(GOLD, "stego_golden.npz"))
@@ -388,7 +496,8 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
                      f"{host_s * 1e3:.1f} ms")
     _say_stages("9 encode", card, [o[1].timer.times for o in outs])
     _say("9 encode", f"redo lanes by flag: {enc.redo_stats} of "
-                     f"{2 * tg} lanes")
+                     f"{2 * enc._num_frames() * enc.granules_per_frame} "
+                     f"lanes")
 
     # ---- phase 10: hide, goldens byte for byte, then the song
     msgs = {"hidden_short": "ddd", "hidden_long": sg["msg_long"].tobytes()
@@ -460,7 +569,7 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
     t0 = time.perf_counter()
     if runs.run("façade hide, float64 decode", F64,
                 lambda: s64.hide_message(song, hidden, msg),
-                kernels=("synth_fused", "search")):
+                kernels=("synth_fused",) + ENCODE):
         raise AssertionError("a 90 % message did not fit")
     facade_s = time.perf_counter() - t0
     with open(hidden, "rb") as f:
@@ -479,7 +588,7 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
     hidden32 = os.path.join(tmp, "song_hidden32.mp3")
     if runs.run("façade hide, float32 decode", F32,
                 lambda: s32.hide_message(song, hidden32, msg),
-                kernels=("synth_fused", "search")):
+                kernels=("synth_fused",) + ENCODE):
         raise AssertionError("float32 hide: the message did not fit")
     hide_launches = runs.log[-1][2]
     s32.reveal_massage(hidden32, txt)
@@ -489,7 +598,7 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
     cleared = os.path.join(tmp, "song_clear32.mp3")
     runs.run("façade clear, float32 decode", F32,
              lambda: s32.clear_file(song, cleared),
-             kernels=("synth_fused", "search"))
+             kernels=("synth_fused",) + ENCODE)
     wav32 = os.path.join(tmp, "song32b.wav")
     s32.decode_mp3_to_wav(song, wav32)
     plain = os.path.join(tmp, "song_plain32.mp3")
@@ -502,7 +611,7 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
                        f"in clear_file {runs.log[-1][2]}; clear_file bytes "
                        f"equal a plain encode of the same decode")
     return dict(clear_bytes=clear_b, seeded_wav=wav_s, hide_bits=bits,
-                hide_bytes=card_b, hidden=hidden, msg=msg)
+                hide_bytes=card_b, hidden=hidden, msg=msg, k3=k3)
 
 
 def _write(path: str, data: bytes) -> str:
@@ -778,9 +887,8 @@ def streaming_encode_phase(dev, card: str, tmp: str, wav64: str,
     planes on the card, clear and the 90 % hide, at windows of 512 and of 7
     frames, each byte for byte the whole-file card encode; the host C++
     chain (``device_search=False``) beside it, each a counted main path
-    (K4 searches every window). The analysis is plain torch, so the card's
-    part also shows as the allocations made on it and their peak (one
-    window's tensors)."""
+    (K3 analyses and K4 searches every window); the allocations made on the
+    card and their peak (one window's tensors)."""
     from mp3stego_tpu_torch.models.streaming import encode_file_streaming
     out = os.path.join(tmp, "song_stream.mp3")
     torch.cuda.reset_peak_memory_stats()
@@ -1287,13 +1395,13 @@ def main() -> int:
         host_lib = pool.submit(native.get_lib)
         built = [pool.submit(_cuda.load, name, mod._SIGNATURES)
                  for name, mod in (("synth", sf), ("huffman", hd),
-                                   ("search", SP))]
+                                   ("search", SP), ("analysis", EP))]
         for b in built:
             b.result()
         if host_lib.result() is None:
             raise RuntimeError("the native host library did not build or "
                                "load")
-    for name in ("synth", "huffman", "search"):
+    for name in ("synth", "huffman", "search", "analysis"):
         info = _cuda.builds[name]
         _say("1 build", f"csrc/{name}.cu -> "
                         f"{os.path.relpath(info['path'], REPO)} in "
@@ -1305,6 +1413,9 @@ def main() -> int:
         g, smem = sf.tile(dtype)
         _say("1 build", f"{dtype}: {g} granules and {smem} B of shared "
                         f"memory per CTA")
+    g, smem = EP.tile()
+    _say("1 build", f"analysis: {g} granules and {smem} B of shared memory "
+                    f"per CTA")
     _say("1 build", f"kernels and native host library (in parallel) in "
                     f"{time.perf_counter() - t0:.2f} s")
 
@@ -1588,7 +1699,11 @@ def main() -> int:
         replaces="mp3stego_tpu/ops/pallas_kernels.py:42",
         launches=runs.launches("synth_fused", dtype),
         max_abs_err=errs[dtype], **timing[dtype]) for dtype in (F64, F32)]
-        + [huffman_row, search_row]}))
+        + [huffman_row, search_row, dict(
+            name="analysis_mdct", route="cuda",
+            source="mp3stego_tpu_torch/csrc/analysis.cu",
+            replaces="mp3stego_tpu/ops/encode_plane.py:35",
+            launches=runs.launches("analysis"), **enc_out["k3"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

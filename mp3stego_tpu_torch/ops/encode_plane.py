@@ -16,12 +16,20 @@ products and reductions. Every product is int64 shifted and narrowed to int32
 bit-exact against the sequential reference and against the host C++ twin
 (``run_analysis_native``, ``mp3stego_tpu/native/src/encode_plane.cpp``).
 
-A whole song does not fit the int64 product tensors at once (the filter step
-alone is (ch, steps, 32, 64) int64), so ``run_analysis_device`` runs it in
-granule chunks, each with one granule of MDCT context and 480 samples of
-filterbank history in front.
+* ``analysis_stream`` — the wrapper every caller goes through. A CPU tensor
+  takes the plain version; a CUDA tensor launches ``csrc/analysis.cu`` (one
+  launch over the whole stream; it replaces the JAX package's XLA program
+  ``mp3stego_tpu/ops/encode_plane.py::analysis_mdct``) or raises. There is
+  no fallback from the card to the plain version.
+* ``analysis_stream_torch`` — the plain PyTorch version over
+  :func:`analysis_mdct`. A whole song does not fit its int64 product tensors
+  at once (the filter step alone is (ch, steps, 32, 64) int64), so it runs in
+  granule chunks, each with one granule of MDCT context and 480 samples of
+  filterbank history in front. The kernel equals it bit for bit.
+* ``launches`` — how many times the kernel was launched in this process.
 """
 
+import ctypes
 import functools
 
 import numpy as np
@@ -31,7 +39,18 @@ from mp3stego_tpu_torch import tables as T
 from mp3stego_tpu_torch.ops import fixedpoint as fx
 
 _PAST = 480          # deepest lookback of the window: 31 - 63 - 448 = -480
-CHUNK_G = 1024       # granules per chunk of run_analysis_device
+CHUNK_G = 1024       # granules per chunk of analysis_stream_torch
+
+launches = 0
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "analysis_mdct": (ctypes.c_int, (
+        _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,    # pcm .. skip
+        _P, _P, _P, _P, _P,                                   # tables
+        _P, _P)),                                             # out, stream
+    "analysis_tile": (ctypes.c_int, (_P, _P)),
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,24 +120,19 @@ def run_analysis_device(pcm_i16: np.ndarray, num_granules: int, device,
     """Raw int16 streams (ch, n) -> resident (ch, Tg, 576) int32 spectra on
     ``device``.
 
-    The int16 PCM crosses to the device once and is upshifted there; the
-    plane runs in chunks of ``chunk_g`` granules, each reading one granule
-    of MDCT context and 480 samples of history before it, so the result is
-    the same for every chunk size."""
+    The int16 PCM crosses to the device once and is upshifted there, by the
+    kernel on the card (``chunk_g`` bounds only the plain version's memory
+    on the CPU)."""
     full = torch.from_numpy(_padded_streams(pcm_i16, num_granules)).to(device)
     return analysis_stream(full, chunk_g)
 
 
-def analysis_stream(full: torch.Tensor, chunk_g: int = CHUNK_G,
-                    skip: int = 0) -> torch.Tensor:
-    """Resident int16 streams (ch, 480 + Tg * 576), their 480 samples of
-    filterbank history in front, -> (ch, Tg - skip, 576) int32 spectra of
-    granules ``skip`` onward, in chunks of ``chunk_g`` granules.
-
-    A window of a longer stream (``models/streaming``) passes its slice with
-    the history before it and ``skip=1``: its first granule is the MDCT
-    context of the next, so the window's spectra equal the same granules of
-    the whole stream's."""
+def analysis_stream_torch(full: torch.Tensor, chunk_g: int = CHUNK_G,
+                          skip: int = 0) -> torch.Tensor:
+    """Plain version of :func:`analysis_stream` on ``full``'s device: the
+    eager plane in chunks of ``chunk_g`` granules, each reading one granule
+    of MDCT context and 480 samples of history before it, so the result is
+    the same for every chunk size."""
     num_granules = (full.shape[1] - _PAST) // 576
     parts = []
     a = skip
@@ -132,6 +146,91 @@ def analysis_stream(full: torch.Tensor, chunk_g: int = CHUNK_G,
         return torch.zeros((full.shape[0], 0, 576), dtype=torch.int32,
                            device=full.device)
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _check(full: torch.Tensor, skip: int):
+    """What the wrapper takes: int16 streams (ch, 480 + Tg * 576), skip >=
+    0, on the CPU or the card (there C-contiguous)."""
+    if full.dim() != 2 or full.dtype != torch.int16 or full.shape[0] < 1:
+        raise ValueError(f"the analysis wants int16 streams (ch, 480 + Tg * "
+                         f"576), got {tuple(full.shape)} {full.dtype}")
+    if full.shape[1] < _PAST or (full.shape[1] - _PAST) % 576:
+        raise ValueError(f"a stream of {full.shape[1]} samples is not 480 + "
+                         f"Tg * 576")
+    if skip < 0:
+        raise ValueError(f"skip must be >= 0, got {skip}")
+    if full.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the analysis runs on CPU or CUDA tensors, got "
+                         f"{full.device}")
+    if full.device.type == "cuda" and not full.is_contiguous():
+        raise ValueError("the CUDA analysis takes C-contiguous streams")
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tables(device: torch.device) -> tuple:
+    """The kernel's tables: the window (512,) and the filter (32, 64) int32
+    on ``device``, the MDCT cosines (18, 36) and the alias coefficients
+    (8,) int32 on the host (the launch copies them into its parameters).
+    Raises if the window does not fit int32 (the kernel's products are
+    int32 x int32)."""
+    win = np.asarray(T.ENWINDOW, np.int64)
+    if not np.array_equal(win, win.astype(np.int32)):
+        raise ValueError("the analysis window does not fit int32")
+    _, fl, cos_l, cs, ca = _native_tables()
+    dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return dev(win.astype(np.int32)), dev(fl), cos_l, cs, ca
+
+
+def tile() -> tuple:
+    """(output granules, dynamic shared memory bytes) per CTA of the
+    kernel; builds it on first use."""
+    from mp3stego_tpu_torch.ops import _cuda
+    lib = _cuda.load("analysis", _SIGNATURES)
+    g, smem = ctypes.c_int(), ctypes.c_int()
+    lib.analysis_tile(ctypes.byref(g), ctypes.byref(smem))
+    return g.value, smem.value
+
+
+def analysis_stream(full: torch.Tensor, chunk_g: int = CHUNK_G,
+                    skip: int = 0) -> torch.Tensor:
+    """Resident int16 streams (ch, 480 + Tg * 576), their 480 samples of
+    filterbank history in front, -> (ch, Tg - skip, 576) int32 spectra of
+    granules ``skip`` onward. Granule 0 reads a zero previous granule, every
+    other one the granule before it.
+
+    A window of a longer stream (``models/streaming``) passes its slice with
+    the history before it and ``skip=1``: its first granule is the MDCT
+    context of the next, so the window's spectra equal the same granules of
+    the whole stream's.
+
+    On a CUDA tensor this launches the hand-written kernel once on the
+    current stream (none when no granule is asked for); a build or launch
+    fault raises. A CPU tensor takes :func:`analysis_stream_torch`, whose
+    memory ``chunk_g`` bounds."""
+    global launches
+    _check(full, skip)
+    if full.device.type == "cpu":
+        return analysis_stream_torch(full, chunk_g, skip)
+    ch = full.shape[0]
+    tg = (full.shape[1] - _PAST) // 576
+    out = torch.empty((ch, max(0, tg - skip), 576), dtype=torch.int32,
+                      device=full.device)
+    if tg <= skip:
+        return out
+    from mp3stego_tpu_torch.ops import _cuda
+    lib = _cuda.load("analysis", _SIGNATURES)
+    win, fl, cos_l, cs, ca = _kernel_tables(full.device)
+    stream = torch.cuda.current_stream(full.device).cuda_stream
+    with torch.cuda.device(full.device):
+        rc = lib.analysis_mdct(
+            full.data_ptr(), ch, tg, skip, win.data_ptr(), fl.data_ptr(),
+            cos_l.ctypes.data, cs.ctypes.data, ca.ctypes.data,
+            out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"analysis_mdct kernel launch failed: CUDA error "
+                           f"{rc}")
+    launches += 1
+    return out
 
 
 @functools.lru_cache(maxsize=1)

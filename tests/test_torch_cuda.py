@@ -268,6 +268,58 @@ def test_card_analysis_equals_cpu(card):
     assert torch.equal(got.cpu(), want)
 
 
+def _analysis_pcm(kind, ch, n, seed):
+    """(ch, n) int16: seeded noise, a full-scale square wave (the Q31 sums
+    wrap) or a two-tone "music" signal with noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    if kind == "noise":
+        return rng.integers(-32768, 32768, size=(ch, n)).astype(np.int16)
+    if kind == "square":
+        sq = np.where((t // 50) % 2 == 0, 32767, -32768)
+        return np.stack([np.roll(sq, 17 * c) for c in range(ch)]) \
+            .astype(np.int16)
+    sig = (0.6 * np.sin(2 * np.pi * 440 * t / 44100)
+           + 0.3 * np.sin(2 * np.pi * 3111 * t / 44100)
+           + 0.05 * rng.standard_normal(n))
+    return np.clip(np.stack([sig, sig[::-1]][:ch]) * 30000, -32768,
+                   32767).astype(np.int16)
+
+
+@pytest.mark.parametrize("kind", ["noise", "square", "music"])
+@pytest.mark.parametrize("skip", [0, 1])
+@pytest.mark.parametrize("ch", [1, 2])
+@pytest.mark.parametrize("tg", [1, 2, 7, 9, 300, 18432])
+def test_analysis_kernel_equals_plain_version(card, tg, ch, skip, kind):
+    """K3 (``csrc/analysis.cu``) bit for bit its plain version on the card,
+    one launch a call (none for an empty result); the stream carries 480
+    samples of nonzero history in front."""
+    from mp3stego_tpu_torch.ops import encode_plane as EP
+    full = torch.from_numpy(_analysis_pcm(kind, ch, 480 + tg * 576,
+                                          tg + ch)).to(card)
+    before = EP.launches
+    got = EP.analysis_stream(full, skip=skip)
+    want = EP.analysis_stream_torch(full, skip=skip)
+    torch.cuda.synchronize()
+    assert EP.launches == before + (1 if tg > skip else 0)
+    assert got.shape == want.shape == (ch, tg - skip, 576)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_analysis_kernel_refuses_what_it_cannot_launch(card):
+    from mp3stego_tpu_torch.ops import encode_plane as EP
+    full = torch.from_numpy(_analysis_pcm("noise", 2, 480 + 4 * 576, 1)) \
+        .to(card)
+    with pytest.raises(ValueError, match="int16"):
+        EP.analysis_stream(full.to(torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        EP.analysis_stream(full.T.contiguous().T)
+    with pytest.raises(ValueError, match="480"):
+        EP.analysis_stream(full[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="skip"):
+        EP.analysis_stream(full, skip=-1)
+
+
 @pytest.mark.parametrize("mode", ["clear", "hide"])
 def test_card_search_rows_equal_cpu(card, mode):
     """The golden fixture's spectra plus loud seeded lanes (float64-fallback

@@ -1,0 +1,189 @@
+#!/usr/bin/env python3
+"""The port's encode paths on the card against a parent commit's, in turns.
+
+    git archive <parent commit> | tar -x -C build/parent
+    python3 tools/encode_vs_parent.py --parent build/parent \
+        [--out chiprun_out/encode_vs_parent.json]
+
+Run from the root of a checkout, on one CUDA card. It writes
+``chip_smoke.py``'s song (the 320 kbps golden re-encode with one zero byte
+appended, 256 copies: 240.7 s of 44.1 kHz stereo) and its WAV (the host C++
+float64 decode), then runs a worker process on each tree in the order
+parent, this checkout, this checkout, parent. Each worker imports
+``mp3stego_tpu_torch`` from its tree, warms up with one encode, and times on
+the card (host clock, each run ending in a synchronise): the clear encode,
+the hide of 90 % of the song's channel bits (seeded), the VBR encode at 128
+kbps (each the median of 3, with the median of its "analysis+mdct (device)"
+stage), the batched encode of 4 stereo 30 s slices, and the streaming
+encode, clear and hidden in 512-frame windows and clear in 7-frame windows
+(each once). Every output's SHA-256 must be the same in all four workers.
+It writes the record as JSON and prints it with the card's ``nvidia-smi``
+name and power limit.
+"""
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SONG_COPIES = 256
+HIDE_SHARE = 0.9
+
+
+def _card_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def worker(root: str, tmp: str) -> dict:
+    """Times every encode path of the tree at ``root`` on the card."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    import mp3stego_tpu_torch
+    if not mp3stego_tpu_torch.__file__.startswith(root):
+        raise RuntimeError(f"imported {mp3stego_tpu_torch.__file__}, not "
+                           f"the tree at {root}")
+    from mp3stego_tpu_torch.models.encoder import MP3Encoder
+    from mp3stego_tpu_torch.models.streaming import encode_file_streaming
+    from mp3stego_tpu_torch.parallel import encode_files_batched
+    from mp3stego_tpu_torch.utils.wav import read_wav, write_wav
+    dev = torch.device("cuda")
+    wav = os.path.join(tmp, "song.wav")
+    out, sha, stage = {}, {}, {}
+
+    def encode(bits="", kbps=320, vbr=False):
+        enc = MP3Encoder(read_wav(wav, kbps), hide_str=bits, device=dev,
+                         vbr=vbr)
+        enc.encode()
+        torch.cuda.synchronize()
+        return enc
+
+    def timed(name, fn, runs):
+        walls, res = [], None
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            res = fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[name] = walls
+        return res
+
+    def stages(name, encs):
+        ms = sorted(e.timer.times["analysis+mdct (device)"] * 1e3
+                    for e in encs)
+        stage[name] = ms[len(ms) // 2]
+
+    usable = encode().hide_str_offset                       # warm-up
+    bits = "".join(np.random.default_rng(11).choice(
+        ["0", "1"], size=int(usable * HIDE_SHARE)))
+    encs = []
+    timed("clear encode", lambda: encs.append(encode()), 3)
+    stages("clear encode", encs)
+    sha["clear encode"] = hashlib.sha256(encs[-1].out_buffer).hexdigest()
+    encs = []
+    timed("hide encode", lambda: encs.append(encode(bits)), 3)
+    stages("hide encode", encs)
+    sha["hide encode"] = hashlib.sha256(encs[-1].out_buffer).hexdigest()
+    encs = []
+    timed("VBR encode", lambda: encs.append(encode(kbps=128, vbr=True)), 3)
+    stages("VBR encode", encs)
+    sha["VBR encode"] = hashlib.sha256(encs[-1].out_buffer).hexdigest()
+
+    pcm = read_wav(wav, 320).buffer.reshape(-1, 2)
+    n30 = 30 * 44100
+    jobs = []
+    for k in range(4):
+        a = k * (pcm.shape[0] - n30) // 3
+        path = os.path.join(tmp, f"{os.getpid()}_{k}.wav")
+        write_wav(path, 44100, pcm[a:a + n30])
+        jobs.append((path, path[:-3] + "mp3"))
+    timed("batched encode", lambda: (encode_files_batched(jobs, device=dev),
+                                     torch.cuda.synchronize()), 1)
+    h = hashlib.sha256()
+    for _, mp3 in jobs:
+        with open(mp3, "rb") as f:
+            h.update(f.read())
+    sha["batched encode"] = h.hexdigest()
+    mp3 = os.path.join(tmp, f"{os.getpid()}_stream.mp3")
+    for name, chunk, hide in (("streaming clear, 512-frame windows", 512, ""),
+                              ("streaming hide, 512-frame windows", 512, bits),
+                              ("streaming clear, 7-frame windows", 7, "")):
+        timed(name, lambda: (encode_file_streaming(
+            wav, mp3, 320, chunk, hide_str=hide, device=dev),
+            torch.cuda.synchronize()), 1)
+        with open(mp3, "rb") as f:
+            sha[name] = hashlib.sha256(f.read()).hexdigest()
+    return dict(root=root, walls_ms=out, analysis_stage_ms=stage, sha=sha)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True,
+                    help="a copy of the parent commit's tree")
+    ap.add_argument("--out", default=os.path.join(
+        REPO, "chiprun_out", "encode_vs_parent.json"))
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--tmp", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        print(json.dumps(worker(args.worker, args.tmp)))
+        return 0
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card visible to torch")
+    sys.path.insert(0, REPO)
+    from mp3stego_tpu_torch import Steganography
+    card = _card_line()
+    trees = {"parent": os.path.abspath(args.parent), "change": REPO}
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        mp3 = np.load(os.path.join(REPO, "tests", "golden",
+                                   "encode_golden.npz"))["mp3_bytes"]
+        song = os.path.join(tmp, "song.mp3")
+        with open(song, "wb") as f:
+            f.write((mp3.tobytes() + b"\0") * SONG_COPIES)
+        Steganography(quiet=True, device="cpu").decode_mp3_to_wav(
+            song, os.path.join(tmp, "song.wav"))
+        for which in ("parent", "change", "change", "parent"):
+            r = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--parent",
+                 trees["parent"], "--worker", trees[which], "--tmp", tmp],
+                capture_output=True, text=True, timeout=1200,
+                cwd=trees[which])
+            if r.returncode != 0:
+                raise RuntimeError(f"{which} worker exited {r.returncode}:\n"
+                                   f"{r.stdout}{r.stderr}")
+            runs.append(dict(tree=which,
+                             **json.loads(r.stdout.strip().splitlines()[-1])))
+    for r in runs[1:]:
+        if r["sha"] != runs[0]["sha"]:
+            raise AssertionError(f"{r['tree']} wrote other bytes than "
+                                 f"{runs[0]['tree']}: {r['sha']} vs "
+                                 f"{runs[0]['sha']}")
+    med = {}
+    for name in runs[0]["walls_ms"]:
+        for which in ("parent", "change"):
+            walls = sorted(w for r in runs if r["tree"] == which
+                           for w in r["walls_ms"][name])
+            med.setdefault(name, {})[which] = walls[len(walls) // 2]
+    record = dict(card=card, torch=torch.__version__, order=[
+        r["tree"] for r in runs], median_ms=med, runs=runs)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(record, f, indent=1)
+    print(card)
+    print(json.dumps(dict(card=card, median_ms=med, analysis_stage_ms=[
+        (r["tree"], r["analysis_stage_ms"]) for r in runs])))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
