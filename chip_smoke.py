@@ -5,10 +5,11 @@
 
 Run from the root of a checkout, on a machine with one CUDA card (Hopper:
 the kernels are built for sm_90a). It builds every kernel of the port's
-paths from the sources in the checkout (the fused synthesis kernel K1,
-``csrc/synth.cu``, in float32 and float64, the Huffman bit-scan,
-``csrc/huffman.cu``, the Q31 encode analysis K3, ``csrc/analysis.cu``, and
-the rate-control search K4, ``csrc/search.cu``),
+paths from the sources in the checkout (the decode granule plane K2,
+``csrc/granule.cu``, and the fused synthesis kernel K1, ``csrc/synth.cu``,
+each in float32 and float64, the Huffman bit-scan, ``csrc/huffman.cu``, the
+Q31 encode analysis K3, ``csrc/analysis.cu``, and the rate-control search
+K4, ``csrc/search.cu``),
 holds each against its plain PyTorch version bit for bit (and times a
 library pair that computes K1's function), drives every
 entry point at a size users send (one 240.7-second 320 kbps stereo song
@@ -105,9 +106,24 @@ K4_OPS_PAIR_HIDE = K4_OPS_PAIR + 4
 # 64, MDCT 32 x 18 x 36), a multiply-high and an add each, and 31 x 8 alias
 # butterflies of 8 (4 products, 2 sums, 2 shifts)
 K3_OPS_GRANULE = 2 * (18 * 512 + 18 * 32 * 64 + 32 * 18 * 36) + 8 * 31 * 8
+# separately rounded operations of K2's function (the note in
+# csrc/granule.cu), counted from decode_plane.granule_blocks_torch and
+# charged to what this run's data takes: per sample the requantize (the
+# sign, two products); per MS granule and sample index a sum, a difference
+# and two divisions; per intensity sample two products; per alias
+# butterfly 4 products and 2 sums (248 a long granule, 8 an ISO-mixed one);
+# per long band 36 x 18 products and sums and 36 window products; per short
+# band 3 x 12 x 6 products and sums, 36 window products and 12 overlap sums
+K2_OPS_SAMPLE = 3
+K2_OPS_MS = 4
+K2_OPS_IS = 2
+K2_OPS_BUTTERFLY = 6
+K2_OPS_LONG_BAND = 36 * 18 * 2 + 36
+K2_OPS_SHORT_BAND = 3 * 12 * 6 * 2 + 36 + 12
 # the hand kernels, each module with its wrapper's launch count
-KERNELS = {"synth_fused": sf, "huffman_scan": hd, "search": SP,
-           "analysis": EP}
+KERNELS = {"granule": dp, "synth_fused": sf, "huffman_scan": hd,
+           "search": SP, "analysis": EP}
+DECODE = ("granule", "synth_fused")          # the kernels a decode runs
 ENCODE = ("search", "analysis")              # the kernels an encode runs
 
 
@@ -188,7 +204,7 @@ class Paths:
     def __init__(self):
         self.log = []                        # (name, dtype, {kernel: n})
 
-    def run(self, name: str, dtype, fn, kernels=("synth_fused",)):
+    def run(self, name: str, dtype, fn, kernels=DECODE):
         for mod in KERNELS.values():
             mod.launches = 0
         out = fn()
@@ -569,7 +585,7 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
     t0 = time.perf_counter()
     if runs.run("façade hide, float64 decode", F64,
                 lambda: s64.hide_message(song, hidden, msg),
-                kernels=("synth_fused",) + ENCODE):
+                kernels=DECODE + ENCODE):
         raise AssertionError("a 90 % message did not fit")
     facade_s = time.perf_counter() - t0
     with open(hidden, "rb") as f:
@@ -588,7 +604,7 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
     hidden32 = os.path.join(tmp, "song_hidden32.mp3")
     if runs.run("façade hide, float32 decode", F32,
                 lambda: s32.hide_message(song, hidden32, msg),
-                kernels=("synth_fused",) + ENCODE):
+                kernels=DECODE + ENCODE):
         raise AssertionError("float32 hide: the message did not fit")
     hide_launches = runs.log[-1][2]
     s32.reveal_massage(hidden32, txt)
@@ -598,7 +614,7 @@ def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
     cleared = os.path.join(tmp, "song_clear32.mp3")
     runs.run("façade clear, float32 decode", F32,
              lambda: s32.clear_file(song, cleared),
-             kernels=("synth_fused",) + ENCODE)
+             kernels=DECODE + ENCODE)
     wav32 = os.path.join(tmp, "song32b.wav")
     s32.decode_mp3_to_wav(song, wav32)
     plain = os.path.join(tmp, "song_plain32.mp3")
@@ -716,9 +732,10 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     i16 = runs.run("batched decode, float32 int16", F32,
                     lambda: decode_files_batched(paths, out="int16",
                                                  device=dev))
-    if runs.last() != len(chunks):
-        raise AssertionError(f"batched decode: {runs.last()} K1 "
-                             f"launches for {len(chunks)} chunks")
+    if runs.last() != len(chunks) or runs.last("granule") != len(chunks):
+        raise AssertionError(f"batched decode: {runs.last()} K1 and "
+                             f"{runs.last('granule')} K2 launches for "
+                             f"{len(chunks)} chunks")
     audio_s, worst = 0.0, (0.0, "")
     for p, parsed, got in zip(paths, metas, i16):
         audio_s += got.shape[0] / parsed.header.sampling_rate
@@ -751,7 +768,7 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
                             f"{audio_s / wall:.1f}x realtime; float64 wall "
                             f"median {wall64 * 1e3:.1f} ms of "
                             f"{[round(x * 1e3, 1) for x in walls64]} -> "
-                            f"{audio_s / wall64:.1f}x realtime; K1 launches "
+                            f"{audio_s / wall64:.1f}x realtime; K2 and K1 launches "
                             f"{len(chunks)} a run (one per chunk); one file "
                             f"at a time (read, parse, float32 card plane) "
                             f"{single_s * 1e3:.1f} ms")
@@ -849,7 +866,8 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     _say("15 streaming", f"[{card}] song ({info['num_frames']} frames): "
                          f"streaming decode WAV on the card equals the "
                          f"whole-file float64 WAV ({dec_s * 1e3:.1f} ms, "
-                         f"{runs.last()} K1 launches; host C++ plane "
+                         f"{runs.last('granule')} K2 and {runs.last()} K1 "
+                         f"launches; host C++ plane "
                          f"{host_s * 1e3:.1f} ms)")
     streaming_encode_phase(dev, card, tmp, wav64, enc_out, runs)
 
@@ -1075,7 +1093,7 @@ def huffman_phase(dev, card: str, tmp: str, song: str, enc_out: dict,
     del words, fields, out
 
     # Decoder on the song with each engine, in both precisions
-    both = ("synth_fused", "huffman_scan")
+    both = DECODE + ("huffman_scan",)
     for precision, dtype in (("float64", F64), ("float32", F32)):
         wavs = {e: os.path.join(tmp, f"song_{e}_{precision}.wav")
                 for e in ("host", "device")}
@@ -1098,7 +1116,8 @@ def huffman_phase(dev, card: str, tmp: str, song: str, enc_out: dict,
                                  f"differ")
         _say("16 huffman", f"[{card}] song {precision}: the device-Huffman "
                            f"decode ({runs.last('huffman_scan')} scan and "
-                           f"{runs.last()} K1 launches in 4 decodes) writes "
+                           f"{runs.last('granule')} K2 and {runs.last()} K1 "
+                           f"launches in 4 decodes) writes "
                            f"the host parse's WAV bytes and stego bits; wall "
                            f"median {dev_wall * 1e3:.1f} ms of "
                            f"{[round(w * 1e3, 1) for w in dev_walls]}, host "
@@ -1371,6 +1390,200 @@ def fused_bound(rows: int, tt: int, dtype, out: str):
     return by_ops, "operations", nbytes, ops
 
 
+def granule_bound(prep: dict, dtype):
+    """The least time for K2's work on the card: (bytes that must move: the
+    kernel's inputs as the prep holds them, the int8 sample plane with its
+    escapes and their index or the int32 plane, the side information, the
+    static maps and the tables, read once, the (2, T, 32, 36) blocks written
+    once) over HBM's rate, against (the ``K2_OPS_*`` operations this prep's
+    granules take) over the non-fused peak of ``dtype``. Returns (ms,
+    "bytes" or "operations", bytes, operations)."""
+    inputs = [t for t in dp.kernel_inputs(prep, dtype) if t is not None]
+    tt = inputs[0].shape[1]
+    es = torch.finfo(dtype).bits // 8
+    nbytes = sum(t.numel() * t.element_size() for t in inputs) \
+        + es * 2 * tt * 32 * 36
+    mode = prep["mode"].long()
+    m3 = mode == 3
+    short_band = prep["is_short_blk"][..., None] \
+        & ~(m3[..., None] & prep["mix_long_band"][None, None])
+    n_short = int(short_band.sum())
+    butterflies = 248 * int((~prep["reorder_mask"] & ~m3).sum()) \
+        + 8 * int(m3.sum())
+    is_samples = 0
+    if bool(prep["is_mask"].any()):
+        pos = torch.gather(prep["is_pos"].long().reshape(tt, 88), 1,
+                           prep["slot_is"].long()[mode[1]])
+        is_samples = int(((pos >= 0) & prep["is_mask"][:, None]).sum())
+    ops = (2 * tt * 576 * K2_OPS_SAMPLE
+           + int(prep["ms_mask"].sum()) * 576 * K2_OPS_MS
+           + is_samples * K2_OPS_IS
+           + butterflies * K2_OPS_BUTTERFLY
+           + (2 * tt * 32 - n_short) * K2_OPS_LONG_BAND
+           + n_short * K2_OPS_SHORT_BAND)
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = ops / PEAK_OPS_S[dtype] * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes", nbytes, ops
+    return by_ops, "operations", nbytes, ops
+
+
+def hold_granule(name: str, prep: dict, errs: dict) -> None:
+    """K2 against its plain version on ``prep`` in both dtypes, bit for bit
+    with the signs of zero; the largest difference goes into
+    ``errs[dtype]``."""
+    for dtype in (F32, F64):
+        got = dp.granule_blocks(prep, dtype)
+        want = dp.granule_blocks_torch(prep, dtype)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} vs "
+                                 f"the plain {tuple(want.shape)} "
+                                 f"{want.dtype}")
+        err = float((got.double() - want.double()).abs().max())
+        errs[dtype] = max(errs.get(dtype, 0.0), err)
+        if not (torch.equal(got, want)
+                and torch.equal(got.signbit(), want.signbit())):
+            raise AssertionError(f"{name}: granule_blocks != "
+                                 f"granule_blocks_torch ({dtype}): max |d| "
+                                 f"{err}")
+
+
+def dense_prep(prep: dict) -> dict:
+    """``prep`` with its int8 plane and escapes replaced by the int32 plane
+    they stand for, as the device Huffman decode hands it over
+    (``raw_dense``)."""
+    raw = prep["raw_i8"].to(torch.int32)
+    t, ch, s = (prep[k].long() for k in ("exc_t", "exc_ch", "exc_s"))
+    raw[ch, t, s] = prep["exc_val"].to(torch.int32)
+    dense = {k: v for k, v in prep.items()
+             if k not in dp.RAW_KEYS + ("exc_start",)}
+    dense["raw_dense"] = raw
+    return dense
+
+
+def granule_song_phase(dev, card: str, prep: dict, errs: dict) -> dict:
+    """Phase 4's device plane: K2 bit for bit its plain version on the
+    song's prep in both dtypes, on the int8 plane with its escapes (the
+    host parse's route, every decode but the device-Huffman one) and on the
+    int32 plane; then, by CUDA events, the kernel on each plane (the
+    wrapper launches nothing else), the plain version whole and its four
+    stages apart, and K1; with the bound, and a float32 ``torch.matmul`` of
+    the long IMDCT alone beside them (one part of the function, not a
+    yardstick of all of it). Returns K2's measured fields of the kernels
+    line per dtype, from the int8 plane."""
+    dense = dense_prep(prep)
+    hold_granule("song, int8 plane", prep, errs)
+    hold_granule("song, dense plane", dense, errs)
+    out = {}
+    for dtype in (F32, F64):
+        fns = {"kernel": lambda: dp.granule_blocks(prep, dtype),
+               "kernel, int32 plane": lambda: dp.granule_blocks(dense, dtype),
+               "plain": lambda: dp.granule_blocks_torch(prep, dtype)}
+        for fn in fns.values():
+            fn()
+        times = {k: [] for k in fns}
+        for which in ("plain", "kernel", "kernel, int32 plane",
+                      "kernel, int32 plane", "kernel", "plain"):
+            times[which].append(_time_ms(fns[which], 1 if which == "plain"
+                                         else 20))
+        best = {k: min(v) for k, v in times.items()}
+        marks = []
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+        for _ in range(2):                     # the second pass is timed
+            marks.clear()
+            mark("start")
+            x = dp._requantize_stage(prep, dtype)
+            mark("requantize")
+            x = dp._stereo_stage(prep, x, dtype)
+            mark("stereo")
+            x = dp._reorder_alias_stage(prep, x, dtype)
+            mark("reorder_alias")
+            blk = dp._imdct_stage(prep, x, dtype)
+            mark("imdct")
+            dp.synth_from_blocks(blk, None, "int16", 2)
+            mark("synth (K1, int16)")
+            torch.cuda.synchronize()
+        stages = ", ".join(f"{name} {a.elapsed_time(b):.3f}" for (_, a), (
+            name, b) in zip(marks, marks[1:]))
+        del x, blk
+        bound, by, nbytes, ops = granule_bound(prep, dtype)
+        wide, wide_by, wide_bytes, _ = granule_bound(dense, dtype)
+        _say("4 K2", f"[{card}] {dtype} song ({dense['raw_dense'].shape[1]} "
+                     f"granules x 2 channels), int8 plane and "
+                     f"{prep['exc_t'].numel()} escapes: kernel "
+                     f"{times['kernel']} ms, bound {bound:.4f} ms by {by} "
+                     f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G ops), at "
+                     f"{bound / best['kernel']:.1%} of it; int32 plane: "
+                     f"kernel {times['kernel, int32 plane']} ms, bound "
+                     f"{wide:.4f} ms by {wide_by} ({wide_bytes / 1e6:.1f} "
+                     f"MB); plain {times['plain']} ms (plain/kernel "
+                     f"{best['plain'] / best['kernel']:.1f}x); plain stages, "
+                     f"ms: {stages}")
+        out[dtype] = dict(ms=best["kernel"], plain_ms=best["plain"],
+                          bound_ms=bound, bound_by=by, library_ms=None)
+    rows = dense["raw_dense"].shape[1] * 2 * 32
+    x = torch.randn((rows, 18), device=dev)
+    w = dp._c(F32, dev).c_long_t
+    mm = _time_ms(lambda: torch.matmul(x, w), 20)
+    _say("4 K2", f"[{card}] float32 long IMDCT alone as one torch.matmul "
+                 f"({rows}, 18) @ (18, 36), TF32 off: {mm:.4f} ms (one part "
+                 f"of K2's function; library_ms stays null)")
+    del dense, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def granule_phase(dev, card: str, tmp: str, song: str, errs: dict) -> None:
+    """Phase 18: K2 bit for bit its plain version in both dtypes on the
+    synthetic prep (also under MP3STEGO_TPU_REF_START_WINDOW=1), the 7
+    crafted streams, the 3 LSF and 5 multirate goldens (8 kHz MPEG-2.5
+    among them), a mono stream and the song's device-Huffman ``raw_dense``
+    prep."""
+    names = []
+    hold_granule("synthetic", dp.prep_to_torch(synthetic_prep(64), dev), errs)
+    before = os.environ.get("MP3STEGO_TPU_REF_START_WINDOW")
+    os.environ["MP3STEGO_TPU_REF_START_WINDOW"] = "1"
+    try:
+        hold_granule("synthetic, reference start window",
+                     dp.prep_to_torch(synthetic_prep(64), dev), errs)
+    finally:
+        if before is None:
+            del os.environ["MP3STEGO_TPU_REF_START_WINDOW"]
+        else:
+            os.environ["MP3STEGO_TPU_REF_START_WINDOW"] = before
+    crafted = np.load(os.path.join(GOLD, "crafted_golden.npz"))
+    lsf = np.load(os.path.join(GOLD, "torch_lsf_golden.npz"))
+    mr = np.load(os.path.join(GOLD, "multirate_golden.npz"))
+    streams = [(n, crafted[n].tobytes()) for n in sorted(crafted.files)]
+    streams += [(n, lsf[n].tobytes()) for n in sorted(lsf.files)]
+    streams += [(t, mr[f"mp3_{t}"].tobytes()) for t in (
+        "32000_64", "32000_192", "44100_128", "48000_96", "48000_320")]
+    with open(os.path.join(tmp, "b_mono.mp3"), "rb") as f:
+        streams.append(("mono 30 s", f.read()))
+    for name, data in streams:
+        parsed = dh.parse_mp3(data)
+        if name.startswith("mono") and parsed.header.channels != 1:
+            raise AssertionError("the mono stream is not mono")
+        hold_granule(name, dp.prep_to_torch(dp.host_prepare(parsed), dev),
+                     errs)
+        names.append(name)
+    with open(song, "rb") as f:
+        parsed, desc = dh.parse_mp3_light(f.read())
+    prep = dp.prep_to_torch(dp.host_prepare(parsed, raw=False), dev)
+    prep["raw_dense"] = hd.decode_raw_device(desc, dev)
+    hold_granule("song, device-Huffman raw_dense", prep, errs)
+    _say("18 K2", f"granule_blocks bitwise equal to granule_blocks_torch "
+                  f"(signs of zero included) in float32 and float64 on the "
+                  f"synthetic prep (also with the reference start window), "
+                  f"{', '.join(names)} and the song's device-Huffman plane")
+
+
 def main() -> int:
     # ---- phase 0: card and precision
     if not torch.cuda.is_available():
@@ -1391,17 +1604,18 @@ def main() -> int:
     # ---- phase 1: build the kernels (one nvcc per source, sm_90a) and the
     # host library (g++), all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         host_lib = pool.submit(native.get_lib)
         built = [pool.submit(_cuda.load, name, mod._SIGNATURES)
-                 for name, mod in (("synth", sf), ("huffman", hd),
-                                   ("search", SP), ("analysis", EP))]
+                 for name, mod in (("granule", dp), ("synth", sf),
+                                   ("huffman", hd), ("search", SP),
+                                   ("analysis", EP))]
         for b in built:
             b.result()
         if host_lib.result() is None:
             raise RuntimeError("the native host library did not build or "
                                "load")
-    for name in ("synth", "huffman", "search", "analysis"):
+    for name in ("granule", "synth", "huffman", "search", "analysis"):
         info = _cuda.builds[name]
         _say("1 build", f"csrc/{name}.cu -> "
                         f"{os.path.relpath(info['path'], REPO)} in "
@@ -1498,7 +1712,8 @@ def main() -> int:
         want = _wav_i16(wav64)
         seconds = want.size / 2 / 44100
         _say("4 slice", f"{seconds:.2f} s song: the default decode (float64 "
-                        f"on the card, {runs.last()} K1 launches in 4 "
+                        f"on the card, {runs.last('granule')} K2 and "
+                        f"{runs.last()} K1 launches in 4 "
                         f"decodes) writes the host C++ plane's WAV bytes")
         _say("4 slice", f"[{card}] float64 card decode wall median "
                         f"{wall64 * 1e3:.1f} ms of "
@@ -1529,43 +1744,13 @@ def main() -> int:
                         f"{peak / 2**20:.1f} MiB")
         _say_stages("4 slice float32", card, stages)
 
-        # device plane by stage, CUDA events, on the song's prep
+        # K2 on the song's prep: bit for bit its plain version, then timed
+        # with its plain version's stages and K1 (CUDA events)
         with open(song, "rb") as f:
             parsed = dh.parse_mp3(f.read())
         prep = dp.prep_to_torch(dp.host_prepare(parsed), dev)
-        for dtype in (F32, F64):
-            marks = []
-
-            def mark(name):
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks.append((name, ev))
-
-            for _ in range(2):                 # the second pass is timed
-                marks.clear()
-                mark("start")
-                x = dp._requantize_stage(prep, dtype)
-                mark("requantize")
-                x = dp._stereo_stage(prep, x, dtype)
-                mark("stereo")
-                x = dp._reorder_alias_stage(prep, x, dtype)
-                mark("reorder_alias")
-                blk = dp._imdct_stage(prep, x, dtype)
-                mark("imdct")
-                i16 = dp.synth_from_blocks(blk, None, "int16", 2)
-                mark("synth (K1, int16)")
-                torch.cuda.synchronize()
-            total = marks[0][1].elapsed_time(marks[-1][1])
-            for (_, a), (name, b) in zip(marks, marks[1:]):
-                ms = a.elapsed_time(b)
-                _say("4 slice", f"[{card}] {dtype} device {name}: {ms:.3f} "
-                                f"ms ({ms / total * 100:.1f}%)")
-            _say("4 slice", f"[{card}] {dtype} device plane total "
-                            f"{total:.3f} ms")
-            if not torch.equal(i16, dp.decode_granules_i16(prep, dtype)):
-                raise AssertionError("staged device plane != "
-                                     "decode_granules_i16")
-            del x, blk, i16
+        k2_errs = {}
+        k2 = granule_song_phase(dev, card, prep, k2_errs)
 
         # ---- phase 5: the default decode on the card against the host C++
         # plane, byte for byte, on every golden and crafted stream; float32
@@ -1594,7 +1779,8 @@ def main() -> int:
                     open(os.path.join(tmp, f"{n}_host.wav"), "rb") as b:
                 _expect_equal(f"{n}: default card decode vs host C++ plane",
                               a.read(), b.read())
-        _say("5 goldens", f"default decode on the card ({runs.last()} K1 "
+        _say("5 goldens", f"default decode on the card ({runs.last('granule')} "
+                          f"K2 and {runs.last()} K1 "
                           f"launches) writes the host C++ plane's WAV bytes "
                           f"on {len(files)} streams: {', '.join(files)}")
         for name in lsf_names:
@@ -1633,6 +1819,11 @@ def main() -> int:
 
         # ---- phase 16: the device Huffman decode (the bit-scan kernel)
         huffman_row = huffman_phase(dev, card, tmp, song, enc_out, runs)
+
+        # ---- phase 18: K2 bit for bit its plain version on the synthetic
+        # prep, the crafted, LSF, multirate and mono streams and the song's
+        # device-Huffman plane
+        granule_phase(dev, card, tmp, song, k2_errs)
 
         # ---- phase 17: K4 bit for bit its plain version on the song, a
         # hide block's 8 windows, the seeded song and the forced-flag lanes;
@@ -1694,6 +1885,12 @@ def main() -> int:
             f"{k} {n}" for k, n in counts.items()))
     print(card)
     print(json.dumps({"kernels": [dict(
+        name=f"granule_blocks ({'float32' if dtype == F32 else 'float64'})",
+        route="cuda", source="mp3stego_tpu_torch/csrc/granule.cu",
+        replaces="mp3stego_tpu/ops/decode_plane.py:729",
+        launches=runs.launches("granule", dtype),
+        max_abs_err=k2_errs[dtype], **k2[dtype]) for dtype in (F64, F32)]
+        + [dict(
         name=f"synth_fused ({'float32' if dtype == F32 else 'float64'})",
         route="cuda", source="mp3stego_tpu_torch/csrc/synth.cu",
         replaces="mp3stego_tpu/ops/pallas_kernels.py:42",

@@ -15,10 +15,10 @@ Here the whole file is one dense batch of granules:
 * reorder        — static permutation (with the reference's zero-filled tail for
                    short blocks, Frame.py:574-602).
 * alias          — static butterfly index arrays.
-* IMDCT          — 18->36 against the cosine basis, windowed: float32 as a
-                   matmul in fixed row blocks (``_row_matmul``, so a row
-                   rounds alike in any batch), float64 as the reference's
-                   ascending sum in eager steps (``synth.ascending_matmul``).
+* IMDCT          — 18->36 against the cosine basis, windowed, in both
+                   dtypes as the reference's ascending sum
+                   (``synth.ascending_matmul``), so a row rounds alike in
+                   any batch.
 * synthesis      — from the IMDCT blocks, one fused kernel per row of
                    (file, channel) (ops/synth.py, a hand-written CUDA kernel
                    on the card): overlap-add (out_t = blk_t[:18] +
@@ -33,8 +33,20 @@ both packages. The torch plane (``granule_blocks``, ``synth_from_blocks``,
 ``decode_granules``) runs in float32 or float64 on a CUDA device or the CPU.
 In float64 it follows ``decode_granules_np`` operation for operation, so on
 every device it gives the host plane's PCM bit for bit.
+
+The granule half is kernel K2:
+
+* ``granule_blocks`` — the wrapper every decode goes through. A CPU prep
+  takes the plain version; a CUDA prep launches ``csrc/granule.cu`` (one
+  launch over every granule; it replaces the JAX package's XLA program
+  ``mp3stego_tpu/ops/decode_plane.py::granule_blocks``) or raises. There is
+  no fallback from the card to the plain version.
+* ``granule_blocks_torch`` — the plain PyTorch version, the four stages as
+  eager ops on any device. The kernel equals it bit for bit in both dtypes.
+* ``launches`` — how many times the kernel was launched in this process.
 """
 
+import ctypes
 import functools
 import math
 from types import SimpleNamespace
@@ -50,6 +62,16 @@ from mp3stego_tpu_torch.ops.synth import (ascending_matmul, overlap_freqinv,
 
 SQRT2 = math.sqrt(2)
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+launches = 0
+
+_SIGNATURES = {
+    name: (ctypes.c_int, (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+                          ctypes.c_void_p))
+    for name in ("granule_blocks_f32", "granule_blocks_f64")}
+_ENTRY = {torch.float32: "granule_blocks_f32",
+          torch.float64: "granule_blocks_f64"}
 
 # ------------------------------------------------------------------ host maps
 
@@ -611,6 +633,9 @@ CONST_KEYS = ("reorder_perm", "walk_is_short", "walk_sfb", "walk_win",
               "pre_ext", "slot_exp", "slot_is", "mix_short_cols",
               "mix_raw_cols", "mix_lin_cols", "mix_long_band")
 ALL_KEYS = T_AXIS1_KEYS + T_AXIS0_KEYS + EXC_KEYS + CONST_KEYS
+# a torch prep (``prep_to_torch``) adds the escapes' granule index
+# (``index_escapes``) to the host schema
+TORCH_KEYS = ALL_KEYS + ("exc_start",)
 
 
 def dense_raw(prep) -> np.ndarray:
@@ -643,16 +668,38 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def prep_to_torch(prep: dict, device) -> dict:
-    """``host_prepare``'s numpy dict -> tensors on ``device``.
+def index_escapes(prep: dict) -> dict:
+    """``prep`` with its linbits escapes in granule order (stable), those at
+    ``exc_t >= T`` (a concat batch's padding) dropped, and ``exc_start``
+    (T + 1,) int32: granule t's escapes are ``exc_*[exc_start[t]:
+    exc_start[t + 1]]``, the range each CTA of ``csrc/granule.cu`` reads. A
+    prep without the int8 plane comes back as it is."""
+    if "raw_i8" not in prep:
+        return prep
+    tt = prep["raw_i8"].shape[1]
+    exc_t = np.asarray(prep["exc_t"])
+    order = np.argsort(exc_t, kind="stable")
+    order = order[exc_t[order] < tt]
+    out = dict(prep)
+    for k in EXC_KEYS:
+        out[k] = np.ascontiguousarray(np.asarray(prep[k])[order])
+    out["exc_start"] = np.searchsorted(
+        out["exc_t"], np.arange(tt + 1)).astype(np.int32)
+    return out
 
-    Takes exactly the dict that ``host_prepare`` (of either package) returns,
-    keyed by ``ALL_KEYS`` (less ``RAW_KEYS`` for ``raw=False``); the narrow
-    int8/int16 planes and bool masks cross as they are and widen on the
-    device."""
+
+def prep_to_torch(prep: dict, device) -> dict:
+    """``host_prepare``'s numpy dict -> tensors on ``device``, keyed by
+    ``TORCH_KEYS``.
+
+    Takes the dict that ``host_prepare`` (of either package) returns, keyed
+    by ``ALL_KEYS`` (less ``RAW_KEYS`` for ``raw=False``), and indexes its
+    escapes by granule (``index_escapes``); the narrow int8/int16 planes and
+    bool masks cross as they are."""
     device = torch.device(device)
+    prep = index_escapes(prep)
     return {k: torch.from_numpy(np.ascontiguousarray(prep[k])).to(device)
-            for k in ALL_KEYS if k in prep}
+            for k in TORCH_KEYS if k in prep}
 
 
 @functools.lru_cache(maxsize=None)
@@ -703,44 +750,161 @@ def _capture(stages, name, x):
         stages[name] = x.clone()
 
 
-def _no_tf32():
-    """The float32 IMDCT matmuls feed int16 PCM under a 1-LSB contract;
-    TF32's 10-bit mantissa is far too coarse for it, so the plane pins full
-    float32 products on the card."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
-# rows per matrix of the float32 IMDCT matmuls: they run as one batched
-# matmul of fixed-shape (_MM_ROWS, K) matrices, the last
-# zero-padded, so the BLAS picks one kernel (tiles, split of K) whatever the
-# row count, and a row's result never depends on how many rows the plane
-# holds: a file decodes to the same bits alone and inside a batch
-# (parallel/batch_decode). One plain matmul over all rows does not: on the
-# H100 its IMDCT rows change in the last bits with the row count.
-_MM_ROWS = 1 << 16
-
-
-def _row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x (..., K) @ w (K, N)`` as ``_MM_ROWS``-row blocks of one
-    batched matmul."""
-    k, n = w.shape
-    a = x.reshape(-1, k)
-    m = a.shape[0]
-    nb = -(-m // _MM_ROWS)
-    a = torch.nn.functional.pad(a, (0, 0, 0, nb * _MM_ROWS - m))
-    out = torch.bmm(a.reshape(nb, _MM_ROWS, k), w.expand(nb, k, n))
-    return out.reshape(-1, n)[:m].reshape(x.shape[:-1] + (n,))
-
-
 def _plane_device(prep: dict) -> torch.device:
     """The device of a prep's sample plane (``raw_i8`` or ``raw_dense``)."""
     return (prep["raw_dense"] if "raw_dense" in prep else prep["raw_i8"]).device
 
 
+# what K2 reads besides the sample plane, in csrc/granule.cu's order: the
+# per-granule side information and the static maps with the types and
+# shapes host_prepare gives them ("T": the granule count), then the plane's
+# tables (``_consts`` fields) in the kernel's dtype with their sizes
+_SIDE = (
+    ("mode", torch.int8, (2, "T")),
+    ("gg", torch.int16, (2, "T")),
+    ("sfscale", torch.int8, (2, "T")),
+    ("pre", torch.int8, (2, "T")),
+    ("sbg", torch.int8, (2, "T", 3)),
+    ("sfl", torch.int8, (2, "T", 22)),
+    ("sfs", torch.int8, (2, "T", 39)),
+    ("win_row", torch.int8, (2, "T")),
+    ("is_short_blk", torch.bool, (2, "T")),
+    ("reorder_mask", torch.bool, (2, "T")),
+    ("ms_mask", torch.bool, ("T",)),
+    ("is_mask", torch.bool, ("T",)),
+    ("is_pos", torch.int8, ("T", 4, 22)),
+    ("is_tab", torch.int8, ("T",)),
+    ("slot_exp", torch.int16, (4, 576)),
+    ("slot_is", torch.int16, (4, 576)),
+    ("reorder_perm", torch.int32, (576,)),
+    ("pre_ext", torch.int32, (22,)),
+    ("mix_short_cols", torch.bool, (576,)),
+    ("mix_raw_cols", torch.bool, (576,)),
+    ("mix_lin_cols", torch.bool, (576,)),
+    ("mix_long_band", torch.bool, (32,)),
+)
+_TABLES = (("pow43", 8207), ("e1lut", 512), ("e2lut", 64), ("quarter", 4),
+           ("is_coef", 192), ("cs", 248), ("ca", 248), ("c_long_t", 648),
+           ("c_short_t", 72), ("sine", 144), ("sqrt2", 1))
+
+
+# the int8 plane's escapes as csrc/granule.cu reads them ("N": their count)
+_ESCAPES = (
+    ("exc_start", torch.int32, ("T+1",)),
+    ("exc_t", torch.int32, ("N",)),
+    ("exc_ch", torch.int8, ("N",)),
+    ("exc_s", torch.int16, ("N",)),
+    ("exc_val", torch.int16, ("N",)),
+)
+
+
+def _check_prep(prep: dict, dtype) -> torch.Tensor:
+    """What ``granule_blocks`` takes, on any device: float32 or float64, a
+    sample plane (2, T, 576) (``raw_dense`` int32, or ``raw_i8`` int8 with
+    its escapes and their index, ``_ESCAPES``), every side key of ``_SIDE``
+    with its type and shape, all C-contiguous on the plane's device, which is
+    the CPU or a CUDA card. Returns the plane."""
+    if dtype not in _ENTRY:
+        raise ValueError(f"granule_blocks takes float32 or float64, got "
+                         f"{dtype}")
+    if "raw_dense" in prep:
+        plane, want, keys = prep["raw_dense"], torch.int32, _SIDE
+    elif "raw_i8" in prep:
+        plane, want, keys = prep["raw_i8"], torch.int8, _ESCAPES + _SIDE
+        missing = [k for k, _, _ in _ESCAPES if k not in prep]
+        if missing:
+            raise ValueError(f"the raw_i8 plane comes without {missing} "
+                             f"(prep_to_torch adds exc_start)")
+    else:
+        raise ValueError("the prep has no sample plane (raw_i8 or raw_dense)")
+    if plane.dtype != want or plane.dim() != 3 or plane.shape[0] != 2 \
+            or plane.shape[2] != 576:
+        raise ValueError(f"the sample plane must be (2, T, 576) {want}, got "
+                         f"{tuple(plane.shape)} {plane.dtype}")
+    dev = plane.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"granule_blocks runs on CPU or CUDA tensors, got "
+                         f"{dev}")
+    tt = plane.shape[1]
+    sizes = {"T": tt, "T+1": tt + 1,
+             "N": prep["exc_t"].numel() if "exc_t" in prep else 0}
+    for key, kind, shape in (("raw", want, (2, tt, 576)),) + keys:
+        v = plane if key == "raw" else prep.get(key)
+        if v is None:
+            raise ValueError(f"the prep has no {key}")
+        shape = tuple(sizes.get(s, s) for s in shape)
+        if v.dtype != kind or tuple(v.shape) != shape:
+            raise ValueError(f"{key} must be {shape} {kind}, got "
+                             f"{tuple(v.shape)} {v.dtype}")
+        if v.device != dev:
+            raise ValueError(f"{key} lies on {v.device}, the plane on {dev}")
+        if not v.is_contiguous():
+            raise ValueError(f"granule_blocks takes C-contiguous tensors; "
+                             f"{key} is not")
+    return plane
+
+
+def _kernel_tables(dtype, device) -> tuple:
+    """The plane's tables in ``_TABLES`` order, ``_consts`` fields as they
+    are (one C-contiguous tensor each in ``dtype`` on ``device``)."""
+    c = _c(dtype, device)
+    return tuple(getattr(c, name) for name, _ in _TABLES)
+
+
+def kernel_inputs(prep: dict, dtype) -> list:
+    """What ``csrc/granule.cu`` reads, in its order: the sample plane, the
+    escapes with their index (five ``None`` for the int32 plane, which has
+    none), the side information and the tables. A checked prep."""
+    plane = prep["raw_dense"] if "raw_dense" in prep else prep["raw_i8"]
+    escapes = [None] * len(_ESCAPES) if plane.dtype == torch.int32 \
+        else [prep[k] for k, _, _ in _ESCAPES]
+    return [plane] + escapes + [prep[k] for k, _, _ in _SIDE] \
+        + list(_kernel_tables(dtype, plane.device))
+
+
 def granule_blocks(prep: dict, dtype, stages: dict = None) -> torch.Tensor:
     """Granule-local half of the decode plane: requantize -> MS/intensity
-    stereo -> reorder/alias -> windowed IMDCT blocks. Returns (ch, T, 32, 36).
+    stereo -> reorder/alias -> windowed IMDCT blocks. Returns (2, T, 32, 36)
+    in ``dtype`` on the prep's device.
+
+    A CUDA prep launches the hand-written kernel ``csrc/granule.cu`` once on
+    the current stream, after ``_check_prep`` (a fault raises; nothing falls
+    back); the kernel reads the int8 plane and its escapes, or the int32
+    ``raw_dense`` plane, as they are. ``stages`` (a dict) is then filled by
+    the plain stages run beside it, and the blocks returned are the
+    kernel's. A CPU prep takes :func:`granule_blocks_torch`."""
+    global launches
+    plane = _check_prep(prep, dtype)
+    if plane.device.type == "cpu":
+        return granule_blocks_torch(prep, dtype, stages)
+    if stages is not None:
+        granule_blocks_torch(prep, dtype, stages)
+    tt = plane.shape[1]
+    out = torch.empty((2, tt, 32, 36), dtype=dtype, device=plane.device)
+    if tt == 0:
+        return out
+    from mp3stego_tpu_torch.ops import _cuda
+    lib = _cuda.load("granule", _SIGNATURES)
+    inputs = kernel_inputs(prep, dtype)
+    wide = plane.dtype == torch.int32
+    n_exc = 0 if wide else prep["exc_t"].numel()
+    ptrs = (ctypes.c_void_p * len(inputs))(
+        *[None if t is None else t.data_ptr() for t in inputs])
+    stream = torch.cuda.current_stream(plane.device).cuda_stream
+    with torch.cuda.device(plane.device), record_function("granule"):
+        rc = getattr(lib, _ENTRY[dtype])(ptrs, len(inputs), tt, int(wide),
+                                         n_exc, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"granule_blocks kernel launch failed: CUDA error "
+                           f"{rc}")
+    launches += 1
+    return out
+
+
+def granule_blocks_torch(prep: dict, dtype, stages: dict = None
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`granule_blocks` on the prep's device:
+    the four stages as eager ops. Returns (2, T, 32, 36).
 
     Each stage runs under a ``torch.profiler.record_function`` named like the
     JAX package's ``jax.named_scope`` (requantize, stereo, reorder_alias,
@@ -872,14 +1036,15 @@ def _imdct_stage(prep, x, dtype):
         c = _c(dtype, x.device)
         ch, tt = x.shape[0], x.shape[1]
         s = x.reshape(ch, tt, 32, 18)
-        # float64 sums in the reference's ascending k (Frame.py:126-130)
-        mm = ascending_matmul if dtype == torch.float64 else _row_matmul
-        xi_long = mm(s, c.c_long_t)                          # (ch,T,32,36)
+        # sums in the reference's ascending k (Frame.py:126-130), in both
+        # dtypes: the kernel's order, and a row's result is the same in any
+        # batch
+        xi_long = ascending_matmul(s, c.c_long_t)            # (ch,T,32,36)
         win_long = c.sine[prep["win_row"].long().clamp(0, 3)]  # (2,T,36)
         blk_long = xi_long * win_long[:, :, None, :]
 
         # short path: 3 windows of 6 inputs -> 12 outputs each, merged
-        xi_s = mm(s.reshape(ch, tt, 32, 3, 6), c.c_short_t)
+        xi_s = ascending_matmul(s.reshape(ch, tt, 32, 3, 6), c.c_short_t)
         xi_s = xi_s * c.sine[2, :12]                         # (ch,T,32,3,12)
         z6 = x.new_zeros((ch, tt, 32, 6))
         blk_short = torch.cat([
@@ -934,11 +1099,9 @@ def decode_granules(prep: dict, dtype=torch.float32, stages: dict = None,
     launches once and no IMDCT tail or V history reaches the next file.
     ``channels=1`` keeps channel 0 only."""
     rows = files * channels
-    if _plane_device(prep).type == "cuda":
-        if rows > MAX_SYNTH_ROWS:
-            raise ValueError(f"{rows} (file, channel) rows exceed the "
-                             f"synthesis kernel's {MAX_SYNTH_ROWS}")
-        _no_tf32()
+    if _plane_device(prep).type == "cuda" and rows > MAX_SYNTH_ROWS:
+        raise ValueError(f"{rows} (file, channel) rows exceed the synthesis "
+                         f"kernel's {MAX_SYNTH_ROWS}")
     blk = granule_blocks(prep, dtype, stages)
     t = blk.shape[1] // files
     blk = blk[:channels].reshape(channels, files, t, 32, 36) \

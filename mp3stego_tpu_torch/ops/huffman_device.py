@@ -5,7 +5,7 @@ The host keeps the sync walk, the side info, the bit-reservoir splice and
 the scalefactors (``bitstream.decoder_host.parse_mp3_light``); the device
 walks each granule's Huffman code and writes the (2, T, 576) int32 sample
 plane that the decode plane reads as ``raw_dense``
-(``ops/decode_plane._requantize_stage``). It is the port of the JAX
+(``ops/decode_plane.granule_blocks``). It is the port of the JAX
 package's ``ops/huffman_device.decode_samples_device``, an XLA
 ``fori_loop`` that decodes 8 symbols of every granule per step in lockstep.
 
@@ -207,7 +207,7 @@ def decode_samples_plain(words: torch.Tensor,
             out[lanes, pos] = torch.where(active, torch.where(neg, -v, v),
                                           cur)
     return out.to(torch.int32).reshape(-1, 2, 2, 576) \
-        .permute(2, 0, 1, 3).reshape(2, -1, 576)
+        .permute(2, 0, 1, 3).reshape(2, -1, 576).contiguous()
 
 
 def decode_samples(words: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Batched decode: many MP3 files through the decode plane, a chunk at a time.
 
 The granule half of the decode plane (``decode_plane.granule_blocks``:
-requantize, stereo, reorder, alias, windowed IMDCT) is granule-local, so a
+requantize, stereo, reorder, alias, windowed IMDCT; on the card kernel K2,
+``csrc/granule.cu``, one launch per chunk) is granule-local, so a
 chunk of files is one longer granule axis to it: ``prepare_batch_concat``
 lays each file's granules at ``i * t_max`` and shifts its linbits escapes by
 the same offset. The other half (IMDCT overlap, frequency inversion,
@@ -181,10 +182,10 @@ def _decode_pipelined(metas: list, dev: torch.device, dtype, to_i16: bool,
     results = [None] * len(metas)
 
     def prep(idxs):
-        batch = prepare_batch_concat(list(workers.map(
-            dp.host_prepare, [metas[i] for i in idxs])))
+        batch = dp.index_escapes(prepare_batch_concat(list(workers.map(
+            dp.host_prepare, [metas[i] for i in idxs]))))
         host = {k: torch.from_numpy(np.ascontiguousarray(batch[k]))
-                for k in dp.ALL_KEYS}
+                for k in dp.TORCH_KEYS}
         if cuda:
             host = {k: v.pin_memory() for k, v in host.items()}
         return batch, host

@@ -7,7 +7,11 @@ wrapper refuses what it cannot launch), the hand-written Huffman bit-scan kernel
 and the device-Huffman decode's WAV bytes), the streaming encode on the
 card, the hand-written fused synthesis kernel (on
 a song's rows, odd tile counts and a batch's (file, channel) rows, in float32
-and float64, float and int16 epilogues), the device decode plane in both
+and float64, float and int16 epilogues), the hand-written granule kernel
+K2 (bit for bit its plain version in both dtypes on the synthetic batch,
+crafted, LSF, mono and device-Huffman preps; a file's blocks alike alone
+and in a concat batch; ``stages`` beside it; the wrapper's refusals), the
+device decode plane in both
 precisions (float64 with the host plane's bytes), the default façade decode,
 the batched decode (one kernel launch per chunk), and the encode planes (Q31
 analysis, exact search, the VBR lane cost, golden hide bytes), each equal to
@@ -518,28 +522,143 @@ def test_card_lane_cost_equals_native(card):
         assert np.array_equal(got, want), s
 
 
-# K, N, the song's rows (T = 18,432 granules, 2 channels) and the rows of
-# the batched decode's largest chunk (16 stereo files of 30 s, t_max = 2,298
-# granules): the float32 long IMDCT (32 rows a granule) and short IMDCT
-# (32 x 3)
-ROW_MATMULS = [
-    pytest.param(18, 36, 2 * 18432 * 32, 32 * 2298 * 32, id="18-36"),
-    pytest.param(6, 12, 2 * 18432 * 96, 32 * 2298 * 96, id="6-12"),
-]
-
-
-@pytest.mark.parametrize("k,n,song,chunk", ROW_MATMULS)
-def test_row_matmul_rounds_alike_in_any_batch(card, k, n, song, chunk):
-    """The float32 plane's IMDCT matmuls: the first rows of a
-    chunk-sized operand equal the same rows multiplied alone, bit for bit,
-    at 1, 2 and the song's count of 65,536-row blocks (one plain matmul
-    over all rows does not keep this on the card)."""
+def _granule_prep(name: str, card, tmp_path) -> dict:
+    """A prep on the card for K2: ``synthetic`` (every block type, one mixed
+    granule, MS, intensity, linbits escapes), crafted streams (intensity with
+    MS on short blocks; the 8 kHz MPEG-2.5 mixed stream, whose unreordered
+    middle columns only 8 kHz has), an LSF stream, a mono stream encoded on
+    the card, the linbits stream (escapes in most granules), a concat batch
+    of it whose escapes come reversed with a pad entry past the axis, and
+    the fixture's device-Huffman ``raw_dense`` plane."""
+    import os
+    from chip_smoke import synthetic_prep
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
     from mp3stego_tpu_torch.ops import decode_plane as dp
-    rng = np.random.default_rng(k)
-    x = torch.from_numpy(rng.standard_normal((chunk, k))
-                         .astype(np.float32)).to(card)
-    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)) \
-        .to(card)
-    whole = dp._row_matmul(x, w)
-    for m in (1000, 70000, song):
-        assert torch.equal(whole[:m], dp._row_matmul(x[:m].clone(), w))
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    if name == "synthetic":
+        return dp.prep_to_torch(synthetic_prep(64), card)
+    if name in ("linbits", "padded batch"):
+        from mp3stego_tpu_torch.parallel.batch_decode import \
+            prepare_batch_concat
+        lin = dp.host_prepare(dh.parse_mp3(np.load(os.path.join(
+            gold, "huffman_golden.npz"))["linbits"].tobytes(), 0))
+        if name == "linbits":
+            return dp.prep_to_torch(lin, card)
+        batch = prepare_batch_concat([lin, lin, lin])
+        tt = batch["raw_i8"].shape[1]
+        for k, extra in (("exc_t", tt), ("exc_ch", 1), ("exc_s", 7),
+                         ("exc_val", 999)):
+            batch[k] = np.concatenate([np.asarray([extra], batch[k].dtype),
+                                       batch[k][::-1]])
+        return dp.prep_to_torch(batch, card)
+    if name in ("is_ms_short", "mixed_8k_lsf"):
+        data = np.load(os.path.join(gold, "crafted_golden.npz"))[name]
+    elif name == "mpeg2_22k05_80":
+        data = np.load(os.path.join(gold, "torch_lsf_golden.npz"))[name]
+    elif name == "mono":
+        from mp3stego_tpu_torch.models.encoder import MP3Encoder
+        from mp3stego_tpu_torch.utils.wav import read_wav, write_wav
+        t = np.arange(44100) / 44100
+        wav = str(tmp_path / "mono.wav")
+        write_wav(wav, 44100, (np.sin(2 * np.pi * 330 * t) * 20000)
+                  .astype(np.int16))
+        enc = MP3Encoder(read_wav(wav, 128), device=card)
+        enc.encode()
+        data = np.frombuffer(bytes(enc.out_buffer), np.uint8)
+    else:
+        from mp3stego_tpu_torch.ops import huffman_device as hd
+        data = np.load(os.path.join(gold, "encode_golden.npz"))["mp3_bytes"]
+        parsed, desc = dh.parse_mp3_light(data.tobytes(), 0)
+        words, fields = (torch.from_numpy(a).to(card) for a in hd.pack(desc))
+        prep = dp.prep_to_torch(dp.host_prepare(parsed, raw=False), card)
+        prep["raw_dense"] = hd.decode_samples(words, fields)
+        return prep
+    parsed = dh.parse_mp3(data.tobytes(), 0)
+    assert name != "mono" or parsed.header.channels == 1
+    return dp.prep_to_torch(dp.host_prepare(parsed), card)
+
+
+GRANULE_PREPS = ["synthetic", "is_ms_short", "mixed_8k_lsf", "mpeg2_22k05_80",
+                 "mono", "linbits", "padded batch", "raw_dense"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", GRANULE_PREPS)
+def test_granule_kernel_equals_plain_version(card, name, dtype, tmp_path):
+    """K2 (``csrc/granule.cu``) bit for bit its plain version on the card,
+    signs of zero included, in one launch."""
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    prep = _granule_prep(name, card, tmp_path)
+    before = dp.launches
+    got = dp.granule_blocks(prep, dtype)
+    want = dp.granule_blocks_torch(prep, dtype)
+    torch.cuda.synchronize()
+    assert dp.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype == dtype
+    assert torch.equal(got, want)
+    assert torch.equal(got.signbit(), want.signbit())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_granule_kernel_rounds_a_file_alike_alone_and_in_a_batch(card,
+                                                                 dtype):
+    """A file's blocks from the kernel are the same alone and inside a
+    concat batch (``parallel.batch_decode``), bit for bit: the job the
+    float32 plane's fixed-block matmuls did before the kernel."""
+    import os
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    from mp3stego_tpu_torch.parallel.batch_decode import prepare_batch_concat
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    blobs = [np.load(os.path.join(gold, "encode_golden.npz"))["mp3_bytes"],
+             np.load(os.path.join(gold, "multirate_golden.npz"))[
+                 "mp3_44100_128"]]
+    preps = [dp.host_prepare(dh.parse_mp3(b.tobytes(), 0))
+             for b in blobs + blobs[:1]]
+    batch = prepare_batch_concat(preps)
+    whole = dp.granule_blocks(dp.prep_to_torch(batch, card), dtype)
+    for i, p in enumerate(preps):
+        t = p["raw_i8"].shape[1]
+        alone = dp.granule_blocks(dp.prep_to_torch(p, card), dtype)
+        lo = i * batch["t_max"]
+        assert torch.equal(whole[:, lo:lo + t], alone), i
+
+
+def test_granule_stages_on_the_card(card):
+    """``stages`` on a CUDA prep: the plain stages beside the kernel, equal
+    to the CPU plane's; the PCM is the kernel's."""
+    from chip_smoke import synthetic_prep
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    prep = synthetic_prep(16)
+    got, want = {}, {}
+    before = dp.launches
+    pcm = dp.decode_granules(dp.prep_to_torch(prep, card), torch.float64,
+                             stages=got)
+    assert dp.launches == before + 1
+    ref = dp.decode_granules(dp.prep_to_torch(prep, "cpu"), torch.float64,
+                             stages=want)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+    assert torch.equal(pcm.cpu(), ref)
+
+
+def test_granule_kernel_refuses_what_it_cannot_launch(card):
+    from chip_smoke import synthetic_prep
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    prep = dp.prep_to_torch(synthetic_prep(8), card)
+    before = dp.launches
+    with pytest.raises(ValueError, match="float32 or float64"):
+        dp.granule_blocks(prep, torch.float16)
+    cases = {"contiguous": ("sfl", torch.zeros((2, 22, 8), dtype=torch.int8,
+                                               device=card).transpose(1, 2)),
+             "gg must be": ("gg", prep["gg"].int()),
+             "lies on": ("mode", prep["mode"].cpu()),
+             "exc_start must be": ("exc_start", prep["exc_start"][:-1])}
+    for match, (key, value) in cases.items():
+        with pytest.raises(ValueError, match=match):
+            dp.granule_blocks(dict(prep, **{key: value}), torch.float32)
+    with pytest.raises(ValueError, match="no sample plane"):
+        dp.granule_blocks({k: v for k, v in prep.items() if k != "raw_i8"},
+                          torch.float32)
+    assert dp.launches == before

@@ -135,12 +135,24 @@ def test_i16_epilogue_matches_pcm_to_i16(dtype, wrap, preps, monkeypatch):
 
 
 def test_prep_to_torch_keeps_keys_types_and_values(preps):
+    """Every host key crosses with its type and values; the escapes are
+    the same list in granule order (``index_escapes``), with their index
+    ``exc_start`` beside them."""
     prep = preps["synthetic"]
     tp = pdp.prep_to_torch(prep, "cpu")
-    assert set(tp) == set(pdp.ALL_KEYS)
+    assert set(tp) == set(pdp.TORCH_KEYS)
     for k in pdp.ALL_KEYS:
         assert tp[k].dtype == torch.from_numpy(np.asarray(prep[k])).dtype, k
-        assert np.array_equal(tp[k].numpy(), prep[k]), k
+        if k not in pdp.EXC_KEYS:
+            assert np.array_equal(tp[k].numpy(), prep[k]), k
+    assert len(prep["exc_t"]) > 0 and (prep["exc_t"] < 32).all()
+
+    def rows(d):
+        return sorted(zip(*(np.asarray(d[k]).tolist() for k in pdp.EXC_KEYS)))
+    assert rows({k: tp[k].numpy() for k in pdp.EXC_KEYS}) == rows(prep)
+    assert (np.diff(tp["exc_t"].numpy()) >= 0).all()
+    assert np.array_equal(tp["exc_start"].numpy(), np.searchsorted(
+        tp["exc_t"].numpy(), np.arange(33)))
 
 
 def test_chip_smoke_synthetic_prep_equals_graft_entry():

@@ -1,0 +1,215 @@
+#!/usr/bin/env python3
+"""The port's decode paths on the card against a parent commit's, in turns.
+
+    git archive <parent commit> | tar -x -C build/parent
+    python3 tools/decode_vs_parent.py --parent build/parent \
+        [--out chiprun_out/decode_vs_parent.json]
+
+Run from the root of a checkout, on one CUDA card. It writes
+``chip_smoke.py``'s song (the 320 kbps golden re-encode with one zero byte
+appended, 256 copies: 240.7 s of 44.1 kHz stereo) and a batch of 32 files
+(24 slices of 1,148 frames, 30 s, cut at frames spread over the song, the 5
+multirate and the 3 MPEG-2/2.5 goldens), then runs a worker process on each
+tree in the order parent, this checkout, this checkout, parent. Each worker
+imports ``mp3stego_tpu_torch`` from its tree and times on the card, each
+path after one untimed run: the façade decode of the song with the
+defaults (float64) and in float32 (host clock, 3 runs, with the median of
+each ``Decoder`` stage), the device plane alone on the song's prep
+(``decode_granules_i16`` in both dtypes, CUDA events, 10 calls), the
+batched decode of the 32 files to int16 in float64 and in float32 and the
+streaming decode of the song (host clock, 3 runs, each ending in a
+synchronise); and, on the host's CPU, the façade decode of the song in
+float32 (``device="cpu"``, host clock, 3 runs after one untimed). The record
+gives each path's median over both workers of a tree. The float64 outputs'
+SHA-256 must be the same in all four workers; each worker holds its float32
+outputs, the card's and the CPU's, within 1 int16 LSB of its float64 ones
+(on fewer than 1e-3 of the song's and the slices' samples, 2e-3 of the tone
+goldens'). It writes the record as JSON and prints it with the card's
+``nvidia-smi`` name and power limit (``tools/vs_parent.py`` runs the
+turns).
+"""
+
+import hashlib
+import json
+import os
+import sys
+import time
+
+import vs_parent
+
+SONG_COPIES = 256
+SLICES = 24
+SLICE_FRAMES = 1148                  # 30.0 s of 1,152 samples at 44.1 kHz
+MAX_LSB_RATE = 1e-3
+TONE_MAX_LSB_RATE = 2e-3
+
+
+def _lsb_rate(got, want) -> float:
+    """The share of int16 samples off by one; raises past 1 LSB."""
+    import numpy as np
+    if got.shape != want.shape:
+        raise AssertionError(f"{got.shape} samples vs {want.shape}")
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    if d.size and d.max() > 1:
+        raise AssertionError(f"float32 off by {d.max()} LSB")
+    return float((d != 0).mean()) if d.size else 0.0
+
+
+def worker(root: str, tmp: str) -> dict:
+    """Times every decode path of the tree at ``root`` on the card, and the
+    float32 decode on the CPU."""
+    vs_parent.import_tree(root)
+    import numpy as np
+    import torch
+    from mp3stego_tpu_torch import Steganography
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    from mp3stego_tpu_torch.models.streaming import decode_file_streaming
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    from mp3stego_tpu_torch.parallel import decode_files_batched
+    dev = torch.device("cuda")
+    song = os.path.join(tmp, "song.mp3")
+    with open(os.path.join(tmp, "batch.json")) as f:
+        paths = json.load(f)
+    wav = os.path.join(tmp, f"{os.getpid()}.wav")
+    walls, stages, sha, rates = {}, {}, {}, {}
+
+    def timed(name, fn, runs=3):
+        out = fn()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        walls[name] = ms
+        return out
+
+    def wav_i16():
+        with open(wav, "rb") as f:
+            data = f.read()
+        return data, np.frombuffer(data[44:], np.int16)
+
+    s = {"float64": Steganography(quiet=True, precision="float64"),
+         "float32": Steganography(quiet=True, precision="float32"),
+         "float32 on the CPU": Steganography(quiet=True, precision="float32",
+                                             device="cpu")}
+    pcm = {}
+    for precision, st in s.items():
+        times = []
+
+        def decode():
+            st.decode_mp3_to_wav(song, wav)
+            times.append(dict(st._last_decoder.timer.times))
+
+        name = f"decode, {precision}"
+        timed(name, decode)
+        stages[name] = {k: sorted(t[k] * 1e3 for t in times[1:])[1]
+                        for k in times[0]}
+        data, pcm[precision] = wav_i16()
+        sha[name] = hashlib.sha256(data).hexdigest()
+    rates["song"] = _lsb_rate(pcm["float32"], pcm["float64"])
+    rates["song on the CPU"] = _lsb_rate(pcm["float32 on the CPU"],
+                                         pcm["float64"])
+
+    with open(song, "rb") as f:
+        prep = dp.prep_to_torch(dp.host_prepare(dh.parse_mp3(f.read())), dev)
+    plane_ms = {}
+    for dtype in (torch.float64, torch.float32):
+        dp.decode_granules_i16(prep, dtype)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            dp.decode_granules_i16(prep, dtype)
+        end.record()
+        end.synchronize()
+        plane_ms[str(dtype).split(".")[-1]] = start.elapsed_time(end) / 10
+    del prep
+
+    batch = {}
+    for dtype in ("float64", "float32"):
+        name = f"batched decode, {dtype}"
+        batch[dtype] = timed(name, lambda: decode_files_batched(
+            paths, dtype=dtype, out="int16", device=dev))
+        h = hashlib.sha256()
+        for a in batch[dtype]:
+            h.update(np.ascontiguousarray(a).tobytes())
+        sha[name] = h.hexdigest()
+    for p, got, want in zip(paths, batch["float32"], batch["float64"]):
+        kind = "slices" if os.path.basename(p).startswith("slice") \
+            else "tones"
+        rates[kind] = max(rates.get(kind, 0.0), _lsb_rate(got, want))
+
+    timed("streaming decode, float64",
+          lambda: decode_file_streaming(song, wav))
+    sha["streaming decode, float64"] = hashlib.sha256(wav_i16()[0]) \
+        .hexdigest()
+    os.remove(wav)
+    return dict(root=root, walls_ms=walls, stages_ms=stages,
+                device_plane_ms=plane_ms, f32_lsb_rates=rates, sha=sha)
+
+
+def _write_inputs(tmp: str) -> None:
+    """The song, the 32 batch files and the list of their paths."""
+    import numpy as np
+    sys.path.insert(0, vs_parent.REPO)
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    gold = os.path.join(vs_parent.REPO, "tests", "golden")
+    mp3 = np.load(os.path.join(gold, "encode_golden.npz"))["mp3_bytes"]
+    song_b = (mp3.tobytes() + b"\0") * SONG_COPIES
+    with open(os.path.join(tmp, "song.mp3"), "wb") as f:
+        f.write(song_b)
+    parsed = dh.parse_mp3(song_b)
+    ends = np.cumsum(np.asarray(parsed.frame_sizes, np.int64))
+    span = parsed.num_frames - SLICE_FRAMES
+    blobs = []
+    for k in range(SLICES):
+        first = round(k * span / (SLICES - 1))
+        start = 0 if first == 0 else int(ends[first - 1])
+        blobs.append((f"slice{k}", song_b[start:int(
+            ends[first + SLICE_FRAMES - 1])]))
+    mr = np.load(os.path.join(gold, "multirate_golden.npz"))
+    blobs += [(t, mr[f"mp3_{t}"].tobytes()) for t in (
+        "32000_64", "32000_192", "44100_128", "48000_96", "48000_320")]
+    lsf = np.load(os.path.join(gold, "torch_lsf_golden.npz"))
+    blobs += [(n, lsf[n].tobytes()) for n in sorted(lsf.files)]
+    paths = []
+    for name, data in blobs:
+        paths.append(os.path.join(tmp, f"{name}.mp3"))
+        with open(paths[-1], "wb") as f:
+            f.write(data)
+    with open(os.path.join(tmp, "batch.json"), "w") as f:
+        json.dump(paths, f)
+
+
+def main() -> int:
+    args = vs_parent.parse_args(__doc__, "decode_vs_parent.json")
+    if args.worker:
+        print(json.dumps(worker(args.worker, args.tmp)))
+        return 0
+    card, runs, med = vs_parent.compare(
+        __file__, args, _write_inputs, same_bytes=[
+            "decode, float64", "batched decode, float64",
+            "streaming decode, float64"])
+    for r in runs:
+        for kind, rate in r["f32_lsb_rates"].items():
+            limit = TONE_MAX_LSB_RATE if kind == "tones" else MAX_LSB_RATE
+            if not rate < limit:
+                raise AssertionError(f"{r['tree']}: float32 flips {rate} of "
+                                     f"the {kind}' samples (limit {limit})")
+    plane = {}
+    for dtype in runs[0]["device_plane_ms"]:
+        for which in ("parent", "change"):
+            plane.setdefault(dtype, {})[which] = min(
+                r["device_plane_ms"][dtype] for r in runs
+                if r["tree"] == which)
+    vs_parent.write(args.out, card, runs, med, device_plane_best_ms=plane,
+                    stages_ms=[(r["tree"], r["stages_ms"]) for r in runs],
+                    f32_lsb_rates=[(r["tree"], r["f32_lsb_rates"])
+                                   for r in runs])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,39 +18,26 @@ stage), the batched encode of 4 stereo 30 s slices, and the streaming
 encode, clear and hidden in 512-frame windows and clear in 7-frame windows
 (each once). Every output's SHA-256 must be the same in all four workers.
 It writes the record as JSON and prints it with the card's ``nvidia-smi``
-name and power limit.
+name and power limit (``tools/vs_parent.py`` runs the turns).
 """
 
-import argparse
 import hashlib
 import json
 import os
-import subprocess
 import sys
-import tempfile
 import time
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import vs_parent
+
 SONG_COPIES = 256
 HIDE_SHARE = 0.9
 
 
-def _card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0]
-
-
 def worker(root: str, tmp: str) -> dict:
     """Times every encode path of the tree at ``root`` on the card."""
-    sys.path.insert(0, root)
+    vs_parent.import_tree(root)
     import numpy as np
     import torch
-    import mp3stego_tpu_torch
-    if not mp3stego_tpu_torch.__file__.startswith(root):
-        raise RuntimeError(f"imported {mp3stego_tpu_torch.__file__}, not "
-                           f"the tree at {root}")
     from mp3stego_tpu_torch.models.encoder import MP3Encoder
     from mp3stego_tpu_torch.models.streaming import encode_file_streaming
     from mp3stego_tpu_torch.parallel import encode_files_batched
@@ -123,65 +110,28 @@ def worker(root: str, tmp: str) -> dict:
     return dict(root=root, walls_ms=out, analysis_stage_ms=stage, sha=sha)
 
 
+def _write_inputs(tmp: str) -> None:
+    """The song and its WAV (the host C++ float64 decode)."""
+    import numpy as np
+    sys.path.insert(0, vs_parent.REPO)
+    from mp3stego_tpu_torch import Steganography
+    mp3 = np.load(os.path.join(vs_parent.REPO, "tests", "golden",
+                               "encode_golden.npz"))["mp3_bytes"]
+    song = os.path.join(tmp, "song.mp3")
+    with open(song, "wb") as f:
+        f.write((mp3.tobytes() + b"\0") * SONG_COPIES)
+    Steganography(quiet=True, device="cpu").decode_mp3_to_wav(
+        song, os.path.join(tmp, "song.wav"))
+
+
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True,
-                    help="a copy of the parent commit's tree")
-    ap.add_argument("--out", default=os.path.join(
-        REPO, "chiprun_out", "encode_vs_parent.json"))
-    ap.add_argument("--worker", help=argparse.SUPPRESS)
-    ap.add_argument("--tmp", help=argparse.SUPPRESS)
-    args = ap.parse_args()
+    args = vs_parent.parse_args(__doc__, "encode_vs_parent.json")
     if args.worker:
         print(json.dumps(worker(args.worker, args.tmp)))
         return 0
-    import numpy as np
-    import torch
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card visible to torch")
-    sys.path.insert(0, REPO)
-    from mp3stego_tpu_torch import Steganography
-    card = _card_line()
-    trees = {"parent": os.path.abspath(args.parent), "change": REPO}
-    runs = []
-    with tempfile.TemporaryDirectory() as tmp:
-        mp3 = np.load(os.path.join(REPO, "tests", "golden",
-                                   "encode_golden.npz"))["mp3_bytes"]
-        song = os.path.join(tmp, "song.mp3")
-        with open(song, "wb") as f:
-            f.write((mp3.tobytes() + b"\0") * SONG_COPIES)
-        Steganography(quiet=True, device="cpu").decode_mp3_to_wav(
-            song, os.path.join(tmp, "song.wav"))
-        for which in ("parent", "change", "change", "parent"):
-            r = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--parent",
-                 trees["parent"], "--worker", trees[which], "--tmp", tmp],
-                capture_output=True, text=True, timeout=1200,
-                cwd=trees[which])
-            if r.returncode != 0:
-                raise RuntimeError(f"{which} worker exited {r.returncode}:\n"
-                                   f"{r.stdout}{r.stderr}")
-            runs.append(dict(tree=which,
-                             **json.loads(r.stdout.strip().splitlines()[-1])))
-    for r in runs[1:]:
-        if r["sha"] != runs[0]["sha"]:
-            raise AssertionError(f"{r['tree']} wrote other bytes than "
-                                 f"{runs[0]['tree']}: {r['sha']} vs "
-                                 f"{runs[0]['sha']}")
-    med = {}
-    for name in runs[0]["walls_ms"]:
-        for which in ("parent", "change"):
-            walls = sorted(w for r in runs if r["tree"] == which
-                           for w in r["walls_ms"][name])
-            med.setdefault(name, {})[which] = walls[len(walls) // 2]
-    record = dict(card=card, torch=torch.__version__, order=[
-        r["tree"] for r in runs], median_ms=med, runs=runs)
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(record, f, indent=1)
-    print(card)
-    print(json.dumps(dict(card=card, median_ms=med, analysis_stage_ms=[
-        (r["tree"], r["analysis_stage_ms"]) for r in runs])))
+    card, runs, med = vs_parent.compare(__file__, args, _write_inputs)
+    vs_parent.write(args.out, card, runs, med, analysis_stage_ms=[
+        (r["tree"], r["analysis_stage_ms"]) for r in runs])
     return 0
 
 

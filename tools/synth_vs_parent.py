@@ -7,8 +7,9 @@
 
 Run from the root of a checkout, on one CUDA card. ``--parent`` is a copy of
 a commit whose decode plane still synthesised in four steps: the overlap-add
-and frequency inversion as torch ops, the V matmul as ``_row_matmul``
-(cuBLAS), the FIR-only kernel ``csrc/synth_fir.cu``, then the int16
+and frequency inversion as torch ops, the V matmul as fixed 65,536-row
+blocks of one batched cuBLAS matmul (``_row_matmul``, kept here), the
+FIR-only kernel ``csrc/synth_fir.cu``, then the int16
 conversion and the channel interleave as two more torch passes. This script
 builds that commit's ``synth_fir.cu`` with the port's nvcc flags, rebuilds
 the old path around it from the same operations, and times it beside the
@@ -93,6 +94,19 @@ def _old_fir(parent: str, build_dir: str):
     return fir
 
 
+def _row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)`` as 65,536-row blocks of one batched
+    matmul, the last zero-padded: the parent plane's matmul."""
+    rows = 1 << 16
+    k, n = w.shape
+    a = x.reshape(-1, k)
+    m = a.shape[0]
+    nb = -(-m // rows)
+    a = torch.nn.functional.pad(a, (0, 0, 0, nb * rows - m))
+    out = torch.bmm(a.reshape(nb, rows, k), w.expand(nb, k, n))
+    return out.reshape(-1, n)[:m].reshape(x.shape[:-1] + (n,))
+
+
 def old_path(blk: torch.Tensor, fir, to_int16: bool) -> torch.Tensor:
     """The parent's synthesis from IMDCT blocks (ch, T, 32, 36): overlap-add
     and inversion, V by ``_row_matmul``, 15 zero rows in front, the FIR
@@ -104,7 +118,7 @@ def old_path(blk: torch.Tensor, fir, to_int16: bool) -> torch.Tensor:
     prev = torch.cat([torch.zeros_like(tail[:, :1]), tail[:, :-1]], dim=1)
     y = (blk[..., :18] + prev) * inv
     st = y.transpose(2, 3).reshape(ch, tt * 18, 32)
-    v = dp._row_matmul(st, n_t)
+    v = _row_matmul(st, n_t)
     v_ext = torch.cat([v.new_zeros((ch, 15, 64)), v], dim=1)
     pcm = fir(v_ext, tt * 18).reshape(ch, tt, 576)
     if not to_int16:
