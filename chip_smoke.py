@@ -1249,9 +1249,11 @@ def search_phase(dev, card: str, wav64: str, enc_out: dict, runs: Paths,
     lanes in cursor order), every lane of the seeded song, and the
     forced-flag lanes (clear and windows); then the kernel and the plain
     version by CUDA events at the song's shapes (the clear search, one
-    window block), each beside its bound. Returns the kernel's row of the
-    kernels line; its error folds in phase 14's (``errs["search"]``:
-    ``cost_step`` against ``cost_step_torch`` on the song's lanes)."""
+    window block), each beside its bound, and the kernel's registers,
+    shared memory and spills (``-Xptxas -v``; a spill fails the phase) and
+    resident warps an SM. Returns the kernel's row of the kernels line;
+    its error folds in phase 14's (``errs["search"]``: ``cost_step``
+    against ``cost_step_torch`` on the song's lanes)."""
     from mp3stego_tpu_torch.models.encoder import _HIDE_BLOCK
 
     def lanes(wav):
@@ -1338,6 +1340,17 @@ def search_phase(dev, card: str, wav64: str, enc_out: dict, runs: Paths,
                   f"ops), at {wbound / best['window kernel']:.1%} of it; "
                   f"plain {times['window plain']} ms (plain/kernel "
                   f"{best['window plain'] / best['window kernel']:.1f}x)")
+    res = _cuda.ptxas_resources("search", "rate_search_kernel")
+    occ = SP.occupancy(dev)
+    _say("17 K4", f"[{card}] rate_search_kernel: {res['registers']} "
+                  f"registers a thread, {res['smem'] + occ['smem']} B of "
+                  f"shared memory a CTA ({occ['smem']} B dynamic), spills "
+                  f"{res['spill_stores']} B stored and {res['spill_loads']} B "
+                  f"loaded (-Xptxas -v); {occ['ctas']} CTAs of {occ['warps']} "
+                  f"warps an SM, {occ['ctas'] * occ['warps']} resident warps "
+                  f"(the runtime's occupancy query)")
+    if res["spill_stores"] or res["spill_loads"]:
+        raise AssertionError("rate_search_kernel spills registers")
     return dict(name="rate_search", route="cuda",
                 source="mp3stego_tpu_torch/csrc/search.cu",
                 replaces="mp3stego_tpu/ops/search_plane.py:385",

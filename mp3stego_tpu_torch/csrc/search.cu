@@ -36,16 +36,14 @@
 //             > 0 passes the gate) and FLAG_OOB (a step clamped into the
 //             128-entry steptab).
 //
-// Layout in a warp: thread t holds pairs t + 32 j (j < 9), i.e. samples
-// 2 (t + 32 j) and 2 (t + 32 j) + 1, in registers; the quads, which straddle
-// threads, read the warp's 576-entry scratch in shared memory. Run lengths,
-// ixmax, the quad sums and the 3 x (4 tables + escapes + max) region sums
-// are warp reductions (__reduce_max_sync / __reduce_add_sync); integer sums
-// do not depend on their order, so the kernel equals the plain version bit
-// for bit. Every CTA loads the tables into shared memory once (int2idx as
-// int16, the Huffman lengths as uint8: 31 KB) and its warps walk the lanes
-// in a fixed stride over a persistent grid of a few CTAs per SM. Lanes are
-// independent, so no result depends on the schedule.
+// Layout in a warp: thread t owns pairs t + 32 j (j < 9), i.e. samples
+// 2 (t + 32 j) and 2 (t + 32 j) + 1, of the warp's two 576-entry rows in
+// shared memory: the spectrum x, read once a lane, and the quantized ix,
+// written by each evaluation. The quads, which straddle threads, read ix
+// after a __syncwarp. Run lengths, ixmax, the quad sums and the 3 x (4
+// tables + escapes + max) region sums are warp reductions
+// (__reduce_max_sync / __reduce_add_sync); integer sums do not depend on
+// their order, so the kernel equals the plain version bit for bit.
 //
 // What bounds it on this card: operations. The function's work depends on
 // the data, so each lane counts it (the rows after evals and inner): the
@@ -55,14 +53,26 @@
 // and the big-values pairs (27 each: the lengths under 13/15/16/24 with
 // signs and escapes, the pair's region, its 5 sums and its max; 4 more in
 // hide mode for the re-cost under the emitted table). An evaluation that
-// returns at the quick reject costs nothing past it. A lane runs 7-20
-// evaluations, while the bytes are the spectra read once and the rows and
-// ix written once (about 4.7 KB a lane). The design keeps every evaluation
-// on chip (no lane waits on another's inner loop, no host round trip, no
-// intermediate in device memory); what is left over the function's count is
-// the predicated work (every pair is tested and summed against all 3
-// regions, and the quads over all lanes of the warp), the warp's
-// reductions and the rare float64 fallback.
+// returns at the quick reject costs nothing past it. A lane runs 1-168
+// evaluations, each a chain of shared-memory gathers and warp reductions
+// that one warp cannot hide, so the design keeps many lanes in flight:
+//
+//   * x and ix live in shared memory, not registers, and the pair loops
+//     unroll by 3, so a thread needs at most 80 registers with no spills
+//     (a full unroll spills at that cap) and __launch_bounds__ holds
+//     kMinBlocks CTAs of 8 warps on an SM: 24 lanes in flight. The tables
+//     (31 KB: int2idx as int16, the Huffman lengths as uint8) and the 8
+//     warps' rows (36 KB) are dynamic shared memory; the grid is the SMs
+//     times the CTAs an SM holds (rate_search_occupancy asks the runtime).
+//   * the warps take lanes from a queue (one atomicAdd a lane), so the
+//     warps that draw heavy lanes do not set the end of the launch.
+//
+// What is left over the function's count is the predicated work (every
+// pair is tested and summed against all 3 regions, the quads over all
+// lanes of the warp), the warp's reductions and the rare float64
+// fallback. One packed 32-bit gather a pair summed into its one region
+// (16 reductions an evaluation instead of 29) was measured slower at 24
+// warps an SM (PERF.md, section 6).
 
 #include <climits>
 #include <cstdint>
@@ -71,8 +81,9 @@
 
 namespace {
 
-constexpr int kWarps = 4;                  // lanes in flight per CTA
+constexpr int kWarps = 8;                  // lanes in flight per CTA
 constexpr int kThreads = 32 * kWarps;
+constexpr int kMinBlocks = 3;              // CTAs an SM must hold
 constexpr int kSamples = 576;
 constexpr int kPairs = 9;                  // pairs per thread (288 / 32)
 constexpr int kBail = 165140;              // 8192^(4/3)
@@ -101,6 +112,10 @@ struct Tables {
   unsigned char hlen[34 * 256];            // [table][x][y]
 };
 
+// dynamic shared memory: the tables, then each warp's x and ix rows
+constexpr int kTablesBytes = (sizeof(Tables) + 15) / 16 * 16;
+constexpr int kSmemBytes = kTablesBytes + kWarps * 2 * kSamples * 4;
+
 struct Args {
   const int* xr;                           // (n, 576)
   const int* max_bits;                     // (n,), null in cost mode
@@ -119,17 +134,10 @@ struct Args {
   const int* small;
   const short* int2idx;
   const unsigned char* hlen;
-  int* rows;                               // (17, m)
+  int* rows;                               // (21, m)
   int* ix;                                 // (m, 576)
   long long* cost;                         // (n,) in mode 1
-};
-
-struct Hide {
-  bool on;
-  const unsigned char* bits;
-  long long len;                           // buffer length
-  long long n_bits;
-  long long cur;
+  int* queue;                              // the next lane to take, from 0
 };
 
 // The function's work over a lane's evaluations (the bound's counts).
@@ -145,7 +153,6 @@ struct Eval {
   int bits;
   int bv, c1, a1, a2, a3, r0c, r1c, cts;
   int ch[3];
-  bool has_bv;
 };
 
 __device__ __forceinline__ int floordiv4(int a) {
@@ -157,19 +164,34 @@ __device__ __forceinline__ int wrap_abs(int v) {
                                 : static_cast<unsigned>(v));
 }
 
-// One evaluation at step s: quantize into ix (registers), then cost.
-// `addr`, `virgin` and `flags` carry the lane's state across evaluations,
-// `work` the function's work.
-__device__ Eval evaluate(const Tables& t, int* scratch, const int (&x)[18],
-                         long long xrmax, int s, int (&addr)[3],
-                         bool& virgin, int& flags, const Hide& h,
-                         int (&ix)[18], Work& work) {
+// One sample's quantized value at the step's scales.
+__device__ __forceinline__ int quantize1(const Tables& t, int v,
+                                         long long scalei, double st) {
+  const long long labs = v < 0 ? -static_cast<long long>(v)
+                               : static_cast<long long>(v);
+  const int ln = static_cast<int>((labs * scalei + 2147483648LL) >> 32);
+  if (ln < 10000) return t.int2idx[max(ln, 0)];
+  double d = __dmul_rn(static_cast<double>(wrap_abs(v)), st);
+  d = __dmul_rn(d, 4.656612875e-10);
+  return d < 0.0 ? INT_MIN
+                 : __double2int_rz(__dsqrt_rn(__dmul_rn(__dsqrt_rn(d), d)));
+}
+
+// One evaluation at step s: quantize the warp's x row into its ix row,
+// then cost. `addr`, `virgin` and `flags` carry the lane's state across
+// evaluations, `work` the function's work; `cur` is the lane's hide cursor.
+__device__ Eval evaluate(const Args& a, const Tables& t, const int* xs,
+                         int* ixs, long long xrmax, int s, long long cur,
+                         int (&addr)[3], bool& virgin, int& flags,
+                         Work& work) {
   const int l = threadIdx.x & 31;
+  const int2* x2 = reinterpret_cast<const int2*>(xs);
+  int2* ix2 = reinterpret_cast<int2*>(ixs);
   Eval e;
   e.gate = false;
   e.bits = kBailBits;
 
-  // ---- quantize
+  // ---- quantize, with the run lengths' per-thread terms
   const int sp = s + 127;
   const int sidx = min(max(sp, 0), 127);
   if (sp != sidx) {
@@ -182,23 +204,21 @@ __device__ Eval evaluate(const Tables& t, int* scratch, const int (&x)[18],
   ++work.quantized;
   const double st = t.steptab[sidx];
   int mx = INT_MIN;
-#pragma unroll
-  for (int i = 0; i < 18; ++i) {
-    const int v = x[i];
-    const long long labs = v < 0 ? -static_cast<long long>(v)
-                                 : static_cast<long long>(v);
-    const int ln = static_cast<int>((labs * scalei + 2147483648LL) >> 32);
-    int q;
-    if (ln < 10000) {
-      q = t.int2idx[max(ln, 0)];
-    } else {
-      double d = __dmul_rn(static_cast<double>(wrap_abs(v)), st);
-      d = __dmul_rn(d, 4.656612875e-10);
-      q = d < 0.0 ? INT_MIN
-                  : __double2int_rz(__dsqrt_rn(__dmul_rn(__dsqrt_rn(d), d)));
-    }
-    ix[i] = q;
-    mx = max(mx, q);
+  int last = -1;
+  int lim = 0;
+#pragma unroll 3
+  for (int j = 0; j < kPairs; ++j) {
+    const int p = 2 * (l + 32 * j);
+    const int2 v = x2[l + 32 * j];
+    int2 q;
+    q.x = quantize1(t, v.x, scalei, st);
+    q.y = quantize1(t, v.y, scalei, st);
+    ix2[l + 32 * j] = q;
+    mx = max(mx, max(q.x, q.y));
+    if (q.x != 0) last = p;
+    if (q.y != 0) last = p + 1;
+    if (q.x > 1) lim = p + 1;
+    if (q.y > 1) lim = p + 2;
   }
   if (__reduce_max_sync(kFull, mx) > kMaxStep) {
     return e;
@@ -207,18 +227,6 @@ __device__ Eval evaluate(const Tables& t, int* scratch, const int (&x)[18],
   ++work.costed;
 
   // ---- run lengths
-  int last = -1;
-  int lim = 0;
-#pragma unroll
-  for (int j = 0; j < kPairs; ++j) {
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const int p = 2 * (l + 32 * j) + b;
-      const int v = ix[2 * j + b];
-      if (v != 0) last = max(last, p);
-      if (v > 1) lim = max(lim, p + 1);
-    }
-  }
   last = __reduce_max_sync(kFull, last);
   lim = __reduce_max_sync(kFull, lim);
   const int i0 = last >= 0 ? ((last + 2) >> 1) << 1 : 0;
@@ -230,16 +238,11 @@ __device__ Eval evaluate(const Tables& t, int* scratch, const int (&x)[18],
   work.pairs += bv;
 
   // ---- count1 quads from bvr, both tables
-#pragma unroll
-  for (int j = 0; j < kPairs; ++j) {
-    scratch[2 * (l + 32 * j)] = ix[2 * j];
-    scratch[2 * (l + 32 * j) + 1] = ix[2 * j + 1];
-  }
   __syncwarp();
   int q0 = 0;
   int q1 = 0;
   for (int k = l; k < c1; k += 32) {
-    const int* v = scratch + bvr + 4 * k;
+    const int* v = ixs + bvr + 4 * k;
     const int sb = (v[0] != 0) + (v[1] != 0) + (v[2] != 0) + (v[3] != 0);
     const unsigned pu = static_cast<unsigned>(v[0])
         + (static_cast<unsigned>(v[1]) << 1)
@@ -262,9 +265,9 @@ __device__ Eval evaluate(const Tables& t, int* scratch, const int (&x)[18],
     kcount += band[j] <= bvr;
   }
   const int kmax = kcount - 1;
-  const int a = min(max(anz, 0), 22);
-  const int tc0 = max(min(t.small[kSubdv + 2 * a], kmax - 1), 0);
-  const int tc1 = max(min(t.small[kSubdv + 2 * a + 1], kmax - (tc0 + 1) - 1),
+  const int sa = min(max(anz, 0), 22);
+  const int tc0 = max(min(t.small[kSubdv + 2 * sa], kmax - 1), 0);
+  const int tc1 = max(min(t.small[kSubdv + 2 * sa + 1], kmax - (tc0 + 1) - 1),
                       0);
   const int a1 = has_bv ? band[tc0 + 1] : addr[0];
   const int a2 = has_bv ? band[min(max(tc0 + tc1 + 2, 0), 22)] : addr[1];
@@ -281,11 +284,12 @@ __device__ Eval evaluate(const Tables& t, int* scratch, const int (&x)[18],
     for (int c = 0; c < 5; ++c) acc[r][c] = 0;
     mreg[r] = INT_MIN;
   }
-#pragma unroll
+#pragma unroll 3
   for (int j = 0; j < kPairs; ++j) {
     const int p0 = 2 * (l + 32 * j);
-    const int xv = ix[2 * j];
-    const int yv = ix[2 * j + 1];
+    const int2 v = ix2[l + 32 * j];
+    const int xv = v.x;
+    const int yv = v.y;
     const int pidx = min(max(xv, 0), 15) * 16 + min(max(yv, 0), 15);
     const int signs = (xv != 0) + (yv != 0);
     const int nesc = (xv > 14) + (yv > 14);
@@ -343,26 +347,25 @@ __device__ Eval evaluate(const Tables& t, int* scratch, const int (&x)[18],
 
   // ---- hide: the pair transform at the cursor, re-cost under the emitted
   // tables
-  if (h.on) {
+  if (a.hbits != nullptr) {
     const int inc0 = e.ch[0] > 0;
     const int inc1 = e.ch[1] > 0;
-    const long long idx[3] = {h.cur, h.cur + inc0, h.cur + inc0 + inc1};
+    const long long idx[3] = {cur, cur + inc0, cur + inc0 + inc1};
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
-      if (e.ch[r] > 0 && idx[r] < h.n_bits) {
-        const long long bi = min(max(idx[r], 0LL), h.len - 1);
+      if (e.ch[r] > 0 && idx[r] < a.n_bits) {
+        const long long bi = min(max(idx[r], 0LL), a.hbuf - 1);
         e.ch[r] = t.small[kTransform + min(max(e.ch[r], 0), 31) * 2
-                          + h.bits[bi]];
+                          + a.hbits[bi]];
       }
     }
     int rr[3] = {0, 0, 0};
-#pragma unroll
+#pragma unroll 3
     for (int j = 0; j < kPairs; ++j) {
       const int p0 = 2 * (l + 32 * j);
-      const int xv = ix[2 * j];
-      const int yv = ix[2 * j + 1];
-      const int pidx = min(max(xv, 0), 15) * 16 + min(max(yv, 0), 15);
-      const int signs = (xv != 0) + (yv != 0);
+      const int2 v = ix2[l + 32 * j];
+      const int pidx = min(max(v.x, 0), 15) * 16 + min(max(v.y, 0), 15);
+      const int signs = (v.x != 0) + (v.y != 0);
       bool in[3];
       int tpp = 0;
 #pragma unroll
@@ -394,7 +397,6 @@ __device__ Eval evaluate(const Tables& t, int* scratch, const int (&x)[18],
   e.r0c = has_bv ? tc0 : 0;
   e.r1c = has_bv ? tc1 : 0;
   e.cts = sum0 >= sum1;
-  e.has_bv = has_bv;
 
   // ---- the lane's state
   if (!has_bv && c1 > 0 && virgin) {
@@ -407,10 +409,18 @@ __device__ Eval evaluate(const Tables& t, int* scratch, const int (&x)[18],
   return e;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void write_rows(const Args& a, int lane,
+                                           const int (&v)[kRows]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    a.rows[static_cast<long long>(r) * a.m + lane] = v[r];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 rate_search_kernel(Args a) {
-  __shared__ Tables t;
-  __shared__ int scratch_all[kWarps][kSamples];
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tables& t = *reinterpret_cast<Tables*>(smem);
   for (int i = threadIdx.x; i < 128; i += kThreads) {
     t.steptab[i] = a.steptab[i];
     t.steptabi[i] = a.steptabi[i];
@@ -424,130 +434,158 @@ rate_search_kernel(Args a) {
 
   const int l = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  int* scratch = scratch_all[w];
-  for (int lane = blockIdx.x * kWarps + w; lane < a.m;
-       lane += gridDim.x * kWarps) {
+  int* xs = reinterpret_cast<int*>(smem + kTablesBytes) + w * 2 * kSamples;
+  int* ixs = xs + kSamples;
+  for (;;) {
+    int lane = 0;                          // the warp's next lane
+    if (l == 0) lane = atomicAdd(a.queue, 1);
+    lane = __shfl_sync(kFull, lane, 0);
+    if (lane >= a.m) break;
     const int win = a.windows ? lane / a.n : 0;
     const int i = lane - win * a.n;
     const int* row = a.xr + static_cast<long long>(i) * kSamples;
-    int x[18];
     int m = 0;
 #pragma unroll
     for (int j = 0; j < kPairs; ++j) {
-      x[2 * j] = row[2 * (l + 32 * j)];
-      x[2 * j + 1] = row[2 * (l + 32 * j) + 1];
-      m = max(m, max(max(wrap_abs(x[2 * j]), 0), wrap_abs(x[2 * j + 1])));
+      const int2 v = make_int2(row[2 * (l + 32 * j)],
+                               row[2 * (l + 32 * j) + 1]);
+      reinterpret_cast<int2*>(xs)[l + 32 * j] = v;
+      m = max(m, max(max(wrap_abs(v.x), 0), wrap_abs(v.y)));
     }
     const long long xrmax = __reduce_max_sync(kFull, m);
     const bool need = xrmax > 0;
-    Hide h;
-    h.on = a.hbits != nullptr;
-    h.bits = a.hbits;
-    h.len = a.hbuf;
-    h.n_bits = a.n_bits;
-    h.cur = !h.on ? 0 : (a.windows ? 3LL * win : a.hcur[i]);
+    const long long cur = a.hbits == nullptr ? 0
+        : (a.windows ? 3LL * win : a.hcur[i]);
     int addr[3] = {0, 0, 0};
     bool virgin = true;
     int flags = 0;
-    int ix[18] = {};
     Work work = {};
 
     if (a.mode == 1) {                     // cost one step
-      const Eval e = evaluate(t, scratch, x, xrmax, a.step, addr, virgin,
-                              flags, h, ix, work);
+      const Eval e = evaluate(a, t, xs, ixs, xrmax, a.step, cur, addr,
+                              virgin, flags, work);
       if (l == 0) a.cost[lane] = e.gate ? e.bits : a.big;
       continue;
     }
 
+    // the bisection, then the inner loop, through one evaluation site
     const int mb = a.max_bits[i];
     int evals = 0;
     int inner = 0;
+    int nxt = -120;
+    int count = 120;
+    int round = 0;
+    int half = count / 2;
+    int step = nxt + half;
+    bool bisect = true;
     bool done = !need;
-    Eval fin = {};
-    if (need) {
-      int nxt = -120;
-      int count = 120;
-      for (int r = 0; r < 8 && count > 1; ++r) {
-        const int half = count / 2;
-        const Eval e = evaluate(t, scratch, x, xrmax, nxt + half, addr,
-                                virgin, flags, h, ix, work);
-        ++evals;
+    while (need) {
+      const Eval e = evaluate(a, t, xs, ixs, xrmax, step, cur, addr, virgin,
+                              flags, work);
+      ++evals;
+      if (bisect) {
         if (e.bits < mb) {
           count = half;
         } else {
           nxt += half;
           count -= half;
         }
-      }
-      int step = nxt;
-      while (inner < kIterCap) {
-        ++inner;
-        ++step;
-        const Eval e = evaluate(t, scratch, x, xrmax, step, addr, virgin,
-                                flags, h, ix, work);
-        ++evals;
-        if (e.gate && e.bits <= mb) {
-          done = true;
-          fin = e;
-          break;
+        if (++round < 8 && count > 1) {
+          half = count / 2;
+          step = nxt + half;
+          continue;
         }
-      }
-      if (!done) flags |= kFlagIter;
-      if (l == 0) {
-        const bool ok = done;
-        const int v[kRows] = {
-            ok ? step : 0, ok ? fin.bits : 0, ok ? fin.bv : 0,
-            ok ? fin.c1 : 0, ok ? fin.a1 : 0, ok ? fin.a2 : 0,
-            ok ? fin.a3 : 0, ok ? fin.r0c : 0, ok ? fin.r1c : 0,
-            ok ? fin.ch[0] : 0, ok ? fin.ch[1] : 0, ok ? fin.ch[2] : 0,
-            ok ? fin.cts : 0, flags, 0, evals, inner, work.quantized,
-            work.costed, work.quads, work.pairs};
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          a.rows[static_cast<long long>(r) * a.m + lane] = v[r];
+        bisect = false;
+        step = nxt;
+      } else if (e.gate && e.bits <= mb) {
+        done = true;
+        if (l == 0) {
+          const int v[kRows] = {
+              step, e.bits, e.bv, e.c1, e.a1, e.a2, e.a3, e.r0c, e.r1c,
+              e.ch[0], e.ch[1], e.ch[2], e.cts, flags, 0, evals, inner,
+              work.quantized, work.costed, work.quads, work.pairs};
+          write_rows(a, lane, v);
         }
+        break;
       }
-    } else if (l == 0) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        a.rows[static_cast<long long>(r) * a.m + lane] = r == 14 ? 1 : 0;
-      }
+      if (inner == kIterCap) break;
+      ++inner;
+      ++step;
+    }
+    if (!done && l == 0) {                 // the inner loop's cap
+      const int v[kRows] = {
+          0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, flags | kFlagIter, 0,
+          evals, inner, work.quantized, work.costed, work.quads,
+          work.pairs};
+      write_rows(a, lane, v);
+    } else if (!need && l == 0) {          // a silent lane
+      const int v[kRows] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1,
+                            0, 0, 0, 0, 0, 0};
+      write_rows(a, lane, v);
     }
     int* out = a.ix + static_cast<long long>(lane) * kSamples;
+    const int2* x2 = reinterpret_cast<const int2*>(xs);
+    const int2* ix2 = reinterpret_cast<const int2*>(ixs);
 #pragma unroll
     for (int j = 0; j < kPairs; ++j) {
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        const int q = ix[2 * j + b];
-        const int s = x[2 * j + b] < 0 ? static_cast<int>(
-                          0u - static_cast<unsigned>(q)) : q;
-        out[2 * (l + 32 * j) + b] = need && done ? s : 0;
-      }
+      const int2 x = x2[l + 32 * j];
+      const int2 q = ix2[l + 32 * j];
+      const bool keep = need && done;
+      out[2 * (l + 32 * j)] = !keep ? 0 : x.x < 0
+          ? static_cast<int>(0u - static_cast<unsigned>(q.x)) : q.x;
+      out[2 * (l + 32 * j) + 1] = !keep ? 0 : x.y < 0
+          ? static_cast<int>(0u - static_cast<unsigned>(q.y)) : q.y;
     }
   }
 }
 
+// Above 48 KB a launch may use dynamic shared memory only up to the
+// kernel's raised limit.
+cudaError_t raise_smem_limit() {
+  return cudaFuncSetAttribute(rate_search_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kSmemBytes);
+}
+
 }  // namespace
+
+// The CTAs of rate_search_kernel an SM holds at its dynamic shared memory
+// (the runtime's occupancy query), its warps a CTA and its bytes of shared
+// memory a CTA; returns the CUDA error (0 = success).
+extern "C" int rate_search_occupancy(int* ctas, int* warps, int* smem) {
+  cudaError_t err = raise_smem_limit();
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas, rate_search_kernel, kThreads, kSmemBytes);
+  }
+  *warps = kWarps;
+  *smem = kSmemBytes;
+  return static_cast<int>(err);
+}
 
 // Launch on `stream` and return cudaGetLastError() (0 = launched). Device
 // pointers; xr (n, 576) int32 and max_bits (n,) int32 C-contiguous; in hide
 // mode hbits (hbuf,) uint8 with n_bits message bits and, unless `windows`,
 // hcur (n,) int64. Mode 0 writes rows (21, m) int32 (ROWS, then the counts
 // evals, inner, quantized, costed, quads, pairs) and ix (m, 576) int32;
-// mode 1 writes cost (n,) int64. `blocks` CTAs of 4 warps walk the m lanes.
+// mode 1 writes cost (n,) int64. `blocks` CTAs of 8 warps take the m
+// lanes one at a time from `queue`, one int32 that must be 0 at launch.
 extern "C" int rate_search(const void* xr, const void* max_bits, int n, int m,
                            int windows, const void* hbits, long long hbuf,
                            long long n_bits, const void* hcur, int mode,
                            int step, long long big, const void* steptab,
                            const void* steptabi, const void* small,
                            const void* int2idx, const void* hlen, void* rows,
-                           void* ix, void* cost, int blocks, void* stream) {
+                           void* ix, void* cost, void* queue, int blocks,
+                           void* stream) {
   if (n <= 0 || m <= 0 || blocks <= 0 || (windows && m != 8 * n)
       || (!windows && m != n) || (mode == 0 && (!max_bits || !rows || !ix))
       || (mode == 1 && (!cost || hbits)) || (hbits && hbuf <= 0)
-      || (hbits && !windows && !hcur)) {
+      || (hbits && !windows && !hcur) || !queue) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaError_t err = raise_smem_limit();
+  if (err != cudaSuccess) return static_cast<int>(err);
   Args a;
   a.xr = static_cast<const int*>(xr);
   a.max_bits = static_cast<const int*>(max_bits);
@@ -569,7 +607,8 @@ extern "C" int rate_search(const void* xr, const void* max_bits, int n, int m,
   a.rows = static_cast<int*>(rows);
   a.ix = static_cast<int*>(ix);
   a.cost = static_cast<long long*>(cost);
-  rate_search_kernel<<<blocks, kThreads, 0,
+  a.queue = static_cast<int*>(queue);
+  rate_search_kernel<<<blocks, kThreads, kSmemBytes,
                        static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,7 @@ the CPU-only test environment imports every module without a toolchain.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,7 +23,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # --fmad=false: no multiply-add contraction anywhere in a kernel, so a kernel
 # that rounds like its plain PyTorch version can equal it bit for bit.
 # -Xptxas -v: registers, shared memory and spills per kernel, kept in the
-# build record for the smoke run to print.
+# build record (and beside the library, for a later process that finds it
+# built) for the smoke run to print.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -50,7 +52,11 @@ def _build(name: str) -> dict:
         key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     so = os.path.join(BUILD_DIR, f"lib{name}-{key.hexdigest()[:16]}.so")
     if os.path.exists(so):
-        return {"path": so, "seconds": 0.0, "log": "(cached build)"}
+        log = "(cached build)"
+        if os.path.exists(so + ".log"):
+            with open(so + ".log") as f:
+                log = f.read()
+        return {"path": so, "seconds": 0.0, "log": log}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
@@ -59,9 +65,12 @@ def _build(name: str) -> dict:
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src} (exit {r.returncode}):\n"
                            f"{r.stdout}{r.stderr}")
+    log = (r.stdout + r.stderr).strip()
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", so + ".log")
     os.replace(tmp, so)
-    return {"path": so, "seconds": time.perf_counter() - t0,
-            "log": (r.stdout + r.stderr).strip()}
+    return {"path": so, "seconds": time.perf_counter() - t0, "log": log}
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
@@ -84,3 +93,31 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
             builds[name] = info
             _libs[name] = lib
         return lib
+
+
+def ptxas_resources(name: str, kernel: str) -> dict:
+    """What ``-Xptxas -v`` said of ``kernel`` in the loaded ``csrc/<name>.cu``:
+    its ``registers`` a thread and static shared memory (``smem``, bytes;
+    dynamic shared memory is the launch's), and the bytes of spill stores
+    and loads over every function of the source (``spill_stores``,
+    ``spill_loads``). Raises if the log does not name the kernel."""
+    regs = smem = None
+    spills = [0, 0]
+    inside = False
+    for line in builds[name]["log"].splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = [spills[0] + int(m[1]), spills[1] + int(m[2])]
+        m = re.search(r"Used (\d+) registers", line)
+        if inside and m:
+            regs = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            smem = int(m[1]) if m else 0
+    if regs is None:
+        raise RuntimeError(f"the build log of csrc/{name}.cu names no "
+                           f"{kernel}")
+    return dict(registers=regs, smem=smem, spill_stores=spills[0],
+                spill_loads=spills[1])

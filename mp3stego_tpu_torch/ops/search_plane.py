@@ -44,6 +44,9 @@ against the true cursors (``models/encoder.MP3Encoder._encode_hide``).
   the lanes still searching, one host sync a round. The kernel equals them
   bit for bit on every row, ``ix`` and count.
 * ``launches`` — how many times the kernel was launched in this process.
+* ``occupancy`` — the kernel's CTAs an SM (the runtime's occupancy query),
+  warps a CTA and shared memory a CTA; the launch grid is the SMs times
+  its CTAs, and the warps take lanes from a queue.
 
 Results are resident: the ``ROWS`` (N,) int32, ``COUNTS`` (N,) int32 and
 ``ix`` (N, 576) int32. The counts are the evaluations each lane ran and, of
@@ -78,8 +81,6 @@ COUNTS = ("evals", "inner", "quantized", "costed", "quads", "pairs")
 _KEYS = ROWS + COUNTS             # the kernel's output rows, in this order
 
 launches = 0
-CTAS_PER_SM = 3                   # the persistent grid (158 registers)
-_WARPS = 4                        # lanes (warps) per CTA, as in search.cu
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -88,7 +89,9 @@ _SIGNATURES = {
         _P, ctypes.c_longlong, ctypes.c_longlong, _P,          # hide
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong,         # mode, step, big
         _P, _P, _P, _P, _P,                                    # tables
-        _P, _P, _P, ctypes.c_int, _P)),                        # outputs, grid
+        _P, _P, _P, _P, ctypes.c_int, _P)),                    # outputs,
+                                                               # queue, grid
+    "rate_search_occupancy": (ctypes.c_int, (_P, _P, _P)),
 }
 
 
@@ -400,9 +403,30 @@ def _window_bits(device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def occupancy(device: torch.device) -> dict:
+    """What the runtime gives the kernel on ``device``: the CTAs an SM
+    holds (``ctas``, at the kernel's registers and dynamic shared memory),
+    its warps a CTA (``warps``, one lane each) and its bytes of shared
+    memory a CTA (``smem``). Builds the kernel; raises on a CUDA error."""
+    from mp3stego_tpu_torch.ops import _cuda
+    lib = _cuda.load("search", _SIGNATURES)
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        rc = lib.rate_search_occupancy(*(ctypes.addressof(v) for v in out))
+    if rc != 0:
+        raise RuntimeError(f"rate_search occupancy query failed: CUDA error "
+                           f"{rc}")
+    ctas, warps, smem = (v.value for v in out)
+    if ctas < 1:
+        raise RuntimeError("rate_search_kernel fits no CTA on an SM")
+    return dict(ctas=ctas, warps=warps, smem=smem)
+
+
+@functools.lru_cache(maxsize=None)
 def _grid_cap(device: torch.device) -> int:
+    """The persistent grid: every SM full of CTAs."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * CTAS_PER_SM
+    return sms * occupancy(device)["ctas"]
 
 
 def _launch(xr, max_bits, sr_idx: int, m: int, windows: bool = False,
@@ -427,7 +451,8 @@ def _launch(xr, max_bits, sr_idx: int, m: int, windows: bool = False,
     if m == 0:
         return res if mode == 0 else cost
     hb, n_bits, hcur = hide if hide is not None else (None, 0, None)
-    blocks = min(-(-m // _WARPS), _grid_cap(dev))
+    queue = torch.zeros(1, dtype=torch.int32, device=dev)
+    blocks = min(-(-m // occupancy(dev)["warps"]), _grid_cap(dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.rate_search(
@@ -436,8 +461,8 @@ def _launch(xr, max_bits, sr_idx: int, m: int, windows: bool = False,
             None if hb is None else hb.data_ptr(),
             0 if hb is None else hb.shape[0], n_bits,
             None if hcur is None else hcur.data_ptr(),
-            mode, step, big, *(t.data_ptr() for t in tabs), *outs, blocks,
-            stream)
+            mode, step, big, *(t.data_ptr() for t in tabs), *outs,
+            queue.data_ptr(), blocks, stream)
     if rc != 0:
         raise RuntimeError(f"rate_search kernel launch failed: CUDA error "
                            f"{rc}")

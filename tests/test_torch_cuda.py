@@ -480,6 +480,34 @@ def test_search_kernel_equals_plain_version(card, name, mode):
             assert (flags & bit).any(), bit
 
 
+@pytest.mark.parametrize("sr_idx", [5, 8, 17])
+def test_search_kernel_equals_plain_version_at_other_band_rows(card, sr_idx):
+    """K4 against its plain version under band rows other than row 0's:
+    row 5 has an odd boundary (45), so a pair's two samples can lie in two
+    regions, and rows 8 and 17 end in bands of 2 samples. Clear, hide and
+    the 8 windows bit for bit; ``cost_step`` at a few steps."""
+    from mp3stego_tpu_torch.ops import search_plane as SP
+    rng = np.random.default_rng(sr_idx)
+    for name in ("fixture", "loud", "escape"):
+        xr, mb = _search_lanes(name)
+        xr_d = torch.from_numpy(xr).to(card)
+        mb_d = torch.from_numpy(mb).to(card)
+        hide = (rng.integers(0, 2, size=len(xr)).astype(np.uint8),
+                np.cumsum(rng.integers(0, 3, size=len(xr))))
+        for got, want in (
+                (SP.search(xr_d, mb_d, sr_idx),
+                 SP.search_torch(xr_d, mb_d, sr_idx)),
+                (SP.search(xr_d, mb_d, sr_idx, hide),
+                 SP.search_torch(xr_d, mb_d, sr_idx, hide)),
+                (SP.search_windows(xr_d, mb_d, sr_idx),
+                 SP.search_windows_torch(xr_d, mb_d, sr_idx))):
+            for k in SP.ROWS + SP.COUNTS + ("ix",):
+                assert torch.equal(got[k], want[k]), (name, k)
+        for s in (-100, -60, -30, 0):
+            assert torch.equal(SP.cost_step(xr_d, s, sr_idx),
+                               SP.cost_step_torch(xr_d, s, sr_idx)), (name, s)
+
+
 def test_search_kernel_refuses_what_it_cannot_launch(card):
     from mp3stego_tpu_torch.ops import search_plane as SP
     xr, mb = _search_lanes("loud")

@@ -11,13 +11,19 @@ PyTorch versions of the hand-written kernel ``csrc/search.cu``:
   quantizes at, each (phase, step) once, and its inner-loop rounds
   likewise; of them, those past quantize's quick reject, those it costs,
   and the count1 quads and big-values pairs of these;
-* the kernel's tables are the plain version's, narrowed without loss;
+* the kernel's tables are the plain version's, narrowed without loss, in
+  the order and types of its arguments;
+* the kernel's source itself, built for the host against a small
+  emulation of the CUDA features it uses (one thread per CUDA thread),
+  equals the plain versions on every row, count and the ix plane through
+  the wrapper's own launch code;
 * the wrappers refuse what the kernel cannot take.
 
 The card tests (``tests/test_torch_cuda.py``) hold the kernel to these plain
 versions bit for bit. Tolerance: exact everywhere.
 """
 
+import ctypes
 import sys
 
 import numpy as np
@@ -161,6 +167,310 @@ def test_kernel_tables_pack_the_search_tables(sr_idx):
             (hlen, T.HUFF_LEN.reshape(-1), torch.uint8)):
         assert got.dtype == dtype and got.is_contiguous()
         assert np.array_equal(got.numpy(), want)
+
+
+def test_kernel_tables_match_the_kernel_arguments():
+    """``_kernel_tables`` gives the tables in the order, type and length of
+    ``rate_search``'s table arguments (``Args`` in csrc/search.cu)."""
+    tabs = SP._kernel_tables(torch.device("cpu"), 0)
+    want = ((torch.float64, 128), (torch.int32, 128), (torch.int32, 201),
+            (torch.int16, 10000), (torch.uint8, 34 * 256))
+    assert [(t.dtype, t.numel()) for t in tabs] == list(want)
+    assert all(t.dim() == 1 and t.is_contiguous() for t in tabs)
+    argtypes = list(SP._SIGNATURES["rate_search"][1])
+    # xr .. windows (5), hide (4), mode, step, big (3), then the tables,
+    # the 3 outputs and the lane queue, each a pointer
+    assert argtypes[11] is ctypes.c_longlong
+    assert argtypes[12:12 + len(tabs) + 4] == [SP._P] * (len(tabs) + 4)
+    assert argtypes[12 + len(tabs) + 4] is ctypes.c_int
+
+
+def test_ptxas_resources_read_the_kept_build_log(monkeypatch):
+    """``_cuda.ptxas_resources`` (phase 17's registers, shared memory and
+    spills) reads the named kernel's lines of the ``-Xptxas -v`` log and
+    sums the spills of every function."""
+    from mp3stego_tpu_torch.ops import _cuda
+    name = "_ZN12_GLOBAL__N_118rate_search_kernelENS_4ArgsE"
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function 'other_kernel' for "
+        "'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 40 registers, 100 bytes smem",
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 80 registers, used 1 barriers, 656 bytes "
+        "cmem[0]"])
+    monkeypatch.setitem(_cuda.builds, "search", {"log": log})
+    assert _cuda.ptxas_resources("search", "rate_search_kernel") == dict(
+        registers=80, smem=0, spill_stores=4, spill_loads=4)
+    monkeypatch.setitem(_cuda.builds, "search", {"log": "(cached build)"})
+    with pytest.raises(RuntimeError, match="rate_search_kernel"):
+        _cuda.ptxas_resources("search", "rate_search_kernel")
+
+
+# The CUDA features csrc/search.cu uses, emulated on the host: one
+# std::thread per CUDA thread, the blocks one after another, a barrier per
+# warp for its shuffles and reductions and one per block for
+# __syncthreads; shared memory is a static or a host buffer.
+_HOST_SHIM = r"""#pragma once
+#include <atomic>
+#include <barrier>
+#include <climits>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <functional>
+#include <memory>
+#include <thread>
+#include <type_traits>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__ static
+#define __align__(n) alignas(n)
+
+struct alignas(8) int2 { int x, y; };
+inline int2 make_int2(int x, int y) { return int2{x, y}; }
+struct dim3 { unsigned x = 0, y = 0, z = 0; };
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+
+struct ShimWarp {
+  std::barrier<> bar{32};
+  long long vals[32];
+};
+
+struct ShimBlock {
+  std::unique_ptr<std::barrier<>> bar;
+  std::vector<std::unique_ptr<ShimWarp>> warps;
+};
+
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+inline thread_local ShimBlock* shim_block = nullptr;
+inline unsigned char* shim_dyn = nullptr;
+inline int shim_last_error = 0;
+inline size_t shim_max_dyn = 48 * 1024;
+
+inline void __syncthreads() { shim_block->bar->arrive_and_wait(); }
+inline ShimWarp& shim_warp() { return *shim_block->warps[threadIdx.x >> 5]; }
+inline void __syncwarp(unsigned = 0xffffffffu) { shim_warp().bar.arrive_and_wait(); }
+
+template <class T> inline T __reduce_add_sync(unsigned, T v) {
+  ShimWarp& w = shim_warp();
+  w.vals[threadIdx.x & 31] = static_cast<long long>(v);
+  w.bar.arrive_and_wait();
+  T s = 0;
+  for (int i = 0; i < 32; ++i) s = static_cast<T>(s + static_cast<T>(w.vals[i]));
+  w.bar.arrive_and_wait();
+  return s;
+}
+template <class T> inline T __reduce_max_sync(unsigned, T v) {
+  ShimWarp& w = shim_warp();
+  w.vals[threadIdx.x & 31] = static_cast<long long>(v);
+  w.bar.arrive_and_wait();
+  T s = static_cast<T>(w.vals[0]);
+  for (int i = 1; i < 32; ++i) s = std::max(s, static_cast<T>(w.vals[i]));
+  w.bar.arrive_and_wait();
+  return s;
+}
+template <class T> inline T __shfl_sync(unsigned, T v, int src) {
+  ShimWarp& w = shim_warp();
+  w.vals[threadIdx.x & 31] = static_cast<long long>(v);
+  w.bar.arrive_and_wait();
+  T s = static_cast<T>(w.vals[src & 31]);
+  w.bar.arrive_and_wait();
+  return s;
+}
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+
+template <class A, class B> inline auto min(A a, B b) {
+  using C = std::common_type_t<A, B>;
+  return static_cast<C>(a) < static_cast<C>(b) ? static_cast<C>(a) : static_cast<C>(b);
+}
+template <class A, class B> inline auto max(A a, B b) {
+  using C = std::common_type_t<A, B>;
+  return static_cast<C>(a) > static_cast<C>(b) ? static_cast<C>(a) : static_cast<C>(b);
+}
+
+inline double __dmul_rn(double a, double b) {
+  volatile double r = a * b;
+  return r;
+}
+inline double __dsqrt_rn(double a) { return std::sqrt(a); }
+inline int __double2int_rz(double d) {
+  if (d != d) return 0;
+  if (d >= 2147483647.0) return INT_MAX;
+  if (d <= -2147483648.0) return INT_MIN;
+  return static_cast<int>(d);
+}
+
+inline cudaError_t cudaGetLastError() {
+  int e = shim_last_error;
+  shim_last_error = 0;
+  return e;
+}
+template <class F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int v) {
+  if (v > 227 * 1024) return cudaErrorInvalidValue;
+  shim_max_dyn = v;
+  return cudaSuccess;
+}
+inline int shim_occupancy = 3;
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = shim_occupancy;
+  return cudaSuccess;
+}
+
+inline void shim_launch(int blocks, int threads, size_t smem, std::function<void()> fn) {
+  if (smem > shim_max_dyn || threads > 1024 || threads % 32) {
+    shim_last_error = cudaErrorInvalidValue;
+    return;
+  }
+  std::vector<unsigned char> dyn(smem + 16, 0xcd);
+  for (int b = 0; b < blocks; ++b) {
+    ShimBlock blk;
+    blk.bar = std::make_unique<std::barrier<>>(threads);
+    for (int w = 0; w < threads / 32; ++w) blk.warps.push_back(std::make_unique<ShimWarp>());
+    shim_dyn = dyn.data();
+    std::vector<std::thread> ts;
+    for (int t = 0; t < threads; ++t) {
+      ts.emplace_back([&, t, b] {
+        threadIdx.x = t; blockIdx.x = b; blockDim.x = threads; gridDim.x = blocks;
+        shim_block = &blk;
+        fn();
+      });
+    }
+    for (auto& th : ts) th.join();
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """csrc/search.cu built for the host with g++ against ``_HOST_SHIM``:
+    the ``<<<...>>>`` launch and the ``extern __shared__`` array rewritten
+    by text. Returns the loaded library."""
+    import os
+    import re
+    import shutil
+    import subprocess
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the kernel's source for the host")
+    d = tmp_path_factory.mktemp("search_host")
+    with open(os.path.join(os.path.dirname(SP.__file__), os.pardir, "csrc",
+                           "search.cu")) as f:
+        src = f.read()
+    src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w: ]+?) "
+                 r"(\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(shim_dyn);", src)
+    src, n = re.subn(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*(.*?)>>>"
+                     r"\((.*?)\);",
+                     r"shim_launch(\2, \3, \4, [&] { \1(\6); });", src,
+                     flags=re.S)
+    assert n == 1
+    (d / "shim.h").write_text(_HOST_SHIM)
+    (d / "search.cpp").write_text(src)
+    so = str(d / "libsearch_host.so")
+    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-pthread", "-w", "-I", str(d),
+                    "-o", so, str(d / "search.cpp")], check=True,
+                   timeout=300)
+    lib = ctypes.CDLL(so)
+    for fn, (restype, argtypes) in SP._SIGNATURES.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = list(argtypes)
+    return lib
+
+
+def _on_host(lib, monkeypatch):
+    """Route ``SP._launch`` to the host build: CPU tensors, stream 0, the
+    occupancy the host build reports on a 2-SM grid."""
+    import contextlib
+    import threading
+    import types
+    from mp3stego_tpu_torch.ops import _cuda
+    out = [ctypes.c_int(0) for _ in range(3)]
+    assert lib.rate_search_occupancy(*(ctypes.addressof(v)
+                                       for v in out)) == 0
+    occ = dict(zip(("ctas", "warps", "smem"), (v.value for v in out)))
+    assert occ["ctas"] >= 1 and occ["smem"] > 48 * 1024
+    monkeypatch.setattr(_cuda, "load", lambda name, sig: lib)
+    monkeypatch.setattr(SP, "occupancy", lambda dev: occ)
+    monkeypatch.setattr(SP, "_grid_cap", lambda dev: 2 * occ["ctas"])
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+
+    def launch(*args, **kw):
+        """``SP._launch`` in a daemon thread: a warp that missed a
+        collective would hang, and then the test fails instead."""
+        box = []
+        th = threading.Thread(target=lambda: box.append(
+            SP._launch(*args, **kw)), daemon=True)
+        th.start()
+        th.join(120)
+        assert not th.is_alive(), "the host build of the kernel hung"
+        return box[0]
+    return launch
+
+
+@pytest.mark.parametrize("name,sr_idx", [
+    ("fixture", 0), ("loud", 0), ("escape", 0), ("forced", 0),
+    ("loud", 5), ("fixture", 17)])
+def test_kernel_source_on_the_host_equals_the_plain_version(
+        name, sr_idx, host_kernel, monkeypatch):
+    """csrc/search.cu, built for the host, through the wrapper's own launch
+    code: clear, hide at ascending cursors, hide without message bits, the 8
+    windows and ``cost_step`` at a few steps, every row, count and the ix
+    plane bit for bit against the plain versions. Band row 5 has an odd
+    boundary, so a pair's two samples can lie in two regions."""
+    launch = _on_host(host_kernel, monkeypatch)
+    xr, mb = _case(name)
+    xr_t = torch.from_numpy(np.ascontiguousarray(xr[:48]))
+    mb_t = torch.from_numpy(np.ascontiguousarray(mb[:48]))
+    n = xr_t.shape[0]
+    rng = np.random.default_rng(3)
+    keys = SP.ROWS + SP.COUNTS + ("ix",)
+    runs = [(launch(xr_t, mb_t, sr_idx, n), SP.search_torch(xr_t, mb_t,
+                                                             sr_idx))]
+    for hide in ((rng.integers(0, 2, size=3 * n // 2).astype(np.uint8),
+                  np.cumsum(rng.integers(0, 4, size=n))),
+                 (np.zeros(0, np.uint8), np.zeros(n, np.int64))):
+        hb, hc, nb = SP._hide_tensors(hide, n, xr_t.device)
+        runs.append((launch(xr_t, mb_t, sr_idx, n, hide=(hb, nb, hc)),
+                     SP.search_torch(xr_t, mb_t, sr_idx, hide)))
+    xs, ms = xr_t[:8].contiguous(), mb_t[:8].contiguous()
+    wb = torch.from_numpy(SP.WINDOW_BITS)
+    runs.append((launch(xs, ms, sr_idx, 64, windows=True,
+                        hide=(wb, wb.shape[0], None)),
+                 SP.search_windows_torch(xs, ms, sr_idx)))
+    for got, want in runs:
+        for k in keys:
+            assert torch.equal(got[k], want[k]), k
+    for s in (-110, -50, -20, 0):
+        got = launch(xr_t, None, sr_idx, n, mode=1, step=s, big=1 << 20)
+        assert torch.equal(got, SP.cost_step_torch(xr_t, s, sr_idx)), s
+    if name == "forced":
+        flags = runs[0][0]["flags"].numpy()
+        for bit in (SP.FLAG_ADDR, SP.FLAG_OOB, SP.FLAG_ITER):
+            assert (flags & bit).any(), bit
 
 
 def test_wrappers_refuse_what_the_kernel_cannot_take():

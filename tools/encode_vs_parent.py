@@ -16,14 +16,22 @@ the hide of 90 % of the song's channel bits (seeded), the VBR encode at 128
 kbps (each the median of 3, with the median of its "analysis+mdct (device)"
 stage), the batched encode of 4 stereo 30 s slices, and the streaming
 encode, clear and hidden in 512-frame windows and clear in 7-frame windows
-(each once). Every output's SHA-256 must be the same in all four workers.
-It writes the record as JSON and prints it with the card's ``nvidia-smi``
-name and power limit (``tools/vs_parent.py`` runs the turns).
+(each once). Beside the walls it times the rate-control search K4 alone
+(CUDA events around each call, issued behind a spin of the card so that
+they time the card alone; the median of 10 after a warm-up):
+``search_plane.search`` on the song's 36,864 lanes at the clear encode's
+budgets and ``search_plane.search_windows`` on the hide's first 4,096 lanes
+in cursor order; it keeps the ``-Xptxas -v`` lines of K4's build and its
+CTAs and warps an SM. Every output's SHA-256, K4's rows, counts and ix
+included, must be the same in all four workers. It writes the record as
+JSON and prints it with the card's ``nvidia-smi`` name and power limit
+(``tools/vs_parent.py`` runs the turns).
 """
 
 import hashlib
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -31,6 +39,59 @@ import vs_parent
 
 SONG_COPIES = 256
 HIDE_SHARE = 0.9
+
+
+def search_alone(wav: str, dev, sha: dict) -> tuple:
+    """K4 alone on the song's lanes: (ms of each shape, the build's ptxas
+    lines, CTAs and warps an SM); each shape's results go into ``sha``."""
+    import numpy as np
+    import torch
+    from mp3stego_tpu_torch.models.encoder import _HIDE_BLOCK, MP3Encoder
+    from mp3stego_tpu_torch.ops import _cuda
+    from mp3stego_tpu_torch.ops import search_plane as SP
+    from mp3stego_tpu_torch.utils.wav import read_wav
+    enc = MP3Encoder(read_wav(wav, 320), device=dev)
+    nf = enc._num_frames()
+    xr = enc._analysis_device(nf)
+    mb = torch.from_numpy(enc._lane_budgets(enc._plane_framing(nf)[1])) \
+        .to(dev)
+    # the hide's cursor order f > ch > gr (lane g = ch * tg + f * gpf + gr)
+    gpf = enc.granules_per_frame
+    order = (np.arange(nf)[:, None, None] * gpf
+             + np.arange(2)[None, :, None] * (nf * gpf)
+             + np.arange(gpf)[None, None, :]).reshape(-1)
+    blk = torch.from_numpy(order[:_HIDE_BLOCK]).to(dev)
+    xb, mbb = xr[blk], mb[blk]
+    band = enc.band_row
+    ms = {}
+    for name, fn in (
+            ("clear search", lambda: SP.search(xr, mb, band)),
+            ("hide window block", lambda: SP.search_windows(xb, mbb, band))):
+        res = fn()
+        h = hashlib.sha256()
+        for k in SP.ROWS + SP.COUNTS + ("ix",):
+            h.update(res[k].cpu().numpy().tobytes())
+        sha[f"K4 {name}"] = h.hexdigest()
+        times = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            # the card spins while the host enqueues the call, so that the
+            # events hold the kernel's time and not the host's
+            torch.cuda._sleep(1_000_000)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms[name] = statistics.median(times)
+    ptxas = [line.strip() for line in
+             _cuda.builds["search"]["log"].splitlines()
+             if "registers" in line or "spill" in line]
+    # a tree from before the occupancy query fixed its grid by constants
+    occ = (SP.occupancy(dev) if hasattr(SP, "occupancy")
+           else dict(ctas=SP.CTAS_PER_SM, warps=SP._WARPS))
+    return ms, dict(ptxas=ptxas, **occ)
 
 
 def worker(root: str, tmp: str) -> dict:
@@ -68,6 +129,7 @@ def worker(root: str, tmp: str) -> dict:
         stage[name] = ms[len(ms) // 2]
 
     usable = encode().hide_str_offset                       # warm-up
+    k4_ms, k4_build = search_alone(wav, dev, sha)
     bits = "".join(np.random.default_rng(11).choice(
         ["0", "1"], size=int(usable * HIDE_SHARE)))
     encs = []
@@ -107,7 +169,8 @@ def worker(root: str, tmp: str) -> dict:
             torch.cuda.synchronize()), 1)
         with open(mp3, "rb") as f:
             sha[name] = hashlib.sha256(f.read()).hexdigest()
-    return dict(root=root, walls_ms=out, analysis_stage_ms=stage, sha=sha)
+    return dict(root=root, walls_ms=out, analysis_stage_ms=stage,
+                search_alone_ms=k4_ms, search_build=k4_build, sha=sha)
 
 
 def _write_inputs(tmp: str) -> None:
@@ -130,8 +193,17 @@ def main() -> int:
         print(json.dumps(worker(args.worker, args.tmp)))
         return 0
     card, runs, med = vs_parent.compare(__file__, args, _write_inputs)
+    alone = {}
+    for name in runs[0]["search_alone_ms"]:
+        for which in ("parent", "change"):
+            alone.setdefault(name, {})[which] = sorted(
+                r["search_alone_ms"][name] for r in runs
+                if r["tree"] == which)
     vs_parent.write(args.out, card, runs, med, analysis_stage_ms=[
-        (r["tree"], r["analysis_stage_ms"]) for r in runs])
+        (r["tree"], r["analysis_stage_ms"]) for r in runs],
+        search_alone_ms=alone, search_build={
+            r["tree"]: r["search_build"] for r in runs[::-1]
+            if r["search_build"]["ptxas"]})
     return 0
 
 
