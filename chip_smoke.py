@@ -102,10 +102,19 @@ K4_OPS_QUAD = 19
 K4_OPS_PAIR = 27
 K4_OPS_PAIR_HIDE = K4_OPS_PAIR + 4
 # integer operations of K3's function per (channel, granule) (the note in
-# csrc/analysis.cu): 66,816 Q31 products (window 18 x 512, filter 18 x 32 x
-# 64, MDCT 32 x 18 x 36), a multiply-high and an add each, and 31 x 8 alias
-# butterflies of 8 (4 products, 2 sums, 2 shifts)
-K3_OPS_GRANULE = 2 * (18 * 512 + 18 * 32 * 64 + 32 * 18 * 36) + 8 * 31 * 8
+# csrc/analysis.cu), in cycles of the INT32 (FMA) pipe: 66,816 Q31 products
+# (window 18 x 512, filter 18 x 32 x 64, MDCT 32 x 18 x 36), each a
+# multiply-high and its add, which sm_90a issues as one IMAD.HI (its addend
+# a register pair with a zero low word) that holds the pipe two cycles
+# (tools/imad_probe.py: 7.79 T/s against IMAD's 16.66 T/s on the H100), and
+# 31 x 8 alias butterflies of 8 (4 products, 2 sums, 2 shifts). With one
+# cycle a product (``analysis_bound``'s ``per_product=1``) the bound would be
+# half of what any kernel can reach.
+K3_PRODUCTS = 18 * 512 + 18 * 32 * 64 + 32 * 18 * 36
+K3_OPS_GRANULE = 2 * K3_PRODUCTS + 8 * 31 * 8
+# the window and filter of the granule of MDCT context in front of a
+# window's first output (``skip`` > 0), in the same cycles
+K3_OPS_CONTEXT = 2 * (18 * 512 + 18 * 32 * 64)
 # separately rounded operations of K2's function (the note in
 # csrc/granule.cu), counted from decode_plane.granule_blocks_torch and
 # charged to what this run's data takes: per sample the requantize (the
@@ -196,10 +205,31 @@ def _lsb_contract(name: str, got: np.ndarray, want: np.ndarray,
     return f"max |d| {int(d.max())} LSB on {rate:.3e} of {d.size} samples"
 
 
+@contextlib.contextmanager
+def host_stream_calls():
+    """The calls of the host's channel-stream builders
+    (``MP3Encoder._channel_streams_i16``, ``encode_plane._padded_streams``)
+    while the block runs, by name."""
+    calls = []
+    names = ((MP3Encoder, "_channel_streams_i16"), (EP, "_padded_streams"))
+    saved = [getattr(owner, name) for owner, name in names]
+    for (owner, name), fn in zip(names, saved):
+        def spy(*args, _fn=fn, _name=name, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        setattr(owner, name, spy)
+    try:
+        yield calls
+    finally:
+        for (owner, name), fn in zip(names, saved):
+            setattr(owner, name, fn)
+
+
 class Paths:
     """The hand kernels' launches per main path: each path runs with every
     count set to 0 just before it and read just after, and fails if a kernel
-    it runs (``kernels``) launched no time."""
+    it runs (``kernels``) launched no time, or if a path that runs K3 built
+    channel streams on the host."""
 
     def __init__(self):
         self.log = []                        # (name, dtype, {kernel: n})
@@ -207,11 +237,16 @@ class Paths:
     def run(self, name: str, dtype, fn, kernels=DECODE):
         for mod in KERNELS.values():
             mod.launches = 0
-        out = fn()
+        with host_stream_calls() as calls:
+            out = fn()
         counts = {k: mod.launches for k, mod in KERNELS.items()}
         for k in kernels:
             if counts[k] == 0:
                 raise AssertionError(f"{name}: the path never launched {k}")
+        if "analysis" in kernels and calls:
+            raise AssertionError(f"{name}: built channel streams on the "
+                                 f"host ({sorted(set(calls))}); K3 reads "
+                                 f"the WAV's interleaved buffer")
         self.log.append((name, dtype, counts))
         return out
 
@@ -334,16 +369,22 @@ def _expect_equal(name, got: bytes, want: bytes):
                              f"expected {len(want)} at byte {diff}")
 
 
-def analysis_bound(ch: int, tg: int):
+def analysis_bound(ch: int, tg: int, skip: int = 0,
+                   per_product: int = 2):
     """The least time for K3's work on the card: (bytes that must move: the
-    int16 streams and the tables read once, the int32 spectra written once)
-    over HBM's rate, against (``K3_OPS_GRANULE`` a (channel, granule)) over
-    the INT32 rate. Returns (ms, "bytes" or "operations", bytes,
-    operations)."""
-    lanes = ch * tg
+    int16 streams and the tables read once, the int32 spectra of granules
+    ``skip`` onward written once) over HBM's rate, against
+    (``K3_OPS_GRANULE`` a (channel, output granule), ``K3_OPS_CONTEXT`` for
+    the granule of context before the first when ``skip`` > 0) over the
+    INT32 rate; ``per_product=1`` counts one pipe cycle a product instead
+    of the two an IMAD.HI takes. Returns (ms, "bytes" or "operations",
+    bytes, operations)."""
+    lanes = ch * (tg - skip)
     nbytes = 2 * ch * (EP._PAST + tg * 576) + 4 * lanes * 576 \
         + 4 * (512 + 32 * 64 + 18 * 36 + 16)
-    ops = lanes * K3_OPS_GRANULE
+    cut = (2 - per_product) * K3_PRODUCTS
+    ops = lanes * (K3_OPS_GRANULE - cut) + (
+        ch * K3_OPS_CONTEXT * per_product // 2 if skip else 0)
     by_bytes = nbytes / HBM_BYTES_S * 1e3
     by_ops = ops / PEAK_INT_OPS_S * 1e3
     if by_bytes >= by_ops:
@@ -367,18 +408,64 @@ def hold_analysis(name: str, full: torch.Tensor, skip: int = 0,
     return got
 
 
+def hold_interleaved(name: str, buf: np.ndarray, nch: int, tg: int,
+                     dev) -> torch.Tensor:
+    """K3 on the WAV's interleaved buffer against the stream route on the
+    channels ``_channel_streams_i16`` cuts from it and the native twin, bit
+    for bit; returns the kernel's result."""
+    streams = np.zeros((nch, tg * 576), np.int16)
+    for c in range(nch):
+        part = buf[c::nch][:tg * 576]
+        streams[c, :len(part)] = part
+    got = EP.analysis_interleaved(torch.from_numpy(buf).to(dev), nch, tg)
+    want = EP.analysis_stream(torch.from_numpy(
+        EP._padded_streams(streams, tg)).to(dev))
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{name}: interleaved analysis != the stream "
+                             f"route")
+    if not np.array_equal(got.cpu().numpy(),
+                          EP.run_analysis_native(streams, tg)):
+        raise AssertionError(f"{name}: interleaved analysis != native "
+                             f"encode_analysis")
+    return got
+
+
+def _card_ms(fn, runs: int = 10) -> float:
+    """The median card time of ``fn()`` by CUDA events, each call issued
+    behind a spin of the card so that the events hold the card's time and
+    not the host's enqueue."""
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
 def analysis_phase(dev, card: str, wav64: str):
     """Phase 8: K3 (``csrc/analysis.cu``) bit for bit its plain version
-    and the native ``encode_analysis`` on the song, a mono stream, a
-    1-granule stream, a full-scale square wave whose sums wrap, and a
-    512-frame window sliced as the streaming encode does (``skip=1``,
-    equal to the whole stream's granules too); then the kernel, the plain
-    version, the host preparation, the upload and the host C++ twin, each
-    timed. Returns (the song's seconds, K3's measured fields of the kernels
-    line)."""
+    and the native ``encode_analysis`` on the song, a 512-frame and a
+    7-frame window sliced as the streaming encode does (``skip=1``, equal
+    to the whole stream's granules too), a mono stream, a 1-granule stream
+    and a full-scale square wave whose sums wrap; its interleaved entry on
+    the song's WAV buffer, a mono buffer and a buffer shorter than whole
+    granules bit for bit the stream route and the native twin. Then K3
+    alone at the three shapes its launches take (CUDA events behind a card
+    spin) beside each bound, the plain version, the host preparation the
+    interleaved entry removed, the uploads and the host C++ twin, and the
+    kernel's registers, shared memory, spills (a spill fails the phase) and
+    resident warps an SM. Returns (the song's seconds, K3's measured fields
+    of the kernels line)."""
     enc = MP3Encoder(read_wav(wav64, 320), device=dev)
     nf = enc._num_frames()
     tg = nf * enc.granules_per_frame
+    nch = enc.wav.num_of_channels
     seconds = enc.wav.num_of_samples / enc.wav.samplerate
     t0 = time.perf_counter()
     streams = enc._channel_streams_i16(nf)
@@ -387,22 +474,36 @@ def analysis_phase(dev, card: str, wav64: str):
     t2 = time.perf_counter()
     full = torch.from_numpy(padded).to(dev)
     up_ms = _time_ms(lambda: torch.from_numpy(padded).to(dev), 3)
+    wav_buf = np.ascontiguousarray(enc.wav.buffer[:nch * tg * 576],
+                                   np.int16)                # as encodes send
+    buf_ms = _time_ms(lambda: torch.from_numpy(wav_buf).to(dev), 3)
     t3 = time.perf_counter()
     native = EP.run_analysis_native(streams, tg)
     host_ms = (time.perf_counter() - t3) * 1e3
     got = hold_analysis("song", full, native=native)
+    if not torch.equal(hold_interleaved("song, interleaved", wav_buf, nch,
+                                        tg, dev), got):
+        raise AssertionError("the song's interleaved spectra differ")
 
-    lo = 1 + tg // 8                          # a 512-frame window
-    hi = min(tg, lo + 1024)
-    win = full[:, (lo - 1) * 576:hi * 576 + EP._PAST].contiguous()
-    if not torch.equal(hold_analysis("512-frame window, skip=1", win, 1),
-                       got[:, lo:hi]):
-        raise AssertionError("window slice != the whole stream's granules")
+    lo = 1 + tg // 8
+    windows = {}
+    for frames in (512, 7):
+        hi = lo + frames * enc.granules_per_frame
+        win = full[:, (lo - 1) * 576:hi * 576 + EP._PAST].contiguous()
+        if not torch.equal(hold_analysis(f"{frames}-frame window, skip=1",
+                                         win, 1), got[:, lo:hi]):
+            raise AssertionError(f"{frames}-frame window slice != the "
+                                 f"whole stream's granules")
+        windows[f"{frames}-frame window"] = win
     del got
     n = min(300, tg)
     mono = streams[:1, :n * 576]
     hold_analysis("mono", torch.from_numpy(EP._padded_streams(mono, n))
                   .to(dev), native=EP.run_analysis_native(mono, n))
+    hold_interleaved("mono, interleaved", np.ascontiguousarray(mono[0]), 1,
+                     n, dev)
+    hold_interleaved("short buffer, interleaved",
+                     wav_buf[:2 * 5 * 576 + 333].copy(), nch, 9, dev)
     one = streams[:, tg // 2 * 576:(tg // 2 + 1) * 576]
     hold_analysis("1 granule", torch.from_numpy(EP._padded_streams(one, 1))
                   .to(dev), native=EP.run_analysis_native(one, 1))
@@ -416,37 +517,66 @@ def analysis_phase(dev, card: str, wav64: str):
         raise AssertionError("the square wave's sums did not wrap")
     _say("8 analysis", f"K3 bitwise equal to analysis_stream_torch and the "
                        f"native encode_analysis on the song {tuple(full.shape)}"
-                       f" int16, a mono stream, 1 granule and a full-scale "
-                       f"square wave; a 512-frame window slice (skip=1) "
-                       f"equals its plain version and the whole stream's "
-                       f"granules {lo}..{hi - 1}")
+                       f" int16, 512- and 7-frame window slices (skip=1, "
+                       f"equal to the whole stream's granules from {lo}), a "
+                       f"mono stream, 1 granule and a full-scale square "
+                       f"wave; the interleaved entry on the song's WAV "
+                       f"buffer, a mono and a short buffer equal to the "
+                       f"stream route and the native twin")
 
-    fns = {"kernel": lambda: EP.analysis_stream(full),
-           "plain": lambda: EP.analysis_stream_torch(full)}
+    shapes = {"song": (full, 0), **{k: (w, 1) for k, w in windows.items()}}
+    buf_dev = torch.from_numpy(wav_buf).to(dev)
+    fns = {k: (lambda f=f, sk=sk: EP.analysis_stream(f, skip=sk))
+           for k, (f, sk) in shapes.items()}
+    fns["song, interleaved"] = lambda: EP.analysis_interleaved(buf_dev, nch,
+                                                               tg)
     for fn in fns.values():
         fn()
-    times = {k: [] for k in fns}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        times[which].append(_time_ms(fns[which], 1 if which == "plain"
-                                     else 20))
-    best = {k: min(v) for k, v in times.items()}
-    bound, by, nbytes, ops = analysis_bound(full.shape[0], tg)
-    _say("8 analysis", f"[{card}] song, {full.shape[0]} x {tg} granules: "
-                       f"kernel {times['kernel']} ms, bound {bound:.4f} ms by "
-                       f"{by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G int "
-                       f"ops), at {bound / best['kernel']:.1%} of it; plain "
-                       f"{times['plain']} ms (plain/kernel "
-                       f"{best['plain'] / best['kernel']:.1f}x)")
-    _say("8 analysis", f"[{card}] host preparation: _channel_streams_i16 "
+    ms = {k: _card_ms(fn) for k, fn in fns.items()}
+    plain_ms = _time_ms(lambda: EP.analysis_stream_torch(full), 1)
+    occ = EP.occupancy(dev)
+    for name, (f, sk) in shapes.items():
+        n_g = (f.shape[1] - EP._PAST) // 576
+        bound, by, nbytes, ops = analysis_bound(f.shape[0], n_g, sk)
+        bound1 = analysis_bound(f.shape[0], n_g, sk, per_product=1)[0]
+        g, run, items = EP.schedule(f.shape[0], n_g - sk,
+                                    EP._grid_cap(dev), occ["granules"])
+        _say("8 analysis", f"[{card}] {name}, {f.shape[0]} x {n_g} granules"
+                           f" (skip={sk}; tiles of {g}, runs of {run}, "
+                           f"{items} runs): kernel {ms[name]:.4f} ms, bound "
+                           f"{bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+                           f"{ops / 1e9:.4f} G pipe cycles), at "
+                           f"{bound / ms[name]:.1%} of it ({bound1:.4f} ms "
+                           f"and {bound1 / ms[name]:.1%} at one cycle a "
+                           f"product)")
+    bound, by = analysis_bound(full.shape[0], tg)[:2]
+    _say("8 analysis", f"[{card}] song from the WAV's interleaved buffer: "
+                       f"kernel {ms['song, interleaved']:.4f} ms; plain "
+                       f"(streams) {plain_ms:.2f} ms (plain/kernel "
+                       f"{plain_ms / ms['song']:.1f}x)")
+    _say("8 analysis", f"[{card}] host preparation the interleaved entry "
+                       f"removed: _channel_streams_i16 "
                        f"{(t1 - t0) * 1e3:.2f} ms, _padded_streams "
-                       f"{(t2 - t1) * 1e3:.2f} ms; upload "
-                       f"({padded.nbytes / 1e6:.1f} MB) {up_ms:.2f} ms (CUDA "
-                       f"events); host C++ twin {host_ms:.1f} ms")
-    del full
+                       f"{(t2 - t1) * 1e3:.2f} ms, their upload "
+                       f"({padded.nbytes / 1e6:.1f} MB) {up_ms:.2f} ms; "
+                       f"now the WAV buffer's upload ({wav_buf.nbytes / 1e6:.1f}"
+                       f" MB) {buf_ms:.2f} ms (CUDA events); host C++ twin "
+                       f"{host_ms:.1f} ms")
+    res = _cuda.ptxas_resources("analysis", "analysis_kernel")
+    _say("8 analysis", f"[{card}] analysis_kernel: {res['registers']} "
+                       f"registers a thread, {res['smem'] + occ['smem']} B "
+                       f"of shared memory a CTA ({occ['smem']} B dynamic), "
+                       f"spills {res['spill_stores']} B stored and "
+                       f"{res['spill_loads']} B loaded (-Xptxas -v); "
+                       f"{occ['ctas']} CTAs of {occ['warps']} warps an SM, "
+                       f"{occ['ctas'] * occ['warps']} resident warps (the "
+                       f"runtime's occupancy query)")
+    if res["spill_stores"] or res["spill_loads"]:
+        raise AssertionError("analysis_kernel spills registers")
+    del full, windows, buf_dev
     torch.cuda.empty_cache()
-    return seconds, dict(max_abs_err=0, ms=best["kernel"],
-                         plain_ms=best["plain"], bound_ms=bound, bound_by=by,
-                         library_ms=None)
+    return seconds, dict(max_abs_err=0, ms=ms["song"], plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, library_ms=None)
 
 
 def encode_phases(dev, card: str, tmp: str, song: str, wav64: str,
@@ -1640,9 +1770,10 @@ def main() -> int:
         g, smem = sf.tile(dtype)
         _say("1 build", f"{dtype}: {g} granules and {smem} B of shared "
                         f"memory per CTA")
-    g, smem = EP.tile()
-    _say("1 build", f"analysis: {g} granules and {smem} B of shared memory "
-                    f"per CTA")
+    occ = EP.occupancy(dev)
+    _say("1 build", f"analysis: up to {occ['granules']} granules a tile and "
+                    f"{occ['smem']} B of shared memory per CTA, "
+                    f"{occ['ctas']} CTAs an SM")
     _say("1 build", f"kernels and native host library (in parallel) in "
                     f"{time.perf_counter() - t0:.2f} s")
 

@@ -6,14 +6,16 @@ package imports ``torch`` and never ``jax``, and needs nothing of
 ``mp3stego_tpu``: it keeps its own copies of the constant pack
 (``tables/iso_tables.npz``) and the C++ host sources (``native/src/*.cpp``).
 
-Ported so far: the decode path (MP3 -> WAV, and reveal) in float64 and
-float32, with the synthesis (overlap-add, V matmul, 16-tap FIR, int16) as
-one hand-written CUDA kernel for Hopper (``csrc/synth.cu``), and
-the encode path (WAV -> MP3, CBR and VBR, hide, clear, capacity), with the
-Q31 analysis and the exact float64 rate search in torch on the device, the
-batched decode and encode over many files (``parallel``), the streaming
-decode and encode (``models.streaming``) and the CLI
-(``python -m mp3stego_tpu_torch``).
+Every entry point of the JAX package is ported: the decode path (MP3 ->
+WAV, and reveal) in float64 and float32, and the encode path (WAV -> MP3,
+CBR and VBR, hide, clear, capacity), the batched decode and encode over
+many files (``parallel``), the streaming decode and encode
+(``models.streaming``) and the CLI (``python -m mp3stego_tpu_torch``). On
+the card their numeric planes are hand-written CUDA kernels for Hopper
+(``csrc/``): the decode granule plane (``granule.cu``), the synthesis
+(``synth.cu``: overlap-add, V matmul, 16-tap FIR, int16), the Huffman
+bit-scan (``huffman.cu``), the Q31 encode analysis (``analysis.cu``) and the
+exact float64 rate search (``search.cu``).
 
     from mp3stego_tpu_torch import Steganography, Decoder, Encoder
 """

@@ -410,10 +410,19 @@ class MP3Encoder:
     # ---------------------------------------------------------- search plane
 
     def _analysis_device(self, num_frames: int):
-        """The resident (nch * Tg, 576) spectra; lane g = ch*tg + f*gpf + gr."""
-        streams = self._channel_streams_i16(num_frames)
+        """The resident (nch * Tg, 576) spectra; lane g = ch*tg + f*gpf + gr.
+
+        The WAV's interleaved int16 buffer crosses to the device once as the
+        host holds it, up to the last sample the analysis reads (the reader
+        pads it with as many zeros again), and the analysis reads channel c
+        at c + nch * t there (``encode_plane.analysis_interleaved``): the
+        spectra of :meth:`_channel_streams_i16`'s streams, which no card
+        path builds."""
+        nch = self.wav.num_of_channels
         tg = num_frames * self.granules_per_frame
-        return EP.run_analysis_device(streams, tg, self.device) \
+        buf = torch.from_numpy(np.ascontiguousarray(
+            self.wav.buffer[:nch * tg * 576], np.int16))
+        return EP.analysis_interleaved(buf.to(self.device), nch, tg) \
             .reshape(-1, 576)
 
     def _lane_budgets(self, mean_bits_f) -> np.ndarray:

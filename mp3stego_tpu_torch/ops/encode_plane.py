@@ -26,6 +26,11 @@ bit-exact against the sequential reference and against the host C++ twin
   at once (the filter step alone is (ch, steps, 32, 64) int64), so it runs in
   granule chunks, each with one granule of MDCT context and 480 samples of
   filterbank history in front. The kernel equals it bit for bit.
+* ``analysis_interleaved`` — the same spectra from the WAV's interleaved
+  int16 buffer as the host holds it (channel c at c + nch * t); on the card
+  the kernel reads the buffer itself, so no channel stream is built on the
+  host. Its plain version ``analysis_interleaved_torch`` builds the padded
+  streams in torch and calls ``analysis_stream_torch``.
 * ``launches`` — how many times the kernel was launched in this process.
 """
 
@@ -44,12 +49,15 @@ CHUNK_G = 1024       # granules per chunk of analysis_stream_torch
 launches = 0
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _SIGNATURES = {
-    "analysis_mdct": (ctypes.c_int, (
-        _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,    # pcm .. skip
+    "analysis_mdct": (_I, (
+        _P, _I, ctypes.c_longlong, _I,                        # pcm .. skip
+        _I, ctypes.c_longlong,                                # interleaved
+        _I, _I, _I,                                           # g, run, grid
         _P, _P, _P, _P, _P,                                   # tables
         _P, _P)),                                             # out, stream
-    "analysis_tile": (ctypes.c_int, (_P, _P)),
+    "analysis_occupancy": (_I, (_P, _P, _P, _P)),
 }
 
 
@@ -168,9 +176,10 @@ def _check(full: torch.Tensor, skip: int):
 
 @functools.lru_cache(maxsize=None)
 def _kernel_tables(device: torch.device) -> tuple:
-    """The kernel's tables: the window (512,) and the filter (32, 64) int32
-    on ``device``, the MDCT cosines (18, 36) and the alias coefficients
-    (8,) int32 on the host (the launch copies them into its parameters).
+    """The kernel's tables: the window (512,) and the filter transposed (64,
+    32) int32 on ``device``, the MDCT cosines (18, 36) and the alias
+    coefficients (8,) int32 on the host (the launch copies them into its
+    parameters).
     Raises if the window does not fit int32 (the kernel's products are
     int32 x int32)."""
     win = np.asarray(T.ENWINDOW, np.int64)
@@ -178,17 +187,57 @@ def _kernel_tables(device: torch.device) -> tuple:
         raise ValueError("the analysis window does not fit int32")
     _, fl, cos_l, cs, ca = _native_tables()
     dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    return dev(win.astype(np.int32)), dev(fl), cos_l, cs, ca
+    return (dev(win.astype(np.int32)), dev(np.ascontiguousarray(fl.T)),
+            cos_l, cs, ca)
 
 
-def tile() -> tuple:
-    """(output granules, dynamic shared memory bytes) per CTA of the
-    kernel; builds it on first use."""
+@functools.lru_cache(maxsize=None)
+def occupancy(device: torch.device) -> dict:
+    """What the runtime gives the kernel on ``device``: the CTAs an SM
+    holds (``ctas``, at the kernel's registers and dynamic shared memory),
+    its warps a CTA (``warps``), its bytes of shared memory a CTA
+    (``smem``) and the most output granules a tile (``granules``). Builds
+    the kernel; raises on a CUDA error."""
     from mp3stego_tpu_torch.ops import _cuda
     lib = _cuda.load("analysis", _SIGNATURES)
-    g, smem = ctypes.c_int(), ctypes.c_int()
-    lib.analysis_tile(ctypes.byref(g), ctypes.byref(smem))
-    return g.value, smem.value
+    out = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device):
+        rc = lib.analysis_occupancy(*(ctypes.addressof(v) for v in out))
+    if rc != 0:
+        raise RuntimeError(f"analysis occupancy query failed: CUDA error "
+                           f"{rc}")
+    ctas, warps, smem, granules = (v.value for v in out)
+    if ctas < 1:
+        raise RuntimeError("analysis_kernel fits no CTA on an SM")
+    return dict(ctas=ctas, warps=warps, smem=smem, granules=granules)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_cap(device: torch.device) -> int:
+    """The persistent grid: every SM full of CTAs."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * occupancy(device)["ctas"]
+
+
+def schedule(ch: int, n_out: int, grid: int, max_g: int = 8) -> tuple:
+    """(granules a tile, tiles a run, runs) for ``n_out`` output granules of
+    ``ch`` channels on ``grid`` persistent CTAs, each CTA taking whole runs
+    of one channel's tiles: the tiling whose busiest CTA takes the fewest
+    granules, a tile's fixed cost (its barriers, its copy's wait, the
+    MDCT's idle warps) counted as one granule more; the larger tile on a
+    tie. A long stream gets full tiles in runs of about ch * n_out / (8 *
+    grid); a 7-frame window one granule a tile, a CTA each."""
+    best = None
+    g = max_g
+    while g >= 1:
+        tiles = -(-n_out // g)
+        run = -(-ch * tiles // grid)
+        items = ch * -(-tiles // run)
+        cost = -(-items // grid) * run * (g + 1)
+        if best is None or cost < best[0]:
+            best = (cost, g, run, items)
+        g //= 2
+    return best[1:]
 
 
 def analysis_stream(full: torch.Tensor, chunk_g: int = CHUNK_G,
@@ -211,24 +260,105 @@ def analysis_stream(full: torch.Tensor, chunk_g: int = CHUNK_G,
     _check(full, skip)
     if full.device.type == "cpu":
         return analysis_stream_torch(full, chunk_g, skip)
-    ch = full.shape[0]
     tg = (full.shape[1] - _PAST) // 576
-    out = torch.empty((ch, max(0, tg - skip), 576), dtype=torch.int32,
-                      device=full.device)
     if tg <= skip:
-        return out
+        return torch.empty((full.shape[0], 0, 576), dtype=torch.int32,
+                           device=full.device)
+    out = _launch(full, full.shape[0], tg, skip)
+    launches += 1
+    return out
+
+
+def _launch(src: torch.Tensor, ch: int, tg: int, skip: int,
+            interleaved: bool = False) -> torch.Tensor:
+    """One launch of the kernel on the current stream, skip < tg: ``src``
+    is the checked streams (ch, 480 + tg * 576) or, ``interleaved``, the
+    WAV's samples (n,) of ``ch`` channels. The tiling comes from
+    :func:`schedule`, the grid is persistent. Returns the (ch, tg - skip,
+    576) int32 spectra; raises if the launch fails."""
     from mp3stego_tpu_torch.ops import _cuda
     lib = _cuda.load("analysis", _SIGNATURES)
-    win, fl, cos_l, cs, ca = _kernel_tables(full.device)
-    stream = torch.cuda.current_stream(full.device).cuda_stream
-    with torch.cuda.device(full.device):
+    if src.data_ptr() % 16:                    # the kernel copies 16 B chunks
+        src = src.clone()
+    out = torch.empty((ch, tg - skip, 576), dtype=torch.int32,
+                      device=src.device)
+    win, fl, cos_l, cs, ca = _kernel_tables(src.device)
+    cap = _grid_cap(src.device)
+    g, run, items = schedule(ch, tg - skip, cap,
+                             occupancy(src.device)["granules"])
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    with torch.cuda.device(src.device):
         rc = lib.analysis_mdct(
-            full.data_ptr(), ch, tg, skip, win.data_ptr(), fl.data_ptr(),
-            cos_l.ctypes.data, cs.ctypes.data, ca.ctypes.data,
-            out.data_ptr(), stream)
+            src.data_ptr(), ch, tg, skip, int(interleaved),
+            src.shape[0] if interleaved else 0, g, run, min(cap, items),
+            win.data_ptr(), fl.data_ptr(), cos_l.ctypes.data,
+            cs.ctypes.data, ca.ctypes.data, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"analysis_mdct kernel launch failed: CUDA error "
                            f"{rc}")
+    return out
+
+
+def _check_interleaved(buffer: torch.Tensor, nch: int, tg: int, skip: int):
+    """What the interleaved entry takes: int16 samples (n,) of 1 or 2
+    channels, tg >= 0 granules, skip >= 0, on the CPU or the card (there
+    C-contiguous)."""
+    if buffer.dim() != 1 or buffer.dtype != torch.int16:
+        raise ValueError(f"the interleaved analysis wants the WAV's int16 "
+                         f"samples (n,), got {tuple(buffer.shape)} "
+                         f"{buffer.dtype}")
+    if nch not in (1, 2):
+        raise ValueError(f"the interleaved analysis takes 1 or 2 channels, "
+                         f"got {nch}")
+    if tg < 0 or skip < 0:
+        raise ValueError(f"granules and skip must be >= 0, got {tg}, "
+                         f"{skip}")
+    if buffer.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the analysis runs on CPU or CUDA tensors, got "
+                         f"{buffer.device}")
+    if buffer.device.type == "cuda" and not buffer.is_contiguous():
+        raise ValueError("the CUDA analysis takes C-contiguous samples")
+
+
+def analysis_interleaved_torch(buffer: torch.Tensor, nch: int, tg: int,
+                               skip: int = 0,
+                               chunk_g: int = CHUNK_G) -> torch.Tensor:
+    """Plain version of :func:`analysis_interleaved` on ``buffer``'s device:
+    the padded streams built in torch (channel c's samples c, c + nch, ...
+    up to tg * 576 of them, zero past the buffer's end, 480 zeros of
+    history in front), then :func:`analysis_stream_torch`."""
+    full = torch.zeros((nch, _PAST + tg * 576), dtype=torch.int16,
+                       device=buffer.device)
+    for c in range(nch):
+        s = buffer[c::nch][:tg * 576]
+        full[c, _PAST:_PAST + s.shape[0]] = s
+    return analysis_stream_torch(full, chunk_g, skip)
+
+
+def analysis_interleaved(buffer: torch.Tensor, nch: int, tg: int,
+                         skip: int = 0,
+                         chunk_g: int = CHUNK_G) -> torch.Tensor:
+    """The WAV's interleaved int16 samples (n,) of ``nch`` channels ->
+    (nch, tg - skip, 576) int32 spectra of granules ``skip`` onward: what
+    :func:`analysis_stream` gives on the padded streams of channel c's
+    samples ``buffer[c + nch * t]``, t < tg * 576, zero past the buffer's
+    end (``MP3Encoder._channel_streams_i16``; mono at stride 1).
+
+    On a CUDA tensor this launches the hand-written kernel once on the
+    current stream, reading the buffer as the host holds it (none when no
+    granule is asked for); a build or launch fault raises. A CPU tensor
+    takes :func:`analysis_interleaved_torch`, whose memory ``chunk_g``
+    bounds."""
+    global launches
+    _check_interleaved(buffer, nch, tg, skip)
+    if buffer.device.type == "cpu":
+        return analysis_interleaved_torch(buffer, nch, tg, skip, chunk_g)
+    if tg <= skip:
+        return torch.empty((nch, 0, 576), dtype=torch.int32,
+                           device=buffer.device)
+    if not buffer.numel():                     # all zeros; the kernel wants
+        buffer = buffer.new_zeros(1)           # a buffer to point at
+    out = _launch(buffer, nch, tg, skip, interleaved=True)
     launches += 1
     return out
 

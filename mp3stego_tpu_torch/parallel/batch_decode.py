@@ -22,7 +22,8 @@ to pinned host memory on a side CUDA stream.
 On the card the device plane always runs. The JAX package's host-plane
 auto-select (``utils/calibrate.py``, which weighs the TPU's host link) and
 its stacked file-axis layout for sharding over a TPU mesh are not ported
-(ROADMAP.md item 11).
+(ROADMAP.md queue 1.7 and 1.8): ``mesh`` is taken in the JAX package's
+place, and only None.
 """
 
 import os
@@ -92,7 +93,16 @@ def _read_parsed(path: str):
     return parsed
 
 
-def decode_files_batched(paths: list, dtype: str = "float32",
+def _refuse_mesh(mesh) -> None:
+    """The batched entry points take the JAX package's ``mesh`` argument,
+    but shard over no mesh yet: any mesh but None raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the batched entry points run on one card: pass mesh=None (a "
+            "mesh over several cards is ROADMAP.md queue 1.8)")
+
+
+def decode_files_batched(paths: list, mesh=None, dtype: str = "float32",
                          errors: str = "raise", out: str = "float",
                          device=None, chunk_files: int = 16) -> list:
     """Decode many MP3 files; one interleaved PCM array (samples, channels)
@@ -100,6 +110,10 @@ def decode_files_batched(paths: list, dtype: str = "float32",
     same device (``decode_plane.decode_pcm``, or ``decode_pcm_i16`` for
     ``out="int16"``).
 
+    The arguments up to ``out`` are the JAX package's, in its order.
+
+    :param mesh: the JAX package's device mesh; only None (one card) is
+        taken here, any other raises ``NotImplementedError``.
     :param dtype: the plane's float type, "float32" or "float64" (the
         bit-exact plane: its int16 equals each file's host decode).
     :param errors: "raise" propagates the first file that fails to parse;
@@ -111,6 +125,7 @@ def decode_files_batched(paths: list, dtype: str = "float32",
     :param chunk_files: files per chunk, one synthesis-kernel launch each;
         0 decodes each samplerate's files as one chunk.
     """
+    _refuse_mesh(mesh)
     if out not in OUTS:
         raise ValueError(f"out must be one of {OUTS}, got {out!r}")
     if dtype not in dp.DTYPES:

@@ -15,7 +15,7 @@ equal each file's own ``MP3Encoder`` run.
 A group above ``MAX_LANES`` runs as sub-batches; the host finish of one
 overlaps the card's work on the next. The JAX package's host-engine
 auto-select (``utils/calibrate.py``, which weighs the TPU's host link) is
-not ported: the card always searches (ROADMAP.md item 11).
+not ported: the card always searches (ROADMAP.md queue 1.7).
 """
 
 import os
@@ -26,6 +26,7 @@ import torch
 
 from mp3stego_tpu_torch.models.encoder import MP3Encoder, resolve_device
 from mp3stego_tpu_torch.ops import search_plane as SP
+from mp3stego_tpu_torch.parallel.batch_decode import _refuse_mesh
 from mp3stego_tpu_torch.utils.wav import read_wav
 
 # lanes (files x channels x granules) per search pass. The 240.7 s stereo
@@ -34,9 +35,9 @@ from mp3stego_tpu_torch.utils.wav import read_wav
 MAX_LANES = 8 * 36864
 
 
-def encode_files_batched(jobs: list, bitrate: int = 320, device=None,
-                         max_workers: int = None,
-                         errors: str = "raise") -> list:
+def encode_files_batched(jobs: list, bitrate: int = 320, mesh=None,
+                         max_workers: int = None, errors: str = "raise",
+                         device=None) -> list:
     """Encode many WAV files: ``jobs`` is a list of (wav_path, mp3_path).
 
     Returns one entry per job, in order: its mp3 path, or with
@@ -44,10 +45,15 @@ def encode_files_batched(jobs: list, bitrate: int = 320, device=None,
     ``read_wav`` refuses raises ``SystemExit``, isolated too). The bytes of
     each file equal its own :class:`MP3Encoder` run on the same device.
 
+    The arguments up to ``errors`` are the JAX package's, in its order.
+
+    :param mesh: the JAX package's device mesh; only None (one card) is
+        taken here, any other raises ``NotImplementedError``.
+    :param max_workers: threads for the host redo and serialization.
     :param device: the planes' device; None means CUDA (a missing card
         raises).
-    :param max_workers: threads for the host redo and serialization.
     """
+    _refuse_mesh(mesh)
     if errors not in ("raise", "isolate"):
         raise ValueError(f"errors must be 'raise' or 'isolate', got "
                          f"{errors!r}")

@@ -11,9 +11,26 @@ identities the CUDA kernel (``csrc/analysis.cu``) relies on.
   product (the kernel's ``__mulhi``) on the tables' values times int16 << 16
   extremes and int32 extremes.
 * The wrapper's refusals that precede any dispatch.
+* ``analysis_interleaved`` on a CPU tensor (the WAV's interleaved buffer)
+  equals the stream route on the channels ``MP3Encoder._channel_streams_i16``
+  builds, and the encoder's ``_analysis_device`` equals its old route.
+* The kernel's source itself, built for the host with g++ against the
+  emulation of ``tests/cuda_host_shim.py`` (one thread per CUDA thread,
+  ``cp.async`` a plain copy) and launched through the wrapper's own launch
+  code on a grid of one or two emulated SMs, equals ``analysis_stream_torch``
+  and the JAX package's ``analysis_mdct_i16`` on stereo, mono, one granule,
+  the full-scale square wave, 7- and 512-frame window slices with
+  ``skip=1`` and runs that end in a partial tile, and in its interleaved
+  mode on stereo, mono and short buffers; and the ``-Xptxas -v``
+  resources of ``analysis_kernel`` are read from a kept build log.
 
 Tolerance: exact (bitwise) everywhere.
 """
+
+import contextlib
+import ctypes
+import threading
+import types
 
 import numpy as np
 import pytest
@@ -23,8 +40,10 @@ torch = pytest.importorskip("torch")
 # machine, intra-op threads only contend
 torch.set_num_threads(1)
 
+import cuda_host_shim  # noqa: E402
 from mp3stego_tpu.ops import encode_plane as JEP  # noqa: E402
 from mp3stego_tpu_torch import tables as T  # noqa: E402
+from mp3stego_tpu_torch.ops import _cuda  # noqa: E402
 from mp3stego_tpu_torch.ops import encode_plane as EP  # noqa: E402
 from mp3stego_tpu_torch.ops import fixedpoint as fx  # noqa: E402
 
@@ -105,9 +124,10 @@ def test_tables_fit_int32(name):
                     "ca": T.MDCT_CA_FIX}[name], np.int64)
     assert a.min() >= I32_MIN and a.max() <= I32_MAX
     win, fl, cos_l, cs, ca = EP._kernel_tables(torch.device("cpu"))
-    kernel = {"window": win.numpy(), "filter": fl.numpy(), "cos": cos_l,
+    kernel = {"window": win.numpy(), "filter": fl.numpy().T, "cos": cos_l,
               "cs": cs, "ca": ca}[name]
-    assert kernel.dtype == np.int32 and kernel.flags.c_contiguous
+    assert kernel.dtype == np.int32
+    assert (kernel.T if name == "filter" else kernel).flags.c_contiguous
     assert np.array_equal(kernel.reshape(a.shape), a)
 
 
@@ -178,3 +198,185 @@ def test_wrapper_refuses_before_dispatch(name, make, skip, match):
     with pytest.raises(ValueError, match=match):
         EP.analysis_stream(make(full), skip=skip)
     assert EP.launches == before
+
+
+def _jax_stream(full: np.ndarray, skip: int = 0, cg: int = 128) -> np.ndarray:
+    """The JAX package's ``analysis_mdct_i16`` on padded int16 streams (ch,
+    480 + Tg * 576), granules ``skip`` onward, in chunks of ``cg`` granules
+    with one granule of MDCT context, as its ``run_analysis`` dispatches."""
+    tg = (full.shape[1] - EP._PAST) // 576
+    parts, a = [], skip
+    while a < tg:
+        s = max(0, a - 1)
+        e = min(tg, s + cg + 1)
+        sl = full[:, s * 576:e * 576 + EP._PAST]
+        r = np.asarray(JEP._analysis_call(JEP._pad_to(
+            sl, EP._PAST + (cg + 1) * 576)))
+        parts.append(r[:, a - s:e - s])
+        a = e
+    return np.concatenate(parts, axis=1)
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """csrc/analysis.cu built for the host with g++ against the emulation
+    of ``tests/cuda_host_shim.py``. Returns the loaded library."""
+    return cuda_host_shim.build("analysis", tmp_path_factory.mktemp(
+        "analysis_host"), EP._SIGNATURES)
+
+
+def _on_host(lib, monkeypatch, sms: int):
+    """Route ``EP._launch`` to the host build: CPU tensors, stream 0, the
+    occupancy the host build reports on a grid of ``sms`` SMs. Returns a
+    launch that fails instead of hanging."""
+    out = [ctypes.c_int(0) for _ in range(4)]
+    assert lib.analysis_occupancy(*(ctypes.addressof(v) for v in out)) == 0
+    occ = dict(zip(("ctas", "warps", "smem", "granules"),
+                   (v.value for v in out)))
+    assert occ["ctas"] >= 1 and occ["smem"] > 48 * 1024
+    monkeypatch.setattr(_cuda, "load", lambda name, sig: lib)
+    monkeypatch.setattr(EP, "occupancy", lambda dev: occ)
+    monkeypatch.setattr(EP, "_grid_cap", lambda dev: sms * occ["ctas"])
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+
+    def launch(fn, *args):
+        box = []
+        th = threading.Thread(target=lambda: box.append(fn(*args)),
+                              daemon=True)
+        th.start()
+        th.join(300)
+        assert not th.is_alive(), "the host build of the kernel hung"
+        return box[0]
+    return launch
+
+
+# (name, channels, granules of the stream, skip, slice, kind, SMs): a
+# window slice keeps granules [lo - 1, hi) of the stream with the 480
+# samples before them, as models/streaming cuts a window (skip=1)
+HOST_CASES = [
+    ("stereo", 2, 29, 0, None, "music", 2),
+    ("mono", 1, 23, 0, None, "music", 2),
+    ("one granule", 2, 1, 0, None, "noise", 2),
+    ("square", 2, 20, 0, None, "square", 2),
+    ("7-frame window", 2, 40, 1, (11, 25), "music", 2),
+    ("512-frame window", 2, 1030, 1, (3, 1027), "music", 2),
+    ("partial tiles", 2, 45, 0, None, "noise", 1),
+    ("partial tiles, skip=1", 1, 38, 1, None, "noise", 1),
+]
+
+
+@pytest.mark.parametrize("name,ch,tg,skip,cut,kind,sms", HOST_CASES,
+                         ids=[c[0] for c in HOST_CASES])
+def test_kernel_source_on_the_host_equals_plain_and_jax(
+        name, ch, tg, skip, cut, kind, sms, host_kernel, monkeypatch):
+    """csrc/analysis.cu, built for the host, through the wrapper's launch
+    code: the tiling the wrapper chooses on ``sms`` emulated SMs (runs that
+    carry the MDCT context from tile to tile, tiles that end a channel part
+    full), bit for bit ``analysis_stream_torch`` and the JAX package."""
+    launch = _on_host(host_kernel, monkeypatch, sms)
+    full = EP._padded_streams(_pcm(kind, ch, tg * 576 - 77, seed=tg), tg)
+    if cut is not None:
+        lo, hi = cut
+        full = np.ascontiguousarray(full[:, (lo - 1) * 576:hi * 576
+                                         + EP._PAST])
+    n = (full.shape[1] - EP._PAST) // 576
+    g, run, _ = EP.schedule(ch, n - skip, EP._grid_cap(None),
+                            EP.occupancy(None)["granules"])
+    if name.startswith("partial"):
+        assert (n - skip) % g and -(-(n - skip) // g) % run, (g, run)
+    got = launch(EP._launch, torch.from_numpy(full), ch, n, skip)
+    assert got.shape == (ch, n - skip, 576) and got.dtype == torch.int32
+    plain = EP.analysis_stream_torch(torch.from_numpy(full), 64, skip)
+    assert torch.equal(got, plain)
+    assert np.array_equal(got.numpy(), _jax_stream(full, skip))
+    if kind == "square":       # the wrap is really exercised
+        assert got.abs().max() > 2 ** 30
+
+
+# (name, channels, granules, int16 values in the buffer, skip, SMs): the
+# WAV's interleaved buffer, its end anywhere (an odd stereo length ends in
+# half a frame; a short buffer leaves whole granules of zeros)
+INTERLEAVED_CASES = [
+    ("stereo", 2, 29, 2 * 29 * 576 - 77, 0, 2),
+    ("mono", 1, 23, 23 * 576 - 50, 0, 2),
+    ("short buffer", 2, 6, 2 * 2 * 576 + 101, 0, 1),
+    ("stereo, skip=1", 2, 17, 2 * 17 * 576, 1, 1),
+    ("mono, one granule", 1, 1, 300, 0, 2),
+]
+
+
+@pytest.mark.parametrize("name,ch,tg,n,skip,sms", INTERLEAVED_CASES,
+                         ids=[c[0] for c in INTERLEAVED_CASES])
+def test_interleaved_route_on_the_host_equals_the_stream_route(
+        name, ch, tg, n, skip, sms, host_kernel, monkeypatch):
+    """The kernel's interleaved mode, built for the host, through the
+    wrapper's launch code: channel c at c + nch * t with zeros in front
+    and past the buffer's end, bit for bit its plain version, the stream
+    route on ``_padded_streams`` of the same channels, the JAX package and
+    the native twin."""
+    launch = _on_host(host_kernel, monkeypatch, sms)
+    buf = np.random.default_rng(n).integers(-32768, 32768, size=n) \
+        .astype(np.int16)
+    streams = np.zeros((ch, tg * 576), np.int16)   # _channel_streams_i16
+    for c in range(ch):
+        s = buf[c::ch][:tg * 576]
+        streams[c, :len(s)] = s
+    full = EP._padded_streams(streams, tg)
+    got = launch(EP._launch, torch.from_numpy(buf), ch, tg, skip, True)
+    assert got.shape == (ch, tg - skip, 576) and got.dtype == torch.int32
+    plain = EP.analysis_interleaved(torch.from_numpy(buf), ch, tg, skip, 4)
+    assert torch.equal(got, plain)
+    assert torch.equal(got, EP.analysis_stream_torch(
+        torch.from_numpy(full), 64, skip))
+    assert np.array_equal(got.numpy(), _jax_stream(full, skip))
+    native = EP.run_analysis_native(streams, tg)
+    assert native is not None and np.array_equal(got.numpy(),
+                                                 native[:, skip:])
+
+
+@pytest.mark.parametrize("nch,samples", [(2, 7 * 1152 + 333), (1, 4000)])
+def test_encoder_analysis_reads_the_interleaved_buffer(nch, samples):
+    """``MP3Encoder._analysis_device`` on the CPU: the spectra of the old
+    route (``_channel_streams_i16`` then ``run_analysis_device``), without
+    building the channel streams."""
+    from mp3stego_tpu_torch.models.encoder import MP3Encoder
+    from mp3stego_tpu_torch.utils.wav import WavFile
+    buf = _pcm("music", 2, samples)[:nch].T.reshape(-1).copy()
+    wav = WavFile(file_path="x.wav", bitrate=128, num_of_channels=nch,
+                  samplerate=44100, num_of_samples=samples,
+                  mpeg_mode=0 if nch == 2 else 3, buffer=buf)
+    enc = MP3Encoder(wav, device="cpu")
+    nf = enc._num_frames()
+    tg = nf * enc.granules_per_frame
+    want = EP.run_analysis_device(enc._channel_streams_i16(nf), tg, "cpu")
+    calls = []
+    orig = MP3Encoder._channel_streams_i16
+    MP3Encoder._channel_streams_i16 = lambda *a: calls.append(a) or orig(*a)
+    try:
+        got = enc._analysis_device(nf)
+    finally:
+        MP3Encoder._channel_streams_i16 = orig
+    assert not calls
+    assert torch.equal(got, want.reshape(-1, 576))
+
+
+def test_ptxas_resources_read_the_kept_build_log(monkeypatch):
+    """``_cuda.ptxas_resources`` reads K3's registers, static shared memory
+    and spills from a build's kept ``-Xptxas -v`` log, and refuses a log
+    that does not name the kernel."""
+    name = "_ZN12_GLOBAL__N_115analysis_kernelENS_6ParamsE"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name}",
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 80 registers, used 1 barriers, 32 bytes smem, "
+        "3592 bytes cmem[0]"])
+    monkeypatch.setitem(_cuda.builds, "analysis", {"log": log})
+    assert _cuda.ptxas_resources("analysis", "analysis_kernel") == dict(
+        registers=80, smem=32, spill_stores=8, spill_loads=12)
+    monkeypatch.setitem(_cuda.builds, "analysis", {"log": "(cached build)"})
+    with pytest.raises(RuntimeError, match="analysis_kernel"):
+        _cuda.ptxas_resources("analysis", "analysis_kernel")

@@ -225,6 +225,41 @@ def test_batched_decode_equals_jax_package(streams, monkeypatch):
         assert np.abs(a - b).max() < 1e-5
 
 
+@pytest.mark.parametrize("form", ["positional", "keyword"])
+def test_batched_decode_takes_the_jax_signature(form, streams, monkeypatch):
+    """``decode_files_batched`` in the JAX package's call forms (``mesh``
+    second, then ``dtype``, ``errors``, ``out``), the port's ``device``
+    by keyword after them: the float PCM of the JAX package's own call in
+    the same form, within its 1e-5."""
+    from mp3stego_tpu.parallel import decode_files_batched as jax_batched
+    monkeypatch.setenv("MP3STEGO_TPU_FETCH_THREAD", "0")
+    paths = [streams[k] for k in ("fixture", "cut10", "mpeg2_24k_64")]
+    if form == "positional":
+        args, kw = (paths, None, "float32", "raise", "float"), {}
+    else:
+        args, kw = (paths,), dict(mesh=None, dtype="float32",
+                                  errors="raise", out="float")
+    want = jax_batched(*args, **kw)
+    got = decode_files_batched(*args, **kw, device="cpu")
+    assert len(got) == len(want) == len(paths)
+    for a, b in zip(got, want):
+        assert a.dtype == np.float32 and a.shape == b.shape
+        assert np.abs(a - b).max() < 1e-5
+
+
+@pytest.mark.parametrize("fn", ["decode", "encode"])
+def test_batched_entry_points_refuse_a_mesh(fn, streams, tmp_path):
+    """A mesh that is not None raises before any file is touched, naming
+    the roadmap item that would shard over one."""
+    with pytest.raises(NotImplementedError, match="queue 1.8"):
+        if fn == "decode":
+            decode_files_batched([streams["fixture"]], object(),
+                                 device="cpu")
+        else:
+            encode_files_batched([("missing.wav", str(tmp_path / "a.mp3"))],
+                                 320, object(), device="cpu")
+
+
 def test_float64_batch_on_the_cpu(streams):
     """``dtype="float64"`` on the CPU: bit for bit the host float64 parity
     plane (the torch float64 plane sums in its ascending order)."""
@@ -308,6 +343,30 @@ def test_batched_encode_equals_jax_encoder(wavs, tmp_path):
         j = JaxMP3Encoder(jax_read_wav(wav, 128))
         j.encode(quiet=True)
         assert _read(out) == bytes(j.out_buffer), wav
+
+
+@pytest.mark.parametrize("form", ["positional", "keyword"])
+def test_batched_encode_takes_the_jax_signature(form, wavs, tmp_path):
+    """``encode_files_batched`` in the JAX package's call forms (``bitrate``,
+    ``mesh``, ``max_workers``, ``errors``), the port's ``device`` by
+    keyword after them: each file's bytes are its own encode's and the JAX
+    package's encoder's."""
+    from mp3stego_tpu.models.encoder import MP3Encoder as JaxMP3Encoder
+    from mp3stego_tpu.utils.wav import read_wav as jax_read_wav
+    jobs = [(wavs[n], str(tmp_path / f"{n}.mp3")) for n in ("mono",
+                                                            "seeded")]
+    if form == "positional":
+        outs = encode_files_batched(jobs, 128, None, 2, "raise",
+                                    device="cpu")
+    else:
+        outs = encode_files_batched(jobs, bitrate=128, mesh=None,
+                                    max_workers=2, errors="raise",
+                                    device="cpu")
+    assert outs == [o for _, o in jobs]
+    for wav, out in jobs:
+        j = JaxMP3Encoder(jax_read_wav(wav, 128))
+        j.encode(quiet=True)
+        assert _read(out) == _per_file(wav, 128) == bytes(j.out_buffer)
 
 
 def test_sub_batches_equal_one_pass(wavs, tmp_path, monkeypatch):

@@ -14,8 +14,10 @@ and in a concat batch; ``stages`` beside it; the wrapper's refusals), the
 device decode plane in both
 precisions (float64 with the host plane's bytes), the default façade decode,
 the batched decode (one kernel launch per chunk), and the encode planes (Q31
-analysis, exact search, the VBR lane cost, golden hide bytes), each equal to
-the plain version, the CPU torch result or the native host twin. Marked
+analysis K3 at its launch shapes, on tile edges and from the WAV's
+interleaved buffer, with no channel stream built on the host by a
+whole-file encode; exact search, the VBR lane cost, golden hide bytes),
+each equal to the plain version, the CPU torch result or the native host twin. Marked
 ``cuda``; without a card every test skips.
 
 This file imports no JAX and uses no conftest fixture (tests/conftest.py
@@ -310,6 +312,107 @@ def test_analysis_kernel_equals_plain_version(card, tg, ch, skip, kind):
     assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
+# (channels, granules of the stream, skip, slice): the song, a 512-frame
+# and a 7-frame streaming window as models/streaming slices them (one
+# granule of MDCT context, skip=1), one granule, and streams whose runs end
+# mid-tile
+K3_SHAPES = [(2, 18432, 0, None), (2, 1040, 1, (9, 1033)),
+             (2, 30, 1, (11, 25)), (1, 1, 0, None), (2, 1, 0, None),
+             (2, 8 * 397 + 3, 0, None), (1, 8 * 131 + 5, 1, None),
+             (2, 8 * 396 * 12 + 7, 0, None)]
+
+
+@pytest.mark.parametrize("ch,tg,skip,cut", K3_SHAPES)
+def test_analysis_kernel_at_its_launch_shapes(card, ch, tg, skip, cut):
+    """K3 bit for bit its plain version at the shapes its launches take
+    and on tile edges, whatever tiling the wrapper picks there."""
+    from mp3stego_tpu_torch.ops import encode_plane as EP
+    full = _analysis_pcm("music", ch, 480 + tg * 576, tg)
+    full[:, :480] = 0
+    if cut is not None:
+        lo, hi = cut
+        full = np.ascontiguousarray(full[:, (lo - 1) * 576:hi * 576 + 480])
+    full = torch.from_numpy(full).to(card)
+    n = (full.shape[1] - 480) // 576
+    before = EP.launches
+    got = EP.analysis_stream(full, skip=skip)
+    want = EP.analysis_stream_torch(full, skip=skip)
+    torch.cuda.synchronize()
+    assert EP.launches == before + 1
+    assert got.shape == want.shape == (ch, n - skip, 576)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ch,tg,n,skip", [
+    (2, 18432, 2 * 18432 * 576 - 1001, 0), (2, 300, 2 * 300 * 576 + 7, 0),
+    (1, 300, 300 * 576 - 333, 0), (2, 9, 2 * 4 * 576 + 3, 1),
+    (1, 1, 100, 0)])
+def test_analysis_kernel_reads_the_interleaved_buffer(card, ch, tg, n, skip):
+    """K3's interleaved entry on the WAV's buffer (stereo and mono, ending
+    anywhere): bit for bit its plain version on the CPU and the stream route
+    on the card, one launch."""
+    from mp3stego_tpu_torch.ops import encode_plane as EP
+    buf = np.random.default_rng(n).integers(-32768, 32768, size=n) \
+        .astype(np.int16)
+    cpu = torch.from_numpy(buf)
+    before = EP.launches
+    got = EP.analysis_interleaved(cpu.to(card), ch, tg, skip)
+    torch.cuda.synchronize()
+    assert EP.launches == before + 1
+    full = torch.zeros((ch, 480 + tg * 576), dtype=torch.int16)
+    for c in range(ch):
+        s = cpu[c::ch][:tg * 576]
+        full[c, 480:480 + s.shape[0]] = s
+    assert torch.equal(got, EP.analysis_stream(full.to(card), skip=skip))
+    if tg <= 300:
+        assert torch.equal(got.cpu(), EP.analysis_interleaved_torch(
+            cpu, ch, tg, skip))
+
+
+@pytest.mark.parametrize("path", ["clear", "hide", "vbr", "batched"])
+def test_card_encodes_build_no_channel_streams(card, path, tmp_path,
+                                               monkeypatch):
+    """The whole-file encodes on the card read the WAV's interleaved buffer:
+    neither ``MP3Encoder._channel_streams_i16`` nor
+    ``encode_plane._padded_streams`` runs, and the bytes are the CPU
+    encode's."""
+    import os
+    from mp3stego_tpu_torch.models.encoder import MP3Encoder
+    from mp3stego_tpu_torch.ops import encode_plane as EP
+    from mp3stego_tpu_torch.parallel import encode_files_batched
+    from mp3stego_tpu_torch.utils.wav import read_wav
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    wav = tmp_path / "g.wav"
+    wav.write_bytes(np.load(os.path.join(gold, "stego_golden.npz"))[
+        "wav_bytes"].tobytes())
+    kbps, msg = (128, "") if path == "vbr" else (320, "")
+    if path == "hide":
+        msg = "0110100111" * 30
+
+    def encode(device):
+        if path == "batched":
+            out = tmp_path / f"{device}.mp3"
+            encode_files_batched([(str(wav), str(out))], device=device)
+            return out.read_bytes()
+        enc = MP3Encoder(read_wav(str(wav), kbps), hide_str=msg,
+                         vbr=path == "vbr", device=device)
+        enc.encode()
+        return bytes(enc.out_buffer)
+
+    want = encode("cpu")
+    calls = []
+    for owner, name in ((MP3Encoder, "_channel_streams_i16"),
+                        (EP, "_padded_streams")):
+        fn = getattr(owner, name)
+        monkeypatch.setattr(owner, name, lambda *a, fn=fn, name=name: (
+            calls.append(name), fn(*a))[1])
+    before = EP.launches
+    got = encode(card)
+    assert not calls
+    assert EP.launches > before
+    assert got == want
+
+
 def test_analysis_kernel_refuses_what_it_cannot_launch(card):
     from mp3stego_tpu_torch.ops import encode_plane as EP
     full = torch.from_numpy(_analysis_pcm("noise", 2, 480 + 4 * 576, 1)) \
@@ -322,6 +425,13 @@ def test_analysis_kernel_refuses_what_it_cannot_launch(card):
         EP.analysis_stream(full[:, :-1].contiguous())
     with pytest.raises(ValueError, match="skip"):
         EP.analysis_stream(full, skip=-1)
+    buf = full.reshape(-1)
+    with pytest.raises(ValueError, match="1 or 2 channels"):
+        EP.analysis_interleaved(buf, 3, 4)
+    with pytest.raises(ValueError, match="int16"):
+        EP.analysis_interleaved(buf.to(torch.int32), 2, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        EP.analysis_interleaved(buf[::2], 2, 4)
 
 
 @pytest.mark.parametrize("mode", ["clear", "hide"])

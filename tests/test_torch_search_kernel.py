@@ -32,6 +32,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import cuda_host_shim  # noqa: E402
 from chip_smoke import search_lanes as _case  # noqa: E402
 from mp3stego_tpu_torch.ops import quant as Q  # noqa: E402
 from mp3stego_tpu_torch.ops import quant_np  # noqa: E402
@@ -210,192 +211,12 @@ def test_ptxas_resources_read_the_kept_build_log(monkeypatch):
         _cuda.ptxas_resources("search", "rate_search_kernel")
 
 
-# The CUDA features csrc/search.cu uses, emulated on the host: one
-# std::thread per CUDA thread, the blocks one after another, a barrier per
-# warp for its shuffles and reductions and one per block for
-# __syncthreads; shared memory is a static or a host buffer.
-_HOST_SHIM = r"""#pragma once
-#include <atomic>
-#include <barrier>
-#include <climits>
-#include <cmath>
-#include <cstdint>
-#include <cstring>
-#include <functional>
-#include <memory>
-#include <thread>
-#include <type_traits>
-#include <vector>
-
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __shared__ static
-#define __align__(n) alignas(n)
-
-struct alignas(8) int2 { int x, y; };
-inline int2 make_int2(int x, int y) { return int2{x, y}; }
-struct dim3 { unsigned x = 0, y = 0, z = 0; };
-typedef void* cudaStream_t;
-typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-
-struct ShimWarp {
-  std::barrier<> bar{32};
-  long long vals[32];
-};
-
-struct ShimBlock {
-  std::unique_ptr<std::barrier<>> bar;
-  std::vector<std::unique_ptr<ShimWarp>> warps;
-};
-
-inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
-inline thread_local ShimBlock* shim_block = nullptr;
-inline unsigned char* shim_dyn = nullptr;
-inline int shim_last_error = 0;
-inline size_t shim_max_dyn = 48 * 1024;
-
-inline void __syncthreads() { shim_block->bar->arrive_and_wait(); }
-inline ShimWarp& shim_warp() { return *shim_block->warps[threadIdx.x >> 5]; }
-inline void __syncwarp(unsigned = 0xffffffffu) { shim_warp().bar.arrive_and_wait(); }
-
-template <class T> inline T __reduce_add_sync(unsigned, T v) {
-  ShimWarp& w = shim_warp();
-  w.vals[threadIdx.x & 31] = static_cast<long long>(v);
-  w.bar.arrive_and_wait();
-  T s = 0;
-  for (int i = 0; i < 32; ++i) s = static_cast<T>(s + static_cast<T>(w.vals[i]));
-  w.bar.arrive_and_wait();
-  return s;
-}
-template <class T> inline T __reduce_max_sync(unsigned, T v) {
-  ShimWarp& w = shim_warp();
-  w.vals[threadIdx.x & 31] = static_cast<long long>(v);
-  w.bar.arrive_and_wait();
-  T s = static_cast<T>(w.vals[0]);
-  for (int i = 1; i < 32; ++i) s = std::max(s, static_cast<T>(w.vals[i]));
-  w.bar.arrive_and_wait();
-  return s;
-}
-template <class T> inline T __shfl_sync(unsigned, T v, int src) {
-  ShimWarp& w = shim_warp();
-  w.vals[threadIdx.x & 31] = static_cast<long long>(v);
-  w.bar.arrive_and_wait();
-  T s = static_cast<T>(w.vals[src & 31]);
-  w.bar.arrive_and_wait();
-  return s;
-}
-inline int atomicAdd(int* p, int v) {
-  return std::atomic_ref<int>(*p).fetch_add(v);
-}
-inline unsigned atomicAdd(unsigned* p, unsigned v) {
-  return std::atomic_ref<unsigned>(*p).fetch_add(v);
-}
-
-template <class A, class B> inline auto min(A a, B b) {
-  using C = std::common_type_t<A, B>;
-  return static_cast<C>(a) < static_cast<C>(b) ? static_cast<C>(a) : static_cast<C>(b);
-}
-template <class A, class B> inline auto max(A a, B b) {
-  using C = std::common_type_t<A, B>;
-  return static_cast<C>(a) > static_cast<C>(b) ? static_cast<C>(a) : static_cast<C>(b);
-}
-
-inline double __dmul_rn(double a, double b) {
-  volatile double r = a * b;
-  return r;
-}
-inline double __dsqrt_rn(double a) { return std::sqrt(a); }
-inline int __double2int_rz(double d) {
-  if (d != d) return 0;
-  if (d >= 2147483647.0) return INT_MAX;
-  if (d <= -2147483648.0) return INT_MIN;
-  return static_cast<int>(d);
-}
-
-inline cudaError_t cudaGetLastError() {
-  int e = shim_last_error;
-  shim_last_error = 0;
-  return e;
-}
-template <class F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int v) {
-  if (v > 227 * 1024) return cudaErrorInvalidValue;
-  shim_max_dyn = v;
-  return cudaSuccess;
-}
-inline int shim_occupancy = 3;
-template <class F>
-inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
-  *n = shim_occupancy;
-  return cudaSuccess;
-}
-
-inline void shim_launch(int blocks, int threads, size_t smem, std::function<void()> fn) {
-  if (smem > shim_max_dyn || threads > 1024 || threads % 32) {
-    shim_last_error = cudaErrorInvalidValue;
-    return;
-  }
-  std::vector<unsigned char> dyn(smem + 16, 0xcd);
-  for (int b = 0; b < blocks; ++b) {
-    ShimBlock blk;
-    blk.bar = std::make_unique<std::barrier<>>(threads);
-    for (int w = 0; w < threads / 32; ++w) blk.warps.push_back(std::make_unique<ShimWarp>());
-    shim_dyn = dyn.data();
-    std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t) {
-      ts.emplace_back([&, t, b] {
-        threadIdx.x = t; blockIdx.x = b; blockDim.x = threads; gridDim.x = blocks;
-        shim_block = &blk;
-        fn();
-      });
-    }
-    for (auto& th : ts) th.join();
-  }
-}
-"""
-
-
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
-    """csrc/search.cu built for the host with g++ against ``_HOST_SHIM``:
-    the ``<<<...>>>`` launch and the ``extern __shared__`` array rewritten
-    by text. Returns the loaded library."""
-    import os
-    import re
-    import shutil
-    import subprocess
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to build the kernel's source for the host")
-    d = tmp_path_factory.mktemp("search_host")
-    with open(os.path.join(os.path.dirname(SP.__file__), os.pardir, "csrc",
-                           "search.cu")) as f:
-        src = f.read()
-    src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
-    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w: ]+?) "
-                 r"(\w+)\[\];",
-                 r"\1* \2 = reinterpret_cast<\1*>(shim_dyn);", src)
-    src, n = re.subn(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*(.*?)>>>"
-                     r"\((.*?)\);",
-                     r"shim_launch(\2, \3, \4, [&] { \1(\6); });", src,
-                     flags=re.S)
-    assert n == 1
-    (d / "shim.h").write_text(_HOST_SHIM)
-    (d / "search.cpp").write_text(src)
-    so = str(d / "libsearch_host.so")
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-pthread", "-w", "-I", str(d),
-                    "-o", so, str(d / "search.cpp")], check=True,
-                   timeout=300)
-    lib = ctypes.CDLL(so)
-    for fn, (restype, argtypes) in SP._SIGNATURES.items():
-        getattr(lib, fn).restype = restype
-        getattr(lib, fn).argtypes = list(argtypes)
-    return lib
+    """csrc/search.cu built for the host with g++ against the emulation of
+    ``tests/cuda_host_shim.py``. Returns the loaded library."""
+    return cuda_host_shim.build("search", tmp_path_factory.mktemp(
+        "search_host"), SP._SIGNATURES)
 
 
 def _on_host(lib, monkeypatch):

@@ -26,12 +26,29 @@ CTAs and warps an SM. Every output's SHA-256, K4's rows, counts and ix
 included, must be the same in all four workers. It writes the record as
 JSON and prints it with the card's ``nvidia-smi`` name and power limit
 (``tools/vs_parent.py`` runs the turns).
+
+Each worker also times the Q31 analysis K3 alone at the three shapes its
+launches take (CUDA events behind a card spin, the median of 10 after a
+warm-up): the song's two channels of 18,432 granules, a 512-frame
+streaming window and a 7-frame one (each sliced as ``models/streaming``
+slices it: one granule of MDCT context, ``skip=1``), and, where the tree
+has it, the song read from the WAV's interleaved buffer; each shape's
+spectra must be the same in all four workers. It keeps K3's ``-Xptxas -v``
+lines, its CTAs an SM (the runtime's query, or an estimate from the
+registers and shared memory where the tree has no query) and writes the
+kernel's SASS to ``chiprun_out/k3_<the tree's directory>.sass`` with a
+count of each loop's instructions by pipe. ``--alone`` times only the
+kernels alone.
 """
 
+import collections
 import hashlib
 import json
 import os
+import re
+import shutil
 import statistics
+import subprocess
 import sys
 import time
 
@@ -94,7 +111,157 @@ def search_alone(wav: str, dev, sha: dict) -> tuple:
     return ms, dict(ptxas=ptxas, **occ)
 
 
-def worker(root: str, tmp: str) -> dict:
+def _card_ms(fn, runs: int = 10) -> float:
+    """The median card time of ``fn()`` by CUDA events, each call issued
+    behind a spin of the card so that the events hold the card's time and
+    not the host's enqueue."""
+    import torch
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# the pipe of each SASS opcode (by its first word): the integer
+# multiply-adds issue to the FMA pipe, the other integer and logic
+# operations to the ALU pipe, loads and stores to the memory pipe
+PIPES = (("fma", ("IMAD", "IMUL", "FFMA", "FMUL", "FADD", "IDP")),
+         ("alu", ("IADD3", "LOP3", "SHF", "SHL", "SHR", "ISETP", "SEL",
+                  "PRMT", "MOV", "LEA", "IABS", "IMNMX", "VIADD", "ISCADD",
+                  "P2R", "R2P", "PLOP3", "CS2R", "S2R", "S2UR", "SGXT",
+                  "BMSK", "FLO", "POPC", "BREV", "VIMNMX", "UIADD3",
+                  "ULDC", "UMOV", "ULOP3", "USHF", "UISETP", "UIMAD",
+                  "ULEA", "USEL", "UPRMT", "USGXT", "R2UR")),
+         ("mem", ("LDS", "STS", "LDG", "STG", "LDC", "LDGSTS", "LDSM",
+                  "LD", "ST", "ATOMS", "ATOMG", "RED", "LDGDEPBAR",
+                  "DEPBAR", "SHFL")))
+
+
+def _pipe(op: str) -> str:
+    head = op.split(".")[0]
+    for pipe, ops in PIPES:
+        if head in ops:
+            return pipe
+    return "other"
+
+
+def sass_loops(sass: str, kernel: str) -> dict:
+    """``kernel``'s SASS (``cuobjdump -sass``) summed by opcode: the whole
+    function, and each loop body (the instructions from a backward
+    branch's target to the branch) by pipe, with its ``IMAD.HI`` count."""
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)\s*([^;]*);", line)
+        if inside and m:
+            body.append((int(m[1], 16), m[3], m[4]))
+    ops = collections.Counter(op.split(" ")[0] for _, op, _ in body)
+    loops = []
+    for i, (at, op, args) in enumerate(body):
+        target = re.match(r"\s*(?:`?\()?\s*(0x[0-9a-f]+)", args)
+        if op.startswith("BRA") and target and int(target[1], 16) <= at:
+            lo = int(target[1], 16)
+            part = [o for a, o, _ in body if lo <= a <= at]
+            pipes = collections.Counter(_pipe(o) for o in part)
+            loops.append(dict(
+                first=hex(lo), last=hex(at), instructions=len(part),
+                imad_hi=sum(o.startswith("IMAD.HI") for o in part),
+                pipes=dict(pipes), opcodes=dict(collections.Counter(
+                    o.split(".")[0] for o in part).most_common(12))))
+    return dict(instructions=len(body),
+                imad_hi=sum(n for o, n in ops.items()
+                            if o.startswith("IMAD.HI")),
+                pipes=dict(collections.Counter(_pipe(o) for _, o, _ in
+                                               body)),
+                loops=loops)
+
+
+def _estimate_ctas(regs: int, smem: int, threads: int) -> int:
+    """CTAs an SM from a kernel's registers a thread and shared memory a
+    CTA on an H100 (65,536 registers in 4 quarters, allocated 8 a thread
+    a warp; 233,472 B of shared memory, 1 KB of it reserved a CTA; 2,048
+    threads): for a tree whose kernel has no occupancy query."""
+    warps = threads // 32
+    per_quarter = 16384 // (-(-regs // 8) * 8 * 32)
+    return min(4 * per_quarter // warps, 233472 // (smem + 1024),
+               2048 // threads, 32)
+
+
+def analysis_alone(wav: str, dev, sha: dict, label: str) -> tuple:
+    """K3 alone at its main path's shapes: (ms of each shape with its
+    (channels, granules, skip), the build's ptxas lines and CTAs an SM,
+    the SASS count); each shape's spectra go into ``sha``."""
+    import numpy as np
+    import torch
+    from mp3stego_tpu_torch.models.encoder import MP3Encoder
+    from mp3stego_tpu_torch.ops import _cuda
+    from mp3stego_tpu_torch.ops import encode_plane as EP
+    from mp3stego_tpu_torch.utils.wav import read_wav
+    enc = MP3Encoder(read_wav(wav, 320), device=dev)
+    nf = enc._num_frames()
+    gpf = enc.granules_per_frame
+    tg = nf * gpf
+    full = torch.from_numpy(EP._padded_streams(
+        enc._channel_streams_i16(nf), tg)).to(dev)
+    shapes = {"song": (full, 0)}
+    lo = 1 + tg // 8
+    for frames in (512, 7):
+        hi = lo + frames * gpf
+        shapes[f"{frames}-frame window"] = (
+            full[:, (lo - 1) * 576:hi * 576 + EP._PAST].contiguous(), 1)
+    fns = {k: (lambda f=f, s=s: EP.analysis_stream(f, skip=s))
+           for k, (f, s) in shapes.items()}
+    dims = {k: (f.shape[0], (f.shape[1] - EP._PAST) // 576, s)
+            for k, (f, s) in shapes.items()}
+    if hasattr(EP, "analysis_interleaved"):
+        nch = enc.wav.num_of_channels
+        buf = torch.from_numpy(np.ascontiguousarray(
+            enc.wav.buffer[:nch * tg * 576])).to(dev)
+        fns["song, interleaved"] = lambda: EP.analysis_interleaved(
+            buf, nch, tg)
+        dims["song, interleaved"] = (nch, tg, 0)
+    ms = {}
+    for name, fn in fns.items():
+        sha[f"K3 {name}"] = hashlib.sha256(
+            fn().cpu().numpy().tobytes()).hexdigest()
+        ms[name] = _card_ms(fn)
+    info = _cuda.builds["analysis"]
+    ptxas = [line.strip() for line in info["log"].splitlines()
+             if "registers" in line or "spill" in line]
+    if hasattr(EP, "occupancy"):
+        occ = dict(EP.occupancy(dev), source="the runtime's query")
+    else:
+        g, smem = EP.tile()
+        res = _cuda.ptxas_resources("analysis", "analysis_kernel")
+        occ = dict(ctas=_estimate_ctas(res["registers"],
+                                       smem + res["smem"], 256),
+                   warps=8, smem=smem, source="estimated from ptxas")
+    sass = {}
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    r = subprocess.run([tool, "-sass", info["path"]], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode == 0:
+        path = os.path.join(vs_parent.REPO, "chiprun_out", f"k3_{label}.sass")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(r.stdout)
+        sass = sass_loops(r.stdout, "analysis_kernel")
+    else:
+        sass = dict(error=(r.stdout + r.stderr)[-2000:])
+    return dict(ms=ms, dims=dims), dict(ptxas=ptxas, **occ), sass
+
+
+def worker(root: str, tmp: str, alone: bool = False) -> dict:
     """Times every encode path of the tree at ``root`` on the card."""
     vs_parent.import_tree(root)
     import numpy as np
@@ -130,6 +297,14 @@ def worker(root: str, tmp: str) -> dict:
 
     usable = encode().hide_str_offset                       # warm-up
     k4_ms, k4_build = search_alone(wav, dev, sha)
+    label = os.path.basename(os.path.abspath(root))
+    k3, k3_build, k3_sass = analysis_alone(wav, dev, sha, label)
+    alone_record = dict(root=root, search_alone_ms=k4_ms,
+                        search_build=k4_build, analysis_alone=k3,
+                        analysis_build=k3_build, analysis_sass=k3_sass)
+    if alone:
+        return dict(walls_ms={}, analysis_stage_ms={}, sha=sha,
+                    **alone_record)
     bits = "".join(np.random.default_rng(11).choice(
         ["0", "1"], size=int(usable * HIDE_SHARE)))
     encs = []
@@ -169,8 +344,8 @@ def worker(root: str, tmp: str) -> dict:
             torch.cuda.synchronize()), 1)
         with open(mp3, "rb") as f:
             sha[name] = hashlib.sha256(f.read()).hexdigest()
-    return dict(root=root, walls_ms=out, analysis_stage_ms=stage,
-                search_alone_ms=k4_ms, search_build=k4_build, sha=sha)
+    return dict(walls_ms=out, analysis_stage_ms=stage, sha=sha,
+                **alone_record)
 
 
 def _write_inputs(tmp: str) -> None:
@@ -188,22 +363,36 @@ def _write_inputs(tmp: str) -> None:
 
 
 def main() -> int:
-    args = vs_parent.parse_args(__doc__, "encode_vs_parent.json")
+    args = vs_parent.parse_args(__doc__, "encode_vs_parent.json",
+                                alone=True)
     if args.worker:
-        print(json.dumps(worker(args.worker, args.tmp)))
+        print(json.dumps(worker(args.worker, args.tmp, args.alone)))
         return 0
     card, runs, med = vs_parent.compare(__file__, args, _write_inputs)
-    alone = {}
-    for name in runs[0]["search_alone_ms"]:
-        for which in ("parent", "change"):
+    sys.path.insert(0, vs_parent.REPO)
+    from chip_smoke import analysis_bound
+    alone, k3 = {}, {}
+    for which in ("parent", "change"):
+        mine = [r for r in runs if r["tree"] == which]
+        for name in runs[0]["search_alone_ms"]:
             alone.setdefault(name, {})[which] = sorted(
-                r["search_alone_ms"][name] for r in runs
-                if r["tree"] == which)
+                r["search_alone_ms"][name] for r in mine)
+        for name, dims in mine[0]["analysis_alone"]["dims"].items():
+            bound = analysis_bound(*dims)
+            bound1 = analysis_bound(*dims, per_product=1)
+            times = sorted(r["analysis_alone"]["ms"][name] for r in mine)
+            k3.setdefault(name, dict(
+                dims=dims, bound_ms=bound[0], bound_by=bound[1],
+                bound_ms_1_cycle_a_product=bound1[0]))[which] = dict(
+                ms=times, share_of_bound=[bound[0] / t for t in times],
+                share_of_bound_1_cycle=[bound1[0] / t for t in times])
     vs_parent.write(args.out, card, runs, med, analysis_stage_ms=[
         (r["tree"], r["analysis_stage_ms"]) for r in runs],
         search_alone_ms=alone, search_build={
             r["tree"]: r["search_build"] for r in runs[::-1]
-            if r["search_build"]["ptxas"]})
+            if r["search_build"]["ptxas"]},
+        analysis_alone=k3, analysis_build={
+            r["tree"]: r["analysis_build"] for r in runs[::-1]})
     return 0
 
 

@@ -29,14 +29,22 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def parse_args(doc: str, record: str) -> argparse.Namespace:
-    """--parent DIR, --out (default ``chiprun_out/<record>``) and the hidden
-    worker arguments."""
+def parse_args(doc: str, record: str,
+               alone: bool = False) -> argparse.Namespace:
+    """--parent DIR, --change DIR (default this checkout), --out (default
+    ``chiprun_out/<record>``), with ``alone`` the --alone switch, and the
+    hidden worker arguments."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--parent", required=True,
                     help="a copy of the parent commit's tree")
+    ap.add_argument("--change", default=REPO,
+                    help="the tree to hold against the parent (default: "
+                         "this checkout)")
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                   record))
+    if alone:
+        ap.add_argument("--alone", action="store_true",
+                        help="time only the kernels alone, no path walls")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--tmp", help=argparse.SUPPRESS)
     return ap.parse_args()
@@ -62,14 +70,16 @@ def compare(script: str, args: argparse.Namespace, prepare,
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card visible to torch")
     card = card_line()
-    trees = {"parent": os.path.abspath(args.parent), "change": REPO}
+    trees = {"parent": os.path.abspath(args.parent),
+             "change": os.path.abspath(args.change)}
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
         prepare(tmp)
         for which in ORDER:
             r = subprocess.run(
                 [sys.executable, os.path.abspath(script), "--parent",
-                 trees["parent"], "--worker", trees[which], "--tmp", tmp],
+                 trees["parent"], "--worker", trees[which], "--tmp", tmp]
+                + (["--alone"] if getattr(args, "alone", False) else []),
                 capture_output=True, text=True, timeout=1200,
                 cwd=trees[which])
             if r.returncode != 0:
