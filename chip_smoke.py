@@ -129,6 +129,12 @@ K2_OPS_IS = 2
 K2_OPS_BUTTERFLY = 6
 K2_OPS_LONG_BAND = 36 * 18 * 2 + 36
 K2_OPS_SHORT_BAND = 3 * 12 * 6 * 2 + 36 + 12
+# K2's instantiations by (dtype, int32 plane), as -Xptxas -v and the SASS
+# name them (granule_kernel<float or double, signed char or int>)
+K2_INSTANCES = {(F32, False): "granule_kernelIfa",
+                (F32, True): "granule_kernelIfi",
+                (F64, False): "granule_kernelIda",
+                (F64, True): "granule_kernelIdi"}
 # the hand kernels, each module with its wrapper's launch count
 KERNELS = {"granule": dp, "synth_fused": sf, "huffman_scan": hd,
            "search": SP, "analysis": EP}
@@ -1608,25 +1614,32 @@ def dense_prep(prep: dict) -> dict:
 def granule_song_phase(dev, card: str, prep: dict, errs: dict) -> dict:
     """Phase 4's device plane: K2 bit for bit its plain version on the
     song's prep in both dtypes, on the int8 plane with its escapes (the
-    host parse's route, every decode but the device-Huffman one) and on the
-    int32 plane; then, by CUDA events, the kernel on each plane (the
-    wrapper launches nothing else), the plain version whole and its four
-    stages apart, and K1; with the bound, and a float32 ``torch.matmul`` of
-    the long IMDCT alone beside them (one part of the function, not a
-    yardstick of all of it). Returns K2's measured fields of the kernels
-    line per dtype, from the int8 plane."""
+    host parse's route, every decode but the device-Huffman one), on the
+    int32 plane and on a song-sized synthetic prep of every block type;
+    then, by CUDA events, the kernel on each of the three (the wrapper
+    launches nothing else), each with its bound, the plain version whole
+    and its four stages apart, and K1; a float32 ``torch.matmul`` of the
+    long IMDCT alone beside them (one part of the function, not a
+    yardstick of all of it); and each instantiation's registers, shared
+    memory, spills (a spill fails the phase) and resident warps an SM.
+    Returns K2's measured fields of the kernels line per dtype, from the
+    int8 plane."""
     dense = dense_prep(prep)
+    synth = dp.prep_to_torch(synthetic_prep(SONG_T), dev)
     hold_granule("song, int8 plane", prep, errs)
     hold_granule("song, dense plane", dense, errs)
+    hold_granule("song-sized synthetic prep", synth, errs)
     out = {}
     for dtype in (F32, F64):
         fns = {"kernel": lambda: dp.granule_blocks(prep, dtype),
                "kernel, int32 plane": lambda: dp.granule_blocks(dense, dtype),
+               "kernel, synthetic": lambda: dp.granule_blocks(synth, dtype),
                "plain": lambda: dp.granule_blocks_torch(prep, dtype)}
         for fn in fns.values():
             fn()
         times = {k: [] for k in fns}
         for which in ("plain", "kernel", "kernel, int32 plane",
+                      "kernel, synthetic", "kernel, synthetic",
                       "kernel, int32 plane", "kernel", "plain"):
             times[which].append(_time_ms(fns[which], 1 if which == "plain"
                                          else 20))
@@ -1657,6 +1670,7 @@ def granule_song_phase(dev, card: str, prep: dict, errs: dict) -> dict:
         del x, blk
         bound, by, nbytes, ops = granule_bound(prep, dtype)
         wide, wide_by, wide_bytes, _ = granule_bound(dense, dtype)
+        syn, syn_by, syn_bytes, syn_ops = granule_bound(synth, dtype)
         _say("4 K2", f"[{card}] {dtype} song ({dense['raw_dense'].shape[1]} "
                      f"granules x 2 channels), int8 plane and "
                      f"{prep['exc_t'].numel()} escapes: kernel "
@@ -1665,7 +1679,14 @@ def granule_song_phase(dev, card: str, prep: dict, errs: dict) -> dict:
                      f"{bound / best['kernel']:.1%} of it; int32 plane: "
                      f"kernel {times['kernel, int32 plane']} ms, bound "
                      f"{wide:.4f} ms by {wide_by} ({wide_bytes / 1e6:.1f} "
-                     f"MB); plain {times['plain']} ms (plain/kernel "
+                     f"MB), at {wide / best['kernel, int32 plane']:.1%}; "
+                     f"song-sized synthetic prep (every block type, "
+                     f"{synth['exc_t'].numel()} escapes): kernel "
+                     f"{times['kernel, synthetic']} ms, bound {syn:.4f} ms "
+                     f"by {syn_by} ({syn_bytes / 1e6:.1f} MB, "
+                     f"{syn_ops / 1e9:.3f} G ops), at "
+                     f"{syn / best['kernel, synthetic']:.1%}; plain "
+                     f"{times['plain']} ms (plain/kernel "
                      f"{best['plain'] / best['kernel']:.1f}x); plain stages, "
                      f"ms: {stages}")
         out[dtype] = dict(ms=best["kernel"], plain_ms=best["plain"],
@@ -1677,7 +1698,25 @@ def granule_song_phase(dev, card: str, prep: dict, errs: dict) -> dict:
     _say("4 K2", f"[{card}] float32 long IMDCT alone as one torch.matmul "
                  f"({rows}, 18) @ (18, 36), TF32 off: {mm:.4f} ms (one part "
                  f"of K2's function; library_ms stays null)")
-    del dense, x
+    spills = []
+    for (dtype, wide), kern in K2_INSTANCES.items():
+        res = _cuda.ptxas_resources("granule", kern)
+        occ = dp.occupancy(dev, dtype, wide)
+        _say("4 K2", f"[{card}] granule_kernel<{dtype}, "
+                     f"{'int32' if wide else 'int8'} plane>: "
+                     f"{res['registers']} registers a thread, "
+                     f"{res['smem'] + occ['smem']} B of shared memory a CTA "
+                     f"({occ['smem']} B dynamic), spills "
+                     f"{res['spill_stores']} B stored and {res['spill_loads']}"
+                     f" B loaded (-Xptxas -v); {occ['ctas']} CTAs of "
+                     f"{occ['warps']} warps an SM, "
+                     f"{occ['ctas'] * occ['warps']} resident warps (the "
+                     f"runtime's occupancy query)")
+        if res["spill_stores"] or res["spill_loads"]:
+            spills.append(kern)
+    if spills:
+        raise AssertionError(f"granule_kernel spills registers: {spills}")
+    del dense, synth, x
     torch.cuda.empty_cache()
     return out
 

@@ -99,17 +99,26 @@ def ptxas_resources(name: str, kernel: str) -> dict:
     """What ``-Xptxas -v`` said of ``kernel`` in the loaded ``csrc/<name>.cu``:
     its ``registers`` a thread and static shared memory (``smem``, bytes;
     dynamic shared memory is the launch's), and the bytes of spill stores
-    and loads over every function of the source (``spill_stores``,
-    ``spill_loads``). Raises if the log does not name the kernel."""
+    and loads (``spill_stores``, ``spill_loads``) of the entry functions
+    whose name holds ``kernel`` and of every function that is not an entry
+    (one a kernel may call). Raises if the log does not name the kernel."""
+    log = builds[name]["log"].splitlines()
+    entries = {m[1] for line in log
+               for m in [re.search(r"Compiling entry function '([^']+)'",
+                                   line)] if m}
     regs = smem = None
     spills = [0, 0]
     inside = False
-    for line in builds[name]["log"].splitlines():
+    props = ""
+    for line in log:
         if "Compiling entry function" in line:
             inside = kernel in line
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m[1]
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m:
+        if m and (kernel in props or props not in entries):
             spills = [spills[0] + int(m[1]), spills[1] + int(m[2])]
         m = re.search(r"Used (\d+) registers", line)
         if inside and m:

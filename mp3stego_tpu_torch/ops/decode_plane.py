@@ -38,9 +38,11 @@ The granule half is kernel K2:
 
 * ``granule_blocks`` — the wrapper every decode goes through. A CPU prep
   takes the plain version; a CUDA prep launches ``csrc/granule.cu`` (one
-  launch over every granule; it replaces the JAX package's XLA program
-  ``mp3stego_tpu/ops/decode_plane.py::granule_blocks``) or raises. There is
-  no fallback from the card to the plain version.
+  launch over every granule: persistent CTAs, as many as ``occupancy``
+  fits, each a contiguous run of granule indices; it replaces the JAX
+  package's XLA program ``mp3stego_tpu/ops/decode_plane.py::
+  granule_blocks``) or raises. There is no fallback from the card to the
+  plain version.
 * ``granule_blocks_torch`` — the plain PyTorch version, the four stages as
   eager ops on any device. The kernel equals it bit for bit in both dtypes.
 * ``launches`` — how many times the kernel was launched in this process.
@@ -67,9 +69,12 @@ launches = 0
 
 _SIGNATURES = {
     name: (ctypes.c_int, (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                          ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-                          ctypes.c_void_p))
+                          ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_void_p))
     for name in ("granule_blocks_f32", "granule_blocks_f64")}
+_SIGNATURES["granule_occupancy"] = (ctypes.c_int, (
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p))
 _ENTRY = {torch.float32: "granule_blocks_f32",
           torch.float64: "granule_blocks_f64"}
 
@@ -702,15 +707,38 @@ def prep_to_torch(prep: dict, device) -> dict:
             for k in TORCH_KEYS if k in prep}
 
 
+def imdct_symmetric(c_long_t: torch.Tensor, c_short_t: torch.Tensor) -> bool:
+    """Whether the IMDCT cosines, ``c_long_t`` (18, 36) and ``c_short_t``
+    (6, 12) indexed [k][n], are exactly antisymmetric and symmetric as the
+    float kernel computes them (csrc/granule.cu ``Layout``): C[k][17 - n] ==
+    -C[k][n] for n < 9 and C[k][53 - n] == C[k][n] for 18 <= n < 27;
+    S[k][5 - m] == -S[k][m] for m < 3 and S[k][17 - m] == S[k][m] for 6 <= m
+    < 9. So the kernel computes 18 long and 6 short sums and mirrors the
+    rest."""
+    n = torch.arange(9, device=c_long_t.device)
+    m = torch.arange(3, device=c_short_t.device)
+    return (torch.equal(c_long_t[:, 17 - n], -c_long_t[:, n])
+            and torch.equal(c_long_t[:, 35 - n], c_long_t[:, 18 + n])
+            and torch.equal(c_short_t[:, 5 - m], -c_short_t[:, m])
+            and torch.equal(c_short_t[:, 11 - m], c_short_t[:, 6 + m]))
+
+
 @functools.lru_cache(maxsize=None)
 def _consts(dtype: torch.dtype, device: torch.device, ref_start_window: bool):
     """Constant tables of the torch plane in ``dtype`` on ``device``, keyed
     on the start-window mode so MP3STEGO_TPU_REF_START_WINDOW flips are
     never served stale. The power tables are built on the host with
     Python's ``**`` (as ``decode_granules_np``) and copied over, never
-    computed on the device."""
+    computed on the device. Raises if the float32 cosines lack the symmetry
+    the kernel's float IMDCT relies on (:func:`imdct_symmetric`)."""
     f = functools.partial(torch.as_tensor, dtype=dtype, device=device)
     off1, off2, cs, ca = _alias_indices()
+    c_long_t = f(T.imdct_long_cos().T.copy())                 # (18,36)
+    c_short_t = f(T.imdct_short_cos().T.copy())               # (6,12)
+    if dtype == torch.float32 and not imdct_symmetric(c_long_t, c_short_t):
+        raise RuntimeError("the float32 IMDCT cosines are not exactly "
+                           "symmetric; csrc/granule.cu's float IMDCT "
+                           "relies on it")
     return SimpleNamespace(
         pow43=f([float(i) ** (4.0 / 3.0) for i in range(8207)]),
         # 2^(frac/4), frac in 0..3: the quarter-power factor of 2^(q/4)
@@ -727,8 +755,7 @@ def _consts(dtype: torch.dtype, device: torch.device, ref_start_window: bool):
         off1=torch.as_tensor(off1, dtype=torch.int64, device=device),
         off2=torch.as_tensor(off2, dtype=torch.int64, device=device),
         cs=f(cs), ca=f(ca),
-        c_long_t=f(T.imdct_long_cos().T.copy()),              # (18,36)
-        c_short_t=f(T.imdct_short_cos().T.copy()),            # (6,12)
+        c_long_t=c_long_t, c_short_t=c_short_t,
         sine=f(T.sine_block()),                               # (4,36)
     )
 
@@ -880,24 +907,66 @@ def granule_blocks(prep: dict, dtype, stages: dict = None) -> torch.Tensor:
     if stages is not None:
         granule_blocks_torch(prep, dtype, stages)
     tt = plane.shape[1]
-    out = torch.empty((2, tt, 32, 36), dtype=dtype, device=plane.device)
     if tt == 0:
-        return out
+        return torch.empty((2, 0, 32, 36), dtype=dtype, device=plane.device)
+    out = _launch(prep, dtype, plane)
+    launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def occupancy(device: torch.device, dtype, wide: bool) -> dict:
+    """What the runtime gives the kernel's instantiation for ``dtype`` and
+    the sample plane (``wide``: int32, else int8) on ``device``: the CTAs
+    an SM holds (``ctas``, at its registers and shared memory), its warps a
+    CTA (``warps``) and its bytes of dynamic shared memory a CTA
+    (``smem``). Builds the kernel; raises on a CUDA error."""
     from mp3stego_tpu_torch.ops import _cuda
     lib = _cuda.load("granule", _SIGNATURES)
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        rc = lib.granule_occupancy(int(dtype == torch.float64), int(wide),
+                                   *(ctypes.addressof(v) for v in out))
+    if rc != 0:
+        raise RuntimeError(f"granule occupancy query failed: CUDA error {rc}")
+    ctas, warps, smem = (v.value for v in out)
+    if ctas < 1:
+        raise RuntimeError("granule_kernel fits no CTA on an SM")
+    return dict(ctas=ctas, warps=warps, smem=smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_cap(device: torch.device, dtype, wide: bool) -> int:
+    """The persistent grid: every SM full of CTAs."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * occupancy(device, dtype, wide)["ctas"]
+
+
+def _launch(prep: dict, dtype, plane: torch.Tensor) -> torch.Tensor:
+    """One launch of ``csrc/granule.cu`` on the current stream for a checked
+    prep of T >= 1 granules: at most ``_grid_cap`` persistent CTAs, each a
+    contiguous run of granule indices. Returns the (2, T, 32, 36) blocks;
+    raises if the launch fails."""
+    from mp3stego_tpu_torch.ops import _cuda
+    lib = _cuda.load("granule", _SIGNATURES)
+    tt = plane.shape[1]
+    out = torch.empty((2, tt, 32, 36), dtype=dtype, device=plane.device)
     inputs = kernel_inputs(prep, dtype)
+    if inputs[0].data_ptr() % 16:        # the kernel copies 16-byte chunks
+        inputs[0] = inputs[0].clone()
     wide = plane.dtype == torch.int32
     n_exc = 0 if wide else prep["exc_t"].numel()
     ptrs = (ctypes.c_void_p * len(inputs))(
         *[None if t is None else t.data_ptr() for t in inputs])
+    blocks = min(tt, _grid_cap(plane.device, dtype, wide))
     stream = torch.cuda.current_stream(plane.device).cuda_stream
     with torch.cuda.device(plane.device), record_function("granule"):
         rc = getattr(lib, _ENTRY[dtype])(ptrs, len(inputs), tt, int(wide),
-                                         n_exc, out.data_ptr(), stream)
+                                         n_exc, blocks, out.data_ptr(),
+                                         stream)
     if rc != 0:
         raise RuntimeError(f"granule_blocks kernel launch failed: CUDA error "
                            f"{rc}")
-    launches += 1
     return out
 
 

@@ -3,11 +3,14 @@ the CPU: ``csrc/<name>.cu`` compiled by g++ against a small emulation of the
 CUDA features the port's kernels use, one ``std::thread`` per CUDA thread,
 the blocks one after another, a barrier per warp for its shuffles and
 reductions and one per block for ``__syncthreads``; shared memory is a
-static or a host buffer, ``cp.async`` a plain copy. The ``<<<...>>>``
-launch and the ``extern __shared__`` array are rewritten by text.
+static or a host buffer, ``cp.async`` and Hopper's bulk copy plain
+copies, their waits and fences no-ops. The ``<<<...>>>`` launch (of a
+template instantiation too) and the ``extern __shared__`` array are
+rewritten by text.
 
-Used by ``tests/test_torch_search_kernel.py`` (K4) and
-``tests/test_torch_analysis_kernel.py`` (K3).
+Used by ``tests/test_torch_search_kernel.py`` (K4),
+``tests/test_torch_analysis_kernel.py`` (K3) and
+``tests/test_torch_granule_kernel.py`` (K2).
 """
 
 import ctypes
@@ -40,10 +43,13 @@ HOST_SHIM = r"""#pragma once
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
-#define __align__(n) alignas(n)
+#define __align__(n) __attribute__((aligned(n)))
 #define __grid_constant__
 
 struct alignas(8) int2 { int x, y; };
+struct alignas(8) float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
 inline int2 make_int2(int x, int y) { return int2{x, y}; }
 struct alignas(16) int4 { int x, y, z, w; };
 inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
@@ -109,6 +115,14 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, size_t size,
   std::memset(static_cast<char*>(dst) + size - zfill, 0, zfill);
 }
 inline void __pipeline_commit() {}
+// the bulk copy (cp.async.bulk) as a plain copy, its waits and fence no-ops
+inline void bulk_store(void* dst, const void* src, unsigned bytes) {
+  std::memcpy(dst, src, bytes);
+}
+inline void bulk_commit() {}
+inline void bulk_wait_read() {}
+inline void bulk_wait() {}
+inline void fence_async_shared() {}
 inline void __pipeline_wait_prior(size_t) {}
 inline int atomicAdd(int* p, int v) {
   return std::atomic_ref<int>(*p).fetch_add(v);
@@ -130,6 +144,40 @@ inline double __dmul_rn(double a, double b) {
   volatile double r = a * b;
   return r;
 }
+inline double __dadd_rn(double a, double b) {
+  volatile double r = a + b;
+  return r;
+}
+inline double __dsub_rn(double a, double b) {
+  volatile double r = a - b;
+  return r;
+}
+inline double __ddiv_rn(double a, double b) {
+  volatile double r = a / b;
+  return r;
+}
+inline float __fmul_rn(float a, float b) {
+  volatile float r = a * b;
+  return r;
+}
+inline float __fadd_rn(float a, float b) {
+  volatile float r = a + b;
+  return r;
+}
+inline float __fsub_rn(float a, float b) {
+  volatile float r = a - b;
+  return r;
+}
+inline float __fdiv_rn(float a, float b) {
+  volatile float r = a / b;
+  return r;
+}
+inline float __int_as_float(int i) {
+  float f;
+  std::memcpy(&f, &i, sizeof f);
+  return f;
+}
+template <class T> inline T __ldg(const T* p) { return *p; }
 inline double __dsqrt_rn(double a) { return std::sqrt(a); }
 inline int __double2int_rz(double d) {
   if (d != d) return 0;
@@ -193,7 +241,8 @@ def build(name: str, directory, signatures: dict) -> ctypes.CDLL:
     src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w: ]+?) "
                  r"(\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(shim_dyn);", src)
-    src, n = re.subn(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*(.*?)>>>"
+    src, n = re.subn(r"(\w+(?:<[\w, ]*>)?)<<<([^,]+),\s*([^,]+),\s*([^,]+),"
+                     r"\s*(.*?)>>>"
                      r"\((.*?)\);",
                      r"shim_launch(\2, \3, \4, [&] { \1(\6); });", src,
                      flags=re.S)

@@ -737,6 +737,78 @@ def test_granule_kernel_equals_plain_version(card, name, dtype, tmp_path):
     assert torch.equal(got.signbit(), want.signbit())
 
 
+def _granule_span(prep: dict, lo: int, hi: int) -> dict:
+    """A host_prepare dict cut to granule indices [lo, hi), its escapes
+    with it."""
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    out = dict(prep)
+    for k in dp.T_AXIS1_KEYS:
+        out[k] = np.ascontiguousarray(prep[k][:, lo:hi])
+    for k in dp.T_AXIS0_KEYS:
+        out[k] = np.ascontiguousarray(prep[k][lo:hi])
+    keep = (prep["exc_t"] >= lo) & (prep["exc_t"] < hi)
+    for k in dp.EXC_KEYS:
+        out[k] = prep[k][keep]
+    out["exc_t"] = (out["exc_t"] - lo).astype(prep["exc_t"].dtype)
+    return out
+
+
+def _walk_prep(case: str, card, dtype, wide: bool) -> dict:
+    """A prep on the card at an edge of K2's persistent walk: one granule,
+    fewer granules than the grid's CTAs, a run that ends part-way (the
+    last CTA's run shorter than the others), a concat batch of three
+    files."""
+    import os
+    from chip_smoke import synthetic_prep
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    from mp3stego_tpu_torch.parallel.batch_decode import prepare_batch_concat
+    if case == "one granule":
+        prep = _granule_span(synthetic_prep(64), 5, 6)
+    elif case == "fewer granules than CTAs":
+        prep = _granule_span(synthetic_prep(64), 3, 40)
+    elif case == "a run that ends part-way":
+        cap = dp._grid_cap(card, dtype, wide)
+        # runs of 3 (2 cap < t <= 3 cap), t even and not a multiple of 3
+        t = 2 * cap + 2 if (2 * cap + 2) % 3 else 2 * cap + 4
+        prep = synthetic_prep(t)
+        run = -(-t // min(t, cap))
+        assert t % run, (t, run)
+    else:
+        gold = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "golden")
+        blobs = [np.load(os.path.join(gold, "encode_golden.npz"))[
+            "mp3_bytes"], np.load(os.path.join(gold, "huffman_golden.npz"))[
+            "linbits"]]
+        prep = prepare_batch_concat([dp.host_prepare(dh.parse_mp3(
+            b.tobytes(), 0)) for b in blobs + blobs[:1]])
+    prep = dp.prep_to_torch(prep, card)
+    if wide:
+        from chip_smoke import dense_prep
+        prep = dense_prep(prep)
+    return prep
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int8", "int32"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["one granule", "fewer granules than CTAs",
+                                  "a run that ends part-way",
+                                  "concat batch"])
+def test_granule_kernel_walk_edges(card, case, dtype, wide):
+    """K2's persistent CTAs each walk a contiguous run of granule indices:
+    bit for bit the plain version, signs of zero included, at the walk's
+    edges on both sample planes, in one launch."""
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    prep = _walk_prep(case, card, dtype, wide)
+    before = dp.launches
+    got = dp.granule_blocks(prep, dtype)
+    want = dp.granule_blocks_torch(prep, dtype)
+    torch.cuda.synchronize()
+    assert dp.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.signbit(), want.signbit())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_granule_kernel_rounds_a_file_alike_alone_and_in_a_batch(card,
                                                                  dtype):

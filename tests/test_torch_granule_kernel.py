@@ -20,13 +20,29 @@ what the wrapper hands the CUDA kernel (``csrc/granule.cu``).
   dropped) from the native and the NumPy pack, a concat batch and an
   unsorted list.
 * The wrapper's refusals, before any dispatch.
+* ``csrc/granule.cu`` itself, built for the host with g++ against the
+  emulation of ``tests/cuda_host_shim.py`` and run through the wrapper's
+  launch code (``decode_plane._launch``) on one to three emulated SMs: bit
+  for bit ``granule_blocks_torch`` in both dtypes, signs of zero included,
+  and in float64 the NumPy plane's blocks, PCM and stages after the IMDCT,
+  on the synthetic prep (with and without the reference start window), the
+  crafted streams, the linbits stream on the int8 plane and on the int32
+  plane, a mono stream, one granule, runs that end part-way and a granule
+  of more escapes than the CTA has threads.
+* The float32 cosine tables' exact symmetry, which the kernel's float IMDCT
+  uses, and the float64 tables' lack of it; K2's ``-Xptxas -v`` resources
+  read from a kept build log.
 
 Tolerance: exact unless stated. Inputs come from the goldens and seeded
 numpy preps; the JAX parser runs its Python engine (``backend="python"``).
 """
 
+import contextlib
+import ctypes
 import math
 import os
+import threading
+import types
 
 import numpy as np
 import pytest
@@ -37,9 +53,11 @@ torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 import __graft_entry__ as graft  # noqa: E402
+import cuda_host_shim  # noqa: E402
 from mp3stego_tpu.bitstream import decoder_host as jdh  # noqa: E402
 from mp3stego_tpu.ops import decode_plane as jdp  # noqa: E402
 from mp3stego_tpu_torch import tables as T  # noqa: E402
+from mp3stego_tpu_torch.ops import _cuda  # noqa: E402
 from mp3stego_tpu_torch.ops import decode_plane as dp  # noqa: E402
 from mp3stego_tpu_torch.parallel.batch_decode import \
     prepare_batch_concat  # noqa: E402
@@ -287,3 +305,200 @@ def test_wrapper_refuses_before_dispatch(name, make, dtype, match):
     with pytest.raises(ValueError, match=match):
         dp.granule_blocks(make(prep), dtype)
     assert dp.launches == before
+
+
+def test_float32_cosines_are_exactly_symmetric_float64_not():
+    """The float kernel computes 18 long and 6 short IMDCT sums and mirrors
+    the rest; that needs the float32 tables' exact symmetry, which
+    ``_consts`` asserts. The float64 tables lack it, so float64 computes all
+    36."""
+    f32, f64 = dp._c(F32, "cpu"), dp._c(F64, "cpu")
+    assert dp.imdct_symmetric(f32.c_long_t, f32.c_short_t)
+    assert not dp.imdct_symmetric(f64.c_long_t, f64.c_short_t)
+    for n in range(9):
+        assert not torch.equal(f64.c_long_t[:, 17 - n], -f64.c_long_t[:, n])
+    broken = f32.c_long_t.clone()
+    broken[3, 30] = torch.nextafter(broken[3, 30], torch.tensor(2.0))
+    assert not dp.imdct_symmetric(broken, f32.c_short_t)
+
+
+def test_ptxas_resources_read_k2_from_the_kept_build_log(monkeypatch):
+    """``_cuda.ptxas_resources`` reads each ``granule_kernel``
+    instantiation's registers, static shared memory and spills from a
+    build's kept ``-Xptxas -v`` log, by its mangled name: one
+    instantiation's spills are not another's."""
+    def entry(name, regs, smem, spills):
+        return [f"ptxas info    : Compiling entry function '{name}' for "
+                f"'sm_90a'",
+                f"ptxas info    : Function properties for {name}",
+                f"    0 bytes stack frame, {spills} bytes spill stores, "
+                f"{spills} bytes spill loads",
+                f"ptxas info    : Used {regs} registers, used 1 barriers, "
+                f"{smem} bytes smem, 904 bytes cmem[0]"]
+    kern = "_ZN12_GLOBAL__N_114granule_kernelI{}EEvNS_6ParamsIT_T0_EE"
+    log = "\n".join(entry(kern.format("da"), 72, 34000, 24)
+                    + entry(kern.format("fi"), 56, 25000, 0))
+    monkeypatch.setitem(_cuda.builds, "granule", {"log": log})
+    assert _cuda.ptxas_resources("granule", "granule_kernelIda") == dict(
+        registers=72, smem=34000, spill_stores=24, spill_loads=24)
+    assert _cuda.ptxas_resources("granule", "granule_kernelIfi") == dict(
+        registers=56, smem=25000, spill_stores=0, spill_loads=0)
+    with pytest.raises(RuntimeError, match="granule_kernelIfa"):
+        _cuda.ptxas_resources("granule", "granule_kernelIfa")
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """csrc/granule.cu built for the host with g++ against the emulation of
+    ``tests/cuda_host_shim.py``. Returns the loaded library."""
+    return cuda_host_shim.build("granule", tmp_path_factory.mktemp(
+        "granule_host"), dp._SIGNATURES)
+
+
+def _on_host(lib, monkeypatch, sms: int):
+    """Route ``dp._launch`` to the host build: CPU tensors, stream 0, the
+    occupancy the host build reports on a grid of ``sms`` SMs. Returns a
+    launch that fails instead of hanging."""
+    def occupancy(dev, dtype, wide):
+        out = [ctypes.c_int(0) for _ in range(3)]
+        assert lib.granule_occupancy(int(dtype == F64), int(wide),
+                                     *(ctypes.addressof(v) for v in out)) == 0
+        ctas, warps, smem = (v.value for v in out)
+        assert ctas >= 1 and warps == 9
+        assert smem == (0 if dtype == F64 else 2 * 32 * 36 * 4)
+        return dict(ctas=ctas, warps=warps, smem=smem)
+    monkeypatch.setattr(_cuda, "load", lambda name, sig: lib)
+    monkeypatch.setattr(dp, "occupancy", occupancy)
+    monkeypatch.setattr(dp, "_grid_cap", lambda dev, dtype, wide:
+                        sms * occupancy(dev, dtype, wide)["ctas"])
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+
+    def launch(prep, dtype):
+        box = []
+        plane = dp._check_prep(prep, dtype)
+        th = threading.Thread(target=lambda: box.append(
+            dp._launch(prep, dtype, plane)), daemon=True)
+        th.start()
+        th.join(300)
+        assert not th.is_alive(), "the host build of the kernel hung"
+        return box[0]
+    return launch
+
+
+def _span(prep: dict, lo: int, hi: int) -> dict:
+    """A host_prepare dict cut to granule indices [lo, hi), its escapes
+    with it."""
+    out = dict(prep)
+    for k in dp.T_AXIS1_KEYS:
+        out[k] = np.ascontiguousarray(prep[k][:, lo:hi])
+    for k in dp.T_AXIS0_KEYS:
+        out[k] = np.ascontiguousarray(prep[k][lo:hi])
+    keep = (prep["exc_t"] >= lo) & (prep["exc_t"] < hi)
+    for k in dp.EXC_KEYS:
+        out[k] = prep[k][keep]
+    out["exc_t"] = (out["exc_t"] - lo).astype(prep["exc_t"].dtype)
+    return out
+
+
+def _loud(t: int) -> dict:
+    """The synthetic prep with every sample an escape (|x| > 127): 1,152 a
+    granule index, past the 288 a CTA fetches ahead."""
+    prep = graft._synthetic_prep(t)
+    raw = dp.dense_raw(prep)
+    raw = np.where(raw >= 0, raw + 200, raw - 200).astype(np.int32)
+    ch, tt, s = np.nonzero(np.abs(raw) > 127)
+    prep["raw_i8"] = np.clip(raw, -128, 127).astype(np.int8)
+    prep["exc_t"] = tt.astype(np.int32)
+    prep["exc_ch"] = ch.astype(np.int8)
+    prep["exc_s"] = s.astype(np.int16)
+    prep["exc_val"] = raw[ch, tt, s].astype(np.int16)
+    return prep
+
+
+def _mono() -> dict:
+    """host_prepare of a seeded 0.3 s mono stream the port encodes on the
+    CPU."""
+    import tempfile
+    from mp3stego_tpu_torch.bitstream import decoder_host as pdh
+    from mp3stego_tpu_torch.models.encoder import MP3Encoder
+    from mp3stego_tpu_torch.utils.wav import read_wav, write_wav
+    rng = np.random.default_rng(5)
+    t = np.arange(13230)
+    sig = 0.4 * np.sin(2 * np.pi * 440 * t / 44100) \
+        + 0.05 * rng.standard_normal(len(t))
+    with tempfile.TemporaryDirectory() as d:
+        wav = os.path.join(d, "mono.wav")
+        write_wav(wav, 44100, np.clip(sig * 20000, -32768, 32767)
+                  .astype(np.int16))
+        enc = MP3Encoder(read_wav(wav, 128), device="cpu")
+        enc.encode()
+    parsed = pdh.parse_mp3(bytes(enc.out_buffer), 0)
+    assert parsed.header.channels == 1
+    return dp.host_prepare(parsed)
+
+
+# (name, the numpy prep, the int32 plane, emulated SMs): the host build's
+# occupancy (3 CTAs an SM) gives grids of 3 to 9 CTAs, so most cases walk
+# runs of several granules, and the "part-way" ones end a run early
+HOST_CASES = [
+    ("synthetic", lambda: graft._synthetic_prep(32), False, 2),
+    ("synthetic, int32 plane", lambda: graft._synthetic_prep(32), True, 2),
+    ("synthetic, reference start window", lambda: graft._synthetic_prep(16),
+     False, 1),
+] + [(n, (lambda n=n: _prep(n)), False, 1) for n in CRAFTED] + [
+    ("linbits", lambda: _linbits(True), False, 1),
+    ("linbits, int32 plane", lambda: _linbits(True), True, 1),
+    ("mono", _mono, False, 2),
+    ("one granule", lambda: _span(graft._synthetic_prep(8), 3, 4), False, 3),
+    ("one granule, int32 plane", lambda: _span(graft._synthetic_prep(8), 3,
+                                               4), True, 3),
+    ("runs end part-way", lambda: _span(graft._synthetic_prep(32), 1, 12),
+     False, 1),
+    ("runs end part-way, int32 plane",
+     lambda: _span(graft._synthetic_prep(32), 2, 31), True, 3),
+    ("every sample an escape", lambda: _loud(6), False, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("name,make,wide,sms", HOST_CASES,
+                         ids=[c[0] for c in HOST_CASES])
+def test_kernel_source_on_the_host_equals_plain_and_numpy(
+        name, make, wide, sms, dtype, host_kernel, monkeypatch):
+    """csrc/granule.cu, built for the host, through the wrapper's launch
+    code: bit for bit ``granule_blocks_torch`` (signs of zero included) and,
+    in float64, the NumPy plane's blocks by stage (after the IMDCT and
+    before the synthesis) and its PCM."""
+    if "reference start window" in name:
+        monkeypatch.setenv("MP3STEGO_TPU_REF_START_WINDOW", "1")
+    launch = _on_host(host_kernel, monkeypatch, sms)
+    prep = make()
+    tp = dp.prep_to_torch(prep, "cpu")
+    if wide:
+        dense = {k: v for k, v in tp.items()
+                 if k not in dp.RAW_KEYS + ("exc_start",)}
+        dense["raw_dense"] = torch.from_numpy(dp.dense_raw(prep))
+        tp = dense
+    tt = tp["mode"].shape[1]
+    run = -(-tt // min(tt, dp._grid_cap(None, dtype, wide)))
+    if "part-way" in name:
+        assert tt % run, (tt, run)
+    got = launch(tp, dtype)
+    want = dp.granule_blocks_torch(tp, dtype)
+    assert got.shape == (2, tt, 32, 36) and got.dtype == dtype
+    assert torch.equal(got, want)
+    assert torch.equal(got.signbit(), want.signbit())
+    if name == "every sample an escape":
+        assert (np.bincount(prep["exc_t"]) > 288).all()
+    if dtype == F64:
+        stages = {}
+        pcm = dp.decode_granules_np(prep, stages=stages)
+        mine = {}
+        got_pcm = dp.synth_from_blocks(got, mine)
+        for k in ("post_imdct", "pre_synth"):
+            np.testing.assert_array_equal(mine[k].numpy(), stages[k],
+                                          err_msg=k)
+        np.testing.assert_array_equal(got_pcm.numpy(), pcm)

@@ -27,9 +27,25 @@ outputs, the card's and the CPU's, within 1 int16 LSB of its float64 ones
 goldens'). It writes the record as JSON and prints it with the card's
 ``nvidia-smi`` name and power limit (``tools/vs_parent.py`` runs the
 turns).
+
+``--alone`` times only the decode granule kernel K2 alone (CUDA events
+behind a card spin, the median of 10 after a warm-up) in float32 and
+float64 on three inputs: the song's int8 plane with its escapes, the same
+granules as the int32 plane the device Huffman decode hands over, and a
+song-sized synthetic prep of every block type (``chip_smoke.synthetic_prep``
+of 18,432 granules: short, start, mixed, MS, intensity, linbits), each
+beside its bound (``chip_smoke.granule_bound``). Each output's SHA-256 must
+be the same in all four workers. It keeps each instantiation's ``-Xptxas
+-v`` resources and resident warps an SM (the runtime's query, or an
+estimate from the registers and shared memory where the tree has none),
+and writes the kernel's SASS as ``k2_<the tree's directory>.sass`` into
+the default ``--out``'s directory, with, for each instantiation, the
+loads and floating-point products of the innermost loop that holds the
+most products (the IMDCT's).
 """
 
 import hashlib
+import importlib.util
 import json
 import os
 import sys
@@ -38,6 +54,7 @@ import time
 import vs_parent
 
 SONG_COPIES = 256
+SYNTH_T = 18432                      # the song's granules a channel
 SLICES = 24
 SLICE_FRAMES = 1148                  # 30.0 s of 1,152 samples at 44.1 kHz
 MAX_LSB_RATE = 1e-3
@@ -55,10 +72,93 @@ def _lsb_rate(got, want) -> float:
     return float((d != 0).mean()) if d.size else 0.0
 
 
-def worker(root: str, tmp: str) -> dict:
+def granule_alone(tmp: str, dev, sha: dict, label: str,
+                  out_dir: str) -> dict:
+    """K2 alone on the song's two planes and the synthetic prep in both
+    dtypes: the ms and bound of each, each instantiation's resources and
+    the loads a product of its SASS (written into ``out_dir``); each
+    output's digest goes into ``sha``."""
+    import shutil
+    import subprocess
+    import torch
+    import encode_vs_parent as evp
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    from mp3stego_tpu_torch.ops import _cuda
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    # this checkout's chip_smoke (a parent tree's may lack K2_INSTANCES), on
+    # the tree's package imported above
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(vs_parent.REPO, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    with open(os.path.join(tmp, "song.mp3"), "rb") as f:
+        prep = dp.prep_to_torch(dp.host_prepare(dh.parse_mp3(f.read())), dev)
+    preps = {"song, int8 plane": prep,
+             "song, int32 plane": chip_smoke.dense_prep(prep),
+             "synthetic, int8 plane": dp.prep_to_torch(
+                 chip_smoke.synthetic_prep(SYNTH_T), dev)}
+    ms, bound = {}, {}
+    for name, pp in preps.items():
+        for dtype in (torch.float32, torch.float64):
+            key = f"{name}, {str(dtype).split('.')[-1]}"
+            fn = (lambda pp=pp, dtype=dtype: dp.granule_blocks(pp, dtype))
+            sha[f"K2 {key}"] = hashlib.sha256(
+                fn().cpu().numpy().tobytes()).hexdigest()
+            ms[key] = evp._card_ms(fn)
+            bound[key] = chip_smoke.granule_bound(pp, dtype)[:2]
+    info = _cuda.builds["granule"]
+    sass_text = ""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    r = subprocess.run([tool, "-sass", info["path"]], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode == 0:
+        sass_text = r.stdout
+        path = os.path.join(out_dir, f"k2_{label}.sass")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(path, "w") as f:
+            f.write(sass_text)
+    kernels = {}
+    for (dtype, wide), kern in chip_smoke.K2_INSTANCES.items():
+        res = _cuda.ptxas_resources("granule", kern)
+        if hasattr(dp, "occupancy"):
+            occ = dict(dp.occupancy(dev, dtype, wide),
+                       source="the runtime's query")
+        else:
+            occ = dict(ctas=evp._estimate_ctas(res["registers"], res["smem"],
+                                               288),
+                       warps=9, smem=0, source="estimated from ptxas")
+        row = dict(res, ctas=occ["ctas"], warps=occ["warps"],
+                   dynamic_smem=occ.get("smem", 0), source=occ["source"],
+                   resident_warps=occ["ctas"] * occ["warps"])
+        if sass_text:
+            loops = evp.sass_loops(sass_text, kern)["loops"]
+            span = [(int(lp["first"], 16), int(lp["last"], 16))
+                    for lp in loops]
+            inner = [lp for lp, (a, b) in zip(loops, span)
+                     if not any((a, b) != (c, d) and a <= c and d <= b
+                                for c, d in span)]
+            top = max(inner, key=lambda lp: lp["products"], default=None)
+            if top and top["products"]:
+                row.update(imdct_loop=top, loads_a_product=top["loads"]
+                           / top["products"])
+        else:
+            row["sass_error"] = (r.stdout + r.stderr)[-2000:]
+        kernels[f"{str(dtype).split('.')[-1]}, "
+                f"{'int32' if wide else 'int8'}"] = row
+    return dict(ms=ms, bound=bound, kernels=kernels)
+
+
+def worker(root: str, tmp: str, alone: bool = False,
+           out_dir: str = "") -> dict:
     """Times every decode path of the tree at ``root`` on the card, and the
-    float32 decode on the CPU."""
+    float32 decode on the CPU; ``alone``: K2 alone only."""
     vs_parent.import_tree(root)
+    if alone:
+        import torch
+        sha = {}
+        k2 = granule_alone(tmp, torch.device("cuda"), sha,
+                           os.path.basename(os.path.abspath(root)), out_dir)
+        return dict(root=root, walls_ms={}, sha=sha, granule_alone=k2)
     import numpy as np
     import torch
     from mp3stego_tpu_torch import Steganography
@@ -184,9 +284,24 @@ def _write_inputs(tmp: str) -> None:
 
 
 def main() -> int:
-    args = vs_parent.parse_args(__doc__, "decode_vs_parent.json")
+    args = vs_parent.parse_args(__doc__, "decode_vs_parent.json",
+                                alone=True)
     if args.worker:
-        print(json.dumps(worker(args.worker, args.tmp)))
+        print(json.dumps(worker(args.worker, args.tmp, args.alone,
+                                os.path.dirname(args.out))))
+        return 0
+    if args.alone:
+        card, runs, med = vs_parent.compare(__file__, args, _write_inputs)
+        k2 = {}
+        for which in ("parent", "change"):
+            mine = [r["granule_alone"] for r in runs if r["tree"] == which]
+            for key, (bound, by) in mine[0]["bound"].items():
+                times = sorted(r["ms"][key] for r in mine)
+                k2.setdefault(key, dict(bound_ms=bound, bound_by=by))[which] \
+                    = dict(ms=times, share_of_bound=[bound / t for t in times])
+        vs_parent.write(args.out, card, runs, med, granule_alone=k2,
+                        granule_build={r["tree"]: r["granule_alone"]["kernels"]
+                                       for r in runs[::-1]})
         return 0
     card, runs, med = vs_parent.compare(
         __file__, args, _write_inputs, same_bytes=[

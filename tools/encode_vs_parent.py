@@ -144,6 +144,12 @@ PIPES = (("fma", ("IMAD", "IMUL", "FFMA", "FMUL", "FADD", "IDP")),
                   "DEPBAR", "SHFL")))
 
 
+# the loads from shared, global or local memory, and the floating-point
+# products, by opcode
+LOADS = ("LDS", "LDG", "LD", "LDL", "LDSM")
+PRODUCTS = ("DMUL", "FMUL")
+
+
 def _pipe(op: str) -> str:
     head = op.split(".")[0]
     for pipe, ops in PIPES:
@@ -155,7 +161,8 @@ def _pipe(op: str) -> str:
 def sass_loops(sass: str, kernel: str) -> dict:
     """``kernel``'s SASS (``cuobjdump -sass``) summed by opcode: the whole
     function, and each loop body (the instructions from a backward
-    branch's target to the branch) by pipe, with its ``IMAD.HI`` count."""
+    branch's target to the branch) by pipe, with its ``IMAD.HI``, load
+    and floating-point product counts."""
     body, inside = [], False
     for line in sass.splitlines():
         if "Function :" in line:
@@ -176,6 +183,8 @@ def sass_loops(sass: str, kernel: str) -> dict:
             loops.append(dict(
                 first=hex(lo), last=hex(at), instructions=len(part),
                 imad_hi=sum(o.startswith("IMAD.HI") for o in part),
+                loads=sum(o.split(".")[0] in LOADS for o in part),
+                products=sum(o.split(".")[0] in PRODUCTS for o in part),
                 pipes=dict(pipes), opcodes=dict(collections.Counter(
                     o.split(".")[0] for o in part).most_common(12))))
     return dict(instructions=len(body),
