@@ -140,6 +140,8 @@ KERNELS = {"granule": dp, "synth_fused": sf, "huffman_scan": hd,
            "search": SP, "analysis": EP}
 DECODE = ("granule", "synth_fused")          # the kernels a decode runs
 ENCODE = ("search", "analysis")              # the kernels an encode runs
+# the bit-scan kernel's plane instantiation, as -Xptxas -v names it
+SCAN_KERNEL = "huffman_scan_kernelINS_3Row"
 
 
 def synthetic_parsed(t: int, seed: int = 0) -> ParsedMP3:
@@ -182,6 +184,48 @@ def synthetic_parsed(t: int, seed: int = 0) -> ParsedMP3:
 
 def synthetic_prep(t: int, seed: int = 0) -> dict:
     return dp.host_prepare(synthetic_parsed(t, seed), native_pack=False)
+
+
+def synthetic_lanes(frames: int = 64, seed: int = 13) -> tuple:
+    """A seeded lane set for the Huffman bit-scan, as ``hd.pack`` lays it
+    out: (words (W,) int32, fields (4 frames, 8) int32). Each frame's main
+    data is random bits, so every codeword, escape and sign occurs. The
+    first 96 lanes decode all three regions (big2 = 576) and give every
+    table id 0-31 to each region; every fourth frame's lanes take tables
+    23 and 31 (13 linbits) in the last region; the rest draw their region
+    bounds, big2 (0 to 576, even) and end bit at random, many ending inside
+    the count1 quads; count1 tables A and B alternate. Lane 1 has big2 = 0,
+    lane 5 three words while it reads 576 samples and far past its end bit,
+    lane 9 no words at all (a mono stream's second channel)."""
+    rng = np.random.default_rng(seed)
+    nwords = rng.integers(24, 480, size=frames)
+    base = np.concatenate([[0], np.cumsum(nwords)[:-1]])
+    words = np.concatenate([rng.integers(0, 1 << 32, size=int(nwords.sum()),
+                                         dtype=np.uint64),
+                            np.zeros(hd.PAD_WORDS, np.uint64)])
+    fields = np.zeros((4 * frames, 8), np.int64)
+    for g in range(4 * frames):
+        f = g // 4
+        bits = 32 * int(nwords[f])
+        start = int(rng.integers(0, 96))
+        end = start + int(rng.integers(0, bits - start))
+        if g < 96:
+            ts = [(g + 11 * r) % 32 for r in range(3)]
+            r0, r1, big2 = 2 * int(rng.integers(8, 60)), 360, 576
+        else:
+            ts = [int(t) for t in rng.integers(0, 32, size=3)]
+            if f % 4 == 0:
+                ts[2] = 23 if g % 2 else 31
+            r0, r1 = sorted(2 * int(v) for v in rng.integers(0, 289, 2))
+            big2 = 2 * int(rng.integers(0, 289))
+        fields[g] = (base[f], nwords[f], start, end, r0, r1, big2,
+                     ts[0] | ts[1] << 5 | ts[2] << 10 | (g // 2 % 2) << 15)
+    fields[1, 6] = 0
+    fields[5, [1, 3, 6]] = (3, 1 << 20, 576)
+    fields[9, :4] = (0, 0, 0, 0)
+    fields[9, 6] = 0
+    return (words.astype(np.uint32).view(np.int32),
+            fields.astype(np.int32))
 
 
 def _card_line() -> str:
@@ -365,6 +409,30 @@ def seeded_song(path: str, seconds: float, seed: int = 10):
     right = 0.8 * np.roll(sig, 999) + 0.05 * rng.standard_normal(t.size)
     pcm = np.clip(np.stack([sig, right], axis=1) * 30000, -32768, 32767)
     write_wav(path, sr, pcm.astype(np.int16))
+
+
+def mono_pcm() -> np.ndarray:
+    """30 s of a seeded 44.1 kHz mono tone with noise, int16."""
+    rng = np.random.default_rng(12)
+    t = np.arange(30 * 44100) / 44100
+    return np.clip((0.4 * np.sin(2 * np.pi * 330 * t)
+                    + 0.05 * rng.standard_normal(t.size)) * 30000,
+                   -32768, 32767).astype(np.int16)
+
+
+def flipped_song(song_b: bytes) -> bytes:
+    """The song with 256 seeded bit flips inside frames' main data (past
+    each header and side info, so the sync walk holds)."""
+    parsed = dh.parse_mp3(song_b)
+    sizes = np.asarray(parsed.frame_sizes, np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    rng = np.random.default_rng(16)
+    flipped = bytearray(song_b)
+    for _ in range(256):
+        fr = int(rng.integers(0, parsed.num_frames))
+        flipped[int(starts[fr]) + int(rng.integers(36, int(sizes[fr])))] ^= \
+            1 << int(rng.integers(0, 8))
+    return bytes(flipped)
 
 
 def _expect_equal(name, got: bytes, want: bytes):
@@ -814,13 +882,8 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     for name in lsf_names:
         paths.append(_write(os.path.join(tmp, f"b_{name}.mp3"),
                             lsf[name].tobytes()))
-    rng = np.random.default_rng(12)
-    t = np.arange(30 * 44100) / 44100
-    mono = np.clip((0.4 * np.sin(2 * np.pi * 330 * t)
-                    + 0.05 * rng.standard_normal(t.size)) * 30000,
-                   -32768, 32767).astype(np.int16)
     mono_wav = os.path.join(tmp, "mono.wav")
-    write_wav(mono_wav, 44100, mono)
+    write_wav(mono_wav, 44100, mono_pcm())
     paths.append(_write(os.path.join(tmp, "b_mono.mp3"),
                         _encode_bytes(mono_wav, dev, kbps=128)[0]))
     metas = []
@@ -1138,31 +1201,45 @@ def huffman_bound(fields: torch.Tensor, words: torch.Tensor,
     return by_ops, "operations", nbytes, ops
 
 
+def hold_scan(name: str, words: torch.Tensor,
+              fields: torch.Tensor) -> torch.Tensor:
+    """The bit-scan kernel on card lanes bit for bit its plain version (on
+    the host), and its chain-only entry equal to the plain plane's lane
+    sums; returns the kernel's plane."""
+    got = hd.decode_samples(words, fields)
+    chain = hd.scan_chain(words, fields)
+    want = hd.decode_samples_plain(words, fields)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{name}: huffman_scan != decode_samples_plain")
+    g = fields.shape[0]
+    sums = (want.permute(1, 0, 2).reshape(g, 576).long()
+            * torch.arange(1, 577, device=want.device)).sum(1)
+    if not torch.equal(chain, ((sums + 2**31) % 2**32 - 2**31).int()):
+        raise AssertionError(f"{name}: huffman_scan_chain != the plain "
+                             f"plane's lane sums")
+    return got
+
+
 def huffman_phase(dev, card: str, tmp: str, song: str, enc_out: dict,
                   runs: Paths) -> dict:
     """Phase 16: the device Huffman decode. The bit-scan kernel
-    (``csrc/huffman.cu``) bit for bit its plain version on the song's lanes,
-    the 5 multirate goldens, the MPEG-1 crafted streams (intensity, MS,
-    short, mixed, linbits escapes), a seeded bit-flipped copy of the song
-    and a mono stream, and equal to the host parse's samples where the
-    stream is intact; ``Decoder`` with MP3STEGO_TPU_DEVICE_HUFFMAN=1 on the
-    song in float64 and float32 writes the host parse's WAV bytes of the
-    same precision, and reveal through it reads the hidden song's message
-    back, each a counted main path. Times the kernel, its plain version,
-    the light parse and the decode walls of both engines. Returns the
-    kernel's row of the kernels line."""
+    (``csrc/huffman.cu``) bit for bit its plain version (``hold_scan``) on
+    the song's lanes, the 5 multirate goldens, the MPEG-1 crafted streams
+    (intensity, MS, short, mixed, linbits escapes), a seeded bit-flipped
+    copy of the song, a mono stream and the seeded synthetic lane set, and
+    equal to the host parse's samples where the stream is intact; its
+    registers, spills (a spill fails the phase), resident warps and the
+    bytes its tables hold on the card; ``Decoder`` with
+    MP3STEGO_TPU_DEVICE_HUFFMAN=1 on the song in float64 and float32 writes
+    the host parse's WAV bytes of the same precision, and reveal through it
+    reads the hidden song's message back, each a counted main path. Times
+    the kernel, its chain alone, its plain version (on the host), the light
+    parse and the decode walls of both engines, and the device-Huffman
+    decode by stage. Returns the kernel's row of the kernels line."""
     from mp3stego_tpu_torch.models.decoder import Decoder
     with open(song, "rb") as f:
         song_b = f.read()
-    parsed = dh.parse_mp3(song_b)
-    sizes = np.asarray(parsed.frame_sizes, np.int64)
-    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
-    rng = np.random.default_rng(16)
-    flipped = bytearray(song_b)
-    for _ in range(256):             # inside main data: the sync walk holds
-        fr = int(rng.integers(0, parsed.num_frames))
-        flipped[int(starts[fr]) + int(rng.integers(36, int(sizes[fr])))] ^= \
-            1 << int(rng.integers(0, 8))
     mr = np.load(os.path.join(GOLD, "multirate_golden.npz"))
     crafted = np.load(os.path.join(GOLD, "crafted_golden.npz"))
     streams = {"song": song_b}
@@ -1172,34 +1249,48 @@ def huffman_phase(dev, card: str, tmp: str, song: str, enc_out: dict,
         "is_long", "is_ms_long", "is_ms_short", "mixed_44k")})
     streams["linbits"] = np.load(os.path.join(
         GOLD, "huffman_golden.npz"))["linbits"].tobytes()
-    streams["song, 256 bits flipped"] = bytes(flipped)
+    streams["song, 256 bits flipped"] = flipped_song(song_b)
     with open(os.path.join(tmp, "b_mono.mp3"), "rb") as f:
         streams["mono 30 s"] = f.read()
-    err, lanes = 0, []
-    for name, data in streams.items():
-        _, desc = dh.parse_mp3_light(data)
-        words, fields = (torch.from_numpy(a).to(dev) for a in hd.pack(desc))
-        got = hd.decode_samples(words, fields)
-        want = hd.decode_samples_plain(words, fields)
-        torch.cuda.synchronize()
-        err = max(err, int((got - want).abs().max()))
-        if got.shape != want.shape or not torch.equal(got, want):
-            raise AssertionError(f"{name}: huffman_scan != "
-                                 f"decode_samples_plain")
-        if "flipped" not in name:
-            host = dh.parse_mp3(data).raw_samples
+    err, lanes = 0, []                  # bit for bit, or hold_scan raised
+    inputs = {name: hd.pack(dh.parse_mp3_light(data)[1])
+              for name, data in streams.items()}
+    inputs["synthetic lanes"] = synthetic_lanes()
+    for name, arrays in inputs.items():
+        words, fields = (torch.from_numpy(a).to(dev) for a in arrays)
+        got = hold_scan(name, words, fields)
+        if name in streams and "flipped" not in name:
+            host = dh.parse_mp3(streams[name]).raw_samples
             if not np.array_equal(got.cpu().numpy(), np.moveaxis(
                     host, 2, 0).reshape(2, -1, 576)):
                 raise AssertionError(f"{name}: huffman_scan != the host "
                                      f"parse's samples")
         lanes.append(f"{name} ({fields.shape[0]})")
     _say("16 huffman", f"huffman_scan bitwise equal to decode_samples_plain "
-                       f"(and to the host parse's samples on the intact "
-                       f"streams) on {len(streams)} streams (lanes): "
-                       f"{', '.join(lanes)}")
+                       f"(run on the host) and its chain-only entry to the "
+                       f"plain plane's lane sums (and to the host parse's "
+                       f"samples on the intact streams) on {len(inputs)} "
+                       f"lane sets (lanes): {', '.join(lanes)}")
+    res = _cuda.ptxas_resources("huffman", SCAN_KERNEL)
+    occ = hd.occupancy(dev)
+    table_b = hd._tables(dev).numel() * 4
+    flat_b = len(hd._codebooks()) * (4 << hd.LUT_BITS)
+    _say("16 huffman", f"huffman_scan_kernel: {res['registers']} registers, "
+                       f"{occ['ctas']} CTAs of {occ['warps']} warps an SM "
+                       f"({occ['ctas'] * occ['warps']} resident warps; "
+                       f"{occ['smem']} B of dynamic shared memory a CTA), "
+                       f"spills {res['spill_stores']} B stored and "
+                       f"{res['spill_loads']} B loaded (-Xptxas -v); its "
+                       f"tables on the card: {table_b:,} B, the codebooks "
+                       f"read from shared memory (the flat 2^19-entry LUTs, "
+                       f"{flat_b:,} B, stay in host memory for the plain "
+                       f"version)")
+    if res["spill_stores"] or res["spill_loads"]:
+        raise AssertionError("huffman_scan_kernel spills registers")
 
-    # the kernel on the song's lanes: its time, the plain version's, the
-    # light parse's beside the native full parse's, and the bound
+    # the kernel on the song's lanes: its time, the chain alone, the plain
+    # version's on the host, the light parse's beside the native full
+    # parse's, and the bound
     t0 = time.perf_counter()
     _, desc = dh.parse_mp3_light(song_b)
     light_s = time.perf_counter() - t0
@@ -1208,23 +1299,31 @@ def huffman_phase(dev, card: str, tmp: str, song: str, enc_out: dict,
     native_s = time.perf_counter() - t0
     words, fields = (torch.from_numpy(a).to(dev) for a in hd.pack(desc))
     fns = {"kernel": lambda: hd.decode_samples(words, fields),
-           "plain": lambda: hd.decode_samples_plain(words, fields)}
+           "chain": lambda: hd.scan_chain(words, fields)}
     out = fns["kernel"]()
-    fns["plain"]()
+    fns["chain"]()
     times = {k: [] for k in fns}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        times[which].append(_time_ms(fns[which], 1 if which == "plain"
-                                     else 50))
+    for which in ("chain", "kernel", "kernel", "chain"):
+        times[which].append(_time_ms(fns[which], 50))
+    plain_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hd.decode_samples_plain(words, fields)
+        torch.cuda.synchronize()
+        plain_s.append(time.perf_counter() - t0)
     best = {k: min(v) for k, v in times.items()}
+    best["plain"] = min(plain_s) * 1e3
     bound, by, nbytes, ops = huffman_bound(fields, words, out)
     _say("16 huffman", f"[{card}] song: {fields.shape[0]} lanes, "
                        f"{words.numel()} words: kernel {times['kernel']} ms, "
                        f"bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
                        f"{ops / 1e6:.1f} M int ops), at "
-                       f"{bound / best['kernel']:.1%} of it; plain "
-                       f"{times['plain']} ms (plain/kernel "
-                       f"{best['plain'] / best['kernel']:.1f}x); "
-                       f"parse_mp3_light {light_s * 1e3:.1f} ms, native "
+                       f"{bound / best['kernel']:.1%} of it; the chain "
+                       f"alone (no plane stores) {times['chain']} ms; plain "
+                       f"on the host {[round(x * 1e3, 1) for x in plain_s]} "
+                       f"ms (plain/kernel {best['plain'] / best['kernel']:.0f}"
+                       f"x); parse_mp3_light {light_s * 1e3:.1f} ms, native "
                        f"parse_mp3 {native_s * 1e3:.1f} ms")
     del words, fields, out
 

@@ -34,13 +34,20 @@ decoder/Frame.py:443-559):
   6-bit ``QUAD_LUT``; then a sign bit per nonzero value.
 
 * ``decode_samples`` — the wrapper. A CPU tensor takes the plain version; a
-  CUDA tensor launches ``csrc/huffman.cu`` (one thread walks one lane with a
-  64-bit bit cache refilled 32 bits at a time; the codebook LUTs in global
-  memory, the small tables in shared memory) or raises. There is no
-  fallback from the card to the plain version, nor to the host parse.
+  CUDA tensor launches ``csrc/huffman.cu`` (one thread walks one lane with
+  a bit cursor; the codebooks as ``codebook_table``'s two-level table,
+  ~15 KB, the small tables and each warp's frames' words in shared memory;
+  the design is in the source's head) or raises. There is no fallback from
+  the card to the plain version, nor to the host parse.
 * ``decode_samples_plain`` — the plain PyTorch version: every lane at once,
   one pair (then one quad) per step, reading the stream at each lane's cursor
-  straight from the words. The kernel equals it bit for bit.
+  straight from the words and each codeword from its book's flat 2^19-entry
+  LUT (``T.dec_lut``). It runs on the host whatever its inputs' device, so
+  the flat LUTs (30 MiB) never go to the card. The kernel equals it bit for
+  bit.
+* ``scan_chain`` — the kernel's walk without the plane's stores (each lane's
+  weighted sum of its samples), a measurement of the chain alone.
+* ``occupancy`` — the runtime's CTAs an SM for the kernel.
 * ``launches`` — how many times the kernel was launched in this process.
 """
 
@@ -58,38 +65,104 @@ PAD_WORDS = 4
 FIELDS = ("wbase", "wlen", "start_bit", "max_bit", "region0", "region1",
           "big2", "tsc")
 PAIRS, QUADS = 288, 144
+FIRST_BITS = 8                   # the codebook table's first-level index
+SUB = 0x8000                     # a first-level entry that names a sub-table
 
+_SCAN_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+              ctypes.c_void_p)
 _SIGNATURES = {
-    "huffman_scan": (ctypes.c_int, (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)),
+    "huffman_scan": (ctypes.c_int, _SCAN_ARGS),
+    "huffman_scan_chain": (ctypes.c_int, _SCAN_ARGS),
+    "huffman_occupancy": (ctypes.c_int, (ctypes.c_int, ctypes.c_void_p,
+                                         ctypes.c_void_p, ctypes.c_void_p)),
 }
 
 
+def _codebooks() -> list:
+    """The big-values codebooks a table id can pick, ascending."""
+    return sorted({int(b) for b in T.DEC_CODEBOOK_OF if b != 0})
+
+
 @functools.lru_cache(maxsize=None)
-def _host_tables():
-    """(LUTs (books, 2^19) int32, the small tables (160,) int32: book row
-    per table id (-1 for a skip), linbits, maxval (32 each), QUAD_LUT
-    (64))."""
-    books = sorted({int(b) for b in T.DEC_CODEBOOK_OF if b != 0})
+def codebook_table() -> tuple:
+    """The 15 codebooks as one two-level table of 16-bit entries, the
+    kernel's: (entries (N,) uint16, each book's first-level base (15,)
+    int32, in ``_codebooks`` order).
+
+    A book's first level has 2^FIRST_BITS entries, indexed by the next
+    ``FIRST_BITS`` bits of the stream. Where every codeword under that
+    prefix fits in it, the entry is the flat LUT's ``x << 9 | y << 5 |
+    length`` (``T.dec_lut``, equal for all 2^(19 - FIRST_BITS) indices it
+    covers); else it is ``SUB | ext << 11 | offset // 2``: a sub-table at
+    ``base + offset`` of 2^ext entries, ``ext`` the longest such codeword's
+    bits past the first level, indexed by those ``ext`` bits. Sub-tables
+    follow their book's first level."""
+    chunks, bases, at = [], [], 0
+    for book in _codebooks():
+        lut = T.dec_lut(book).astype(np.int64)
+        rows = lut.reshape(1 << FIRST_BITS, -1)
+        first = np.zeros(1 << FIRST_BITS, np.int64)
+        subs, rel = [], 1 << FIRST_BITS
+        for p, row in enumerate(rows):
+            ext = max(int((row & 31).max()) - FIRST_BITS, 0)
+            if ext == 0:
+                assert (row == row[0]).all()
+                first[p] = row[0]
+                continue
+            sub = row.reshape(1 << ext, -1)
+            assert (sub == sub[:, :1]).all()
+            assert rel % 2 == 0 and rel // 2 < 1 << 11 and ext < 16
+            first[p] = SUB | ext << 11 | rel // 2
+            subs.append(sub[:, 0])
+            rel += 1 << ext
+        bases.append(at)
+        chunks += [first] + subs
+        at += rel
+    table = np.concatenate(chunks)
+    assert table.max() < 1 << 16 and at < 1 << 14
+    return table.astype(np.uint16), np.asarray(bases, np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _host_tables() -> np.ndarray:
+    """What ``csrc/huffman.cu`` loads into shared memory, as int32: per
+    table id (32) -1 for a skip (tables 0, 4, 14) or its codebook's
+    first-level base | linbits << 14 | (maxval - 1) << 18, then QUAD_LUT
+    (64), then ``codebook_table``'s entries two an int (little-endian),
+    zero-padded to a multiple of 4 ints."""
+    entries, bases = codebook_table()
+    base_of = dict(zip(_codebooks(), bases))
+    meta = np.array([-1 if i in (0, 4, 14) else
+                     int(base_of[int(b)]) | int(T.DEC_LINBITS[i]) << 14
+                     | (int(T.DEC_MAXVAL[i]) - 1) << 18
+                     for i, b in enumerate(T.DEC_CODEBOOK_OF)], np.int64)
+    pad = (-entries.size) % 8
+    packed = np.concatenate([entries, np.zeros(pad, np.uint16)]).view(
+        "<u4").astype(np.int64)
+    return np.concatenate([meta, T.QUAD_LUT, packed]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(device: torch.device) -> torch.Tensor:
+    """``_host_tables`` on ``device``: about 15 KB."""
+    return torch.from_numpy(_host_tables()).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_tables():
+    """The plain version's tables, on the host: (the flat LUTs (books *
+    2^19,) int32, 2 MiB a codebook; book row per table id (-1 for a skip),
+    linbits, maxval (32 each); QUAD_LUT (64))."""
+    books = _codebooks()
     row_of = {b: i for i, b in enumerate(books)}
-    luts = np.zeros((len(books), 1 << LUT_BITS), dtype=np.int32)
-    for b in books:
-        luts[row_of[b]] = T.dec_lut(b)
+    luts = np.concatenate([T.dec_lut(b) for b in books]).astype(np.int32)
     book_row = np.array([row_of.get(int(b), -1) if i not in (0, 4, 14)
                          else -1 for i, b in enumerate(T.DEC_CODEBOOK_OF)],
                         dtype=np.int32)
-    small = np.concatenate([book_row, T.DEC_LINBITS, T.DEC_MAXVAL,
-                            T.QUAD_LUT]).astype(np.int32)
-    return luts, small
-
-
-@functools.lru_cache(maxsize=None)
-def _tables(device: torch.device):
-    """``_host_tables`` on ``device``: (LUTs flat (books * 2^19,), small)."""
-    luts, small = _host_tables()
-    return (torch.from_numpy(luts.reshape(-1)).to(device),
-            torch.from_numpy(small).to(device))
+    return tuple(torch.from_numpy(a) for a in (
+        luts, book_row, T.DEC_LINBITS.astype(np.int32),
+        T.DEC_MAXVAL.astype(np.int32), T.QUAD_LUT.astype(np.int32)))
 
 
 def pack(descriptors: list) -> tuple:
@@ -134,15 +207,17 @@ def _check(words: torch.Tensor, fields: torch.Tensor):
 
 def decode_samples_plain(words: torch.Tensor,
                          fields: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel on ``words``' device: every lane
-    in lockstep, 288 pair steps then 144 quad steps, each peek read from
-    the words at the lane's bit cursor. Returns (2, 2 F, 576) int32."""
+    """Plain PyTorch version of the kernel: every lane in lockstep, 288 pair
+    steps then 144 quad steps, each peek read from the words at the lane's
+    bit cursor, each codeword from its codebook's flat 2^19-entry LUT.
+    Runs on the host (the flat LUTs, 30 MiB, never go to the card) and
+    returns (2, 2 F, 576) int32 on ``words``' device."""
     _check(words, fields)
+    home = words.device
+    words, fields = words.cpu(), fields.cpu()
     dev = words.device
     g = fields.shape[0]
-    luts, small = _tables(dev)
-    book_row, linbits, maxval = small[:32], small[32:64], small[64:96]
-    quad_lut = small[96:]
+    luts, book_row, linbits, maxval, quad_lut = _plain_tables()
     w64 = words.to(torch.int64) & 0xFFFFFFFF
     f = fields.to(torch.int64).unbind(1)
     wbase, wlen, bit, max_bit, region0, region1, big2, tsc = f
@@ -207,7 +282,7 @@ def decode_samples_plain(words: torch.Tensor,
             out[lanes, pos] = torch.where(active, torch.where(neg, -v, v),
                                           cur)
     return out.to(torch.int32).reshape(-1, 2, 2, 576) \
-        .permute(2, 0, 1, 3).reshape(2, -1, 576).contiguous()
+        .permute(2, 0, 1, 3).reshape(2, -1, 576).contiguous().to(home)
 
 
 def decode_samples(words: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:
@@ -224,22 +299,63 @@ def decode_samples(words: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:
     if words.device.type != "cuda":
         raise ValueError(f"decode_samples runs on CPU or CUDA tensors, got "
                          f"{words.device}")
-    words, fields = words.contiguous(), fields.contiguous()
-    from mp3stego_tpu_torch.ops import _cuda
-    lib = _cuda.load("huffman", _SIGNATURES)
-    luts, small = _tables(words.device)
     g = fields.shape[0]
     out = torch.empty((2, g // 2, 576), dtype=torch.int32, device=words.device)
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    with torch.cuda.device(words.device):
-        rc = lib.huffman_scan(words.data_ptr(), fields.data_ptr(), g,
-                              luts.data_ptr(), small.data_ptr(),
-                              out.data_ptr(), words.shape[0], stream)
-    if rc != 0:
-        raise RuntimeError(f"huffman_scan kernel launch failed: CUDA error "
-                           f"{rc}")
+    _launch("huffman_scan", words.contiguous(), fields.contiguous(), out)
     launches += 1
     return out
+
+
+def scan_chain(words: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:
+    """The kernel's walk without the plane's stores, a measurement: CUDA
+    ``(words, fields)`` -> (4 F,) int32, each lane's sum of (s + 1) x its
+    sample s, wrapped to 32 bits. Not counted in ``launches``."""
+    _check(words, fields)
+    if words.device.type != "cuda":
+        raise ValueError(f"scan_chain runs on CUDA tensors, got "
+                         f"{words.device}")
+    out = torch.empty(fields.shape[0], dtype=torch.int32, device=words.device)
+    _launch("huffman_scan_chain", words.contiguous(), fields.contiguous(),
+            out)
+    return out
+
+
+def _launch(entry: str, words: torch.Tensor, fields: torch.Tensor,
+            out: torch.Tensor) -> None:
+    """One launch of ``csrc/huffman.cu``'s ``entry`` on the current stream;
+    raises if it fails."""
+    from mp3stego_tpu_torch.ops import _cuda
+    lib = _cuda.load("huffman", _SIGNATURES)
+    if words.data_ptr() % 16:          # the kernel stages 16-byte chunks
+        words = words.clone()
+    tables = _tables(words.device)
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    with torch.cuda.device(words.device):
+        rc = getattr(lib, entry)(words.data_ptr(), fields.data_ptr(),
+                                 fields.shape[0], tables.data_ptr(),
+                                 tables.numel(), out.data_ptr(),
+                                 words.shape[0], stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+
+
+@functools.lru_cache(maxsize=None)
+def occupancy(device: torch.device) -> dict:
+    """What the runtime gives the kernel on ``device``: CTAs an SM
+    (``ctas``), warps a CTA (``warps``), bytes of dynamic shared memory a
+    CTA (``smem``: the tables and each warp's staged words). Builds the
+    kernel; raises on a CUDA error."""
+    from mp3stego_tpu_torch.ops import _cuda
+    lib = _cuda.load("huffman", _SIGNATURES)
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        rc = lib.huffman_occupancy(_host_tables().size,
+                                   *(ctypes.addressof(v) for v in out))
+    if rc != 0:
+        raise RuntimeError(f"huffman occupancy query failed: CUDA error "
+                           f"{rc}")
+    ctas, threads, smem = (v.value for v in out)
+    return dict(ctas=ctas, warps=threads // 32, smem=smem)
 
 
 def decode_raw_device(descriptors: list, device) -> torch.Tensor:
@@ -259,8 +375,8 @@ def decode_pcm_i16_device(data: bytes, offset: int, device,
     Returns (interleaved int16 PCM (samples, channels), the ParsedMP3, whose
     ``raw_samples`` stay zero). MPEG-1 only: an LSF stream raises
     ``ValueError``. ``timer`` (``utils.profiling.StageTimer``) splits the
-    time into light parse, huffman scan, host_prepare, h2d, device plane and
-    d2h."""
+    time into light parse, pack (host), h2d (lanes), huffman scan (the
+    kernel), host_prepare, h2d, device plane and d2h."""
     from mp3stego_tpu_torch.bitstream import decoder_host as dh
     from mp3stego_tpu_torch.ops import decode_plane as dp
     from mp3stego_tpu_torch.utils.profiling import StageTimer
@@ -270,8 +386,13 @@ def decode_pcm_i16_device(data: bytes, offset: int, device,
     if parsed.num_frames == 0:
         return np.zeros((0, 2), np.int16), parsed
     dev = torch.device(device)
+    with timer.stage("pack (host)"):
+        words, fields = pack(descriptors)
+    with timer.stage("h2d (lanes)"):
+        words = torch.from_numpy(words).to(dev)
+        fields = torch.from_numpy(fields).to(dev)
     with timer.stage("huffman scan (device)"):
-        raw = decode_raw_device(descriptors, dev)
+        raw = decode_samples(words, fields)
     with timer.stage("host_prepare"):
         prep = dp.host_prepare(parsed, raw=False)
     with timer.stage("h2d"):

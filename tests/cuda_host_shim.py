@@ -9,8 +9,9 @@ template instantiation too) and the ``extern __shared__`` array are
 rewritten by text.
 
 Used by ``tests/test_torch_search_kernel.py`` (K4),
-``tests/test_torch_analysis_kernel.py`` (K3) and
-``tests/test_torch_granule_kernel.py`` (K2).
+``tests/test_torch_analysis_kernel.py`` (K3),
+``tests/test_torch_granule_kernel.py`` (K2) and
+``tests/test_torch_huffman_kernel.py`` (the Huffman bit-scan).
 """
 
 import ctypes

@@ -212,6 +212,19 @@ def test_huffman_kernel_equals_plain_version(card, name):
                           .reshape(2, -1, 576))
 
 
+def test_huffman_kernel_on_synthetic_lanes_and_its_chain(card):
+    """The bit-scan kernel bit for bit its plain version on the seeded
+    synthetic lane set (every table id in each region, escapes, both count1
+    tables, lanes that run out of words), its chain-only entry equal to the
+    plain plane's lane sums, and its tables on the card a few KB, not the
+    flat LUTs."""
+    from chip_smoke import hold_scan, synthetic_lanes
+    from mp3stego_tpu_torch.ops import huffman_device as hd
+    words, fields = (torch.from_numpy(a).to(card) for a in synthetic_lanes())
+    hold_scan("synthetic lanes", words, fields)
+    assert hd._tables(card).numel() * 4 < 16 * 1024
+
+
 @pytest.mark.parametrize("precision", ["float32", "float64"])
 def test_device_huffman_decode_writes_host_bytes(card, precision, tmp_path,
                                                  monkeypatch):

@@ -28,8 +28,21 @@ goldens'). It writes the record as JSON and prints it with the card's
 ``nvidia-smi`` name and power limit (``tools/vs_parent.py`` runs the
 turns).
 
-``--alone`` times only the decode granule kernel K2 alone (CUDA events
-behind a card spin, the median of 10 after a warm-up) in float32 and
+``--alone`` times only the kernels alone (CUDA events behind a card spin,
+the median of 10 after a warm-up): the Huffman bit-scan and K2
+(``--only scan`` or ``--only granule`` one of them). The scan runs on the
+lanes (``huffman_device.pack``) of the song, of the song with 256 seeded
+bit flips (``chip_smoke.flipped_song``) and of a 30 s mono stream
+(``chip_smoke.mono_pcm`` encoded at 128 kbps by the host C++ engine), each
+beside its bound (``chip_smoke.huffman_bound``) and, where the tree has
+``scan_chain``, beside the same walk without the plane's stores. Each
+plane's SHA-256 must be the same in all four workers. It keeps the
+kernel's ``-Xptxas -v`` resources and resident warps an SM (the runtime's
+query, or an estimate where the tree has none) and writes its SASS as
+``scan_<the tree's directory>.sass`` into the default ``--out``'s
+directory, with each loop's loads and the loads of the pair loop (the
+loop of the most instructions; one codeword an iteration, every path
+counted). K2 runs in float32 and
 float64 on three inputs: the song's int8 plane with its escapes, the same
 granules as the int32 plane the device Huffman decode hands over, and a
 song-sized synthetic prep of every block type (``chip_smoke.synthetic_prep``
@@ -72,6 +85,16 @@ def _lsb_rate(got, want) -> float:
     return float((d != 0).mean()) if d.size else 0.0
 
 
+def _chip_smoke():
+    """This checkout's chip_smoke (a parent tree's may lack what the
+    timings use), on the tree's package imported before."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(vs_parent.REPO, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke
+
+
 def granule_alone(tmp: str, dev, sha: dict, label: str,
                   out_dir: str) -> dict:
     """K2 alone on the song's two planes and the synthetic prep in both
@@ -85,12 +108,7 @@ def granule_alone(tmp: str, dev, sha: dict, label: str,
     from mp3stego_tpu_torch.bitstream import decoder_host as dh
     from mp3stego_tpu_torch.ops import _cuda
     from mp3stego_tpu_torch.ops import decode_plane as dp
-    # this checkout's chip_smoke (a parent tree's may lack K2_INSTANCES), on
-    # the tree's package imported above
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(vs_parent.REPO, "chip_smoke.py"))
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    chip_smoke = _chip_smoke()
     with open(os.path.join(tmp, "song.mp3"), "rb") as f:
         prep = dp.prep_to_torch(dp.host_prepare(dh.parse_mp3(f.read())), dev)
     preps = {"song, int8 plane": prep,
@@ -148,17 +166,96 @@ def granule_alone(tmp: str, dev, sha: dict, label: str,
     return dict(ms=ms, bound=bound, kernels=kernels)
 
 
+SCAN_INPUTS = ("song", "song, 256 bits flipped", "mono 30 s")
+
+
+def _scan_file(tmp: str, name: str, part: str) -> str:
+    return os.path.join(tmp, f"scan_{SCAN_INPUTS.index(name)}_{part}.npy")
+
+
+def scan_alone(tmp: str, dev, sha: dict, label: str, out_dir: str) -> dict:
+    """The Huffman bit-scan kernel alone on the song's lanes, the bit-flipped
+    song's and the mono stream's: the ms and bound of each, the chain alone
+    (where the tree has ``scan_chain``), the kernel's resources and warps an
+    SM, and its SASS (written into ``out_dir``) with each loop's loads; each
+    plane's digest goes into ``sha``."""
+    import shutil
+    import subprocess
+    import numpy as np
+    import torch
+    import encode_vs_parent as evp
+    from mp3stego_tpu_torch.ops import _cuda
+    from mp3stego_tpu_torch.ops import huffman_device as hd
+    chip_smoke = _chip_smoke()
+    ms, chain_ms, bound = {}, {}, {}
+    for name in SCAN_INPUTS:
+        words, fields = (torch.from_numpy(np.load(_scan_file(tmp, name, p)))
+                         .to(dev) for p in ("words", "fields"))
+        fn = (lambda w=words, f=fields: hd.decode_samples(w, f))
+        out = fn()
+        sha[f"scan {name}"] = hashlib.sha256(
+            out.cpu().numpy().tobytes()).hexdigest()
+        ms[name] = evp._card_ms(fn)
+        if hasattr(hd, "scan_chain"):
+            chain_ms[name] = evp._card_ms(
+                lambda w=words, f=fields: hd.scan_chain(w, f))
+        bound[name] = chip_smoke.huffman_bound(fields, words, out)[:2]
+    info = _cuda.builds["huffman"]
+    kern = next(k for k in (chip_smoke.SCAN_KERNEL, "huffman_scan_kernelILb1",
+                              "huffman_scan_kernel")
+                if k in info["log"])
+    res = _cuda.ptxas_resources("huffman", kern)
+    if hasattr(hd, "occupancy"):
+        occ = dict(hd.occupancy(dev), source="the runtime's query")
+    else:
+        occ = dict(ctas=evp._estimate_ctas(res["registers"], res["smem"],
+                                           128),
+                   warps=4, smem=0, source="estimated from ptxas")
+    row = dict(res, ctas=occ["ctas"], warps=occ["warps"],
+               dynamic_smem=occ["smem"], source=occ["source"],
+               resident_warps=occ["ctas"] * occ["warps"])
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    r = subprocess.run([tool, "-sass", info["path"]], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode == 0:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, f"scan_{label}.sass"), "w") as f:
+            f.write(r.stdout)
+        loops = evp.sass_loops(r.stdout, kern)
+        row["instructions"] = loops["instructions"]
+        row["loops"] = [{k: lp[k] for k in ("first", "last", "instructions",
+                                            "loads", "opcodes")}
+                        for lp in loops["loops"]]
+        # the pair loop, one codeword an iteration: the loop that holds
+        # the most instructions
+        top = max(loops["loops"], key=lambda lp: lp["instructions"],
+                  default=None)
+        if top:
+            row["loads_a_codeword"] = top["loads"]
+            row["pair_loop_instructions"] = top["instructions"]
+    else:
+        row["sass_error"] = (r.stdout + r.stderr)[-2000:]
+    return dict(ms=ms, chain_ms=chain_ms, bound=bound, kernel=row)
+
+
 def worker(root: str, tmp: str, alone: bool = False,
-           out_dir: str = "") -> dict:
+           out_dir: str = "", only: str = None) -> dict:
     """Times every decode path of the tree at ``root`` on the card, and the
-    float32 decode on the CPU; ``alone``: K2 alone only."""
+    float32 decode on the CPU; ``alone``: the kernels alone only, the scan
+    and K2 (``only`` one of them)."""
     vs_parent.import_tree(root)
     if alone:
         import torch
         sha = {}
-        k2 = granule_alone(tmp, torch.device("cuda"), sha,
-                           os.path.basename(os.path.abspath(root)), out_dir)
-        return dict(root=root, walls_ms={}, sha=sha, granule_alone=k2)
+        label = os.path.basename(os.path.abspath(root))
+        dev = torch.device("cuda")
+        out = dict(root=root, walls_ms={}, sha=sha)
+        if only != "granule":
+            out["scan_alone"] = scan_alone(tmp, dev, sha, label, out_dir)
+        if only != "scan":
+            out["granule_alone"] = granule_alone(tmp, dev, sha, label,
+                                                 out_dir)
+        return out
     import numpy as np
     import torch
     from mp3stego_tpu_torch import Steganography
@@ -250,8 +347,10 @@ def worker(root: str, tmp: str, alone: bool = False,
                 device_plane_ms=plane_ms, f32_lsb_rates=rates, sha=sha)
 
 
-def _write_inputs(tmp: str) -> None:
-    """The song, the 32 batch files and the list of their paths."""
+def _write_inputs(tmp: str, alone) -> None:
+    """The song; with ``alone`` (True, or the kernel of --only) also the
+    bit-scan's lanes (``SCAN_INPUTS``) unless it is "granule", else the 32
+    batch files and the list of their paths."""
     import numpy as np
     sys.path.insert(0, vs_parent.REPO)
     from mp3stego_tpu_torch.bitstream import decoder_host as dh
@@ -260,6 +359,10 @@ def _write_inputs(tmp: str) -> None:
     song_b = (mp3.tobytes() + b"\0") * SONG_COPIES
     with open(os.path.join(tmp, "song.mp3"), "wb") as f:
         f.write(song_b)
+    if alone:
+        if alone != "granule":
+            _write_scan_inputs(tmp, song_b)
+        return
     parsed = dh.parse_mp3(song_b)
     ends = np.cumsum(np.asarray(parsed.frame_sizes, np.int64))
     span = parsed.num_frames - SLICE_FRAMES
@@ -283,28 +386,65 @@ def _write_inputs(tmp: str) -> None:
         json.dump(paths, f)
 
 
+def _write_scan_inputs(tmp: str, song_b: bytes) -> None:
+    """The bit-scan's lanes (``huffman_device.pack``) of the song, of
+    ``chip_smoke.flipped_song`` and of ``chip_smoke.mono_pcm`` encoded at
+    128 kbps by the host C++ engine, as .npy files."""
+    import numpy as np
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    from mp3stego_tpu_torch.ops import huffman_device as hd
+    from mp3stego_tpu_torch.utils.wav import write_wav
+    chip_smoke = _chip_smoke()
+    wav = os.path.join(tmp, "mono.wav")
+    write_wav(wav, 44100, chip_smoke.mono_pcm())
+    streams = (song_b, chip_smoke.flipped_song(song_b),
+               chip_smoke._encode_bytes(wav, "cpu", kbps=128, host=True)[0])
+    for name, data in zip(SCAN_INPUTS, streams):
+        for part, a in zip(("words", "fields"),
+                           hd.pack(dh.parse_mp3_light(data)[1])):
+            np.save(_scan_file(tmp, name, part), a)
+
+
 def main() -> int:
     args = vs_parent.parse_args(__doc__, "decode_vs_parent.json",
-                                alone=True)
+                                alone=True, only=("scan", "granule"))
     if args.worker:
         print(json.dumps(worker(args.worker, args.tmp, args.alone,
-                                os.path.dirname(args.out))))
+                                os.path.dirname(args.out), args.only)))
         return 0
     if args.alone:
-        card, runs, med = vs_parent.compare(__file__, args, _write_inputs)
-        k2 = {}
-        for which in ("parent", "change"):
-            mine = [r["granule_alone"] for r in runs if r["tree"] == which]
-            for key, (bound, by) in mine[0]["bound"].items():
-                times = sorted(r["ms"][key] for r in mine)
-                k2.setdefault(key, dict(bound_ms=bound, bound_by=by))[which] \
-                    = dict(ms=times, share_of_bound=[bound / t for t in times])
-        vs_parent.write(args.out, card, runs, med, granule_alone=k2,
-                        granule_build={r["tree"]: r["granule_alone"]["kernels"]
-                                       for r in runs[::-1]})
+        card, runs, med = vs_parent.compare(
+            __file__, args, lambda tmp: _write_inputs(tmp, args.only or True))
+        shown = {}
+        if args.only != "granule":
+            scan = {}
+            for which in ("parent", "change"):
+                mine = [r["scan_alone"] for r in runs if r["tree"] == which]
+                for key, (bound, by) in mine[0]["bound"].items():
+                    scan.setdefault(key, dict(bound_ms=bound, bound_by=by))[
+                        which] = dict(
+                            ms=sorted(r["ms"][key] for r in mine),
+                            chain_ms=sorted(r["chain_ms"][key] for r in mine
+                                            if key in r["chain_ms"]))
+            shown.update(scan_alone=scan, scan_build={
+                r["tree"]: {k: v for k, v in r["scan_alone"]["kernel"].items()
+                            if k != "loops"} for r in runs[::-1]})
+        if args.only != "scan":
+            k2 = {}
+            for which in ("parent", "change"):
+                mine = [r["granule_alone"] for r in runs
+                        if r["tree"] == which]
+                for key, (bound, by) in mine[0]["bound"].items():
+                    times = sorted(r["ms"][key] for r in mine)
+                    k2.setdefault(key, dict(bound_ms=bound, bound_by=by))[
+                        which] = dict(ms=times, share_of_bound=[
+                            bound / t for t in times])
+            shown.update(granule_alone=k2, granule_build={
+                r["tree"]: r["granule_alone"]["kernels"] for r in runs[::-1]})
+        vs_parent.write(args.out, card, runs, med, **shown)
         return 0
     card, runs, med = vs_parent.compare(
-        __file__, args, _write_inputs, same_bytes=[
+        __file__, args, lambda tmp: _write_inputs(tmp, False), same_bytes=[
             "decode, float64", "batched decode, float64",
             "streaming decode, float64"])
     for r in runs:

@@ -29,11 +29,11 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def parse_args(doc: str, record: str,
-               alone: bool = False) -> argparse.Namespace:
+def parse_args(doc: str, record: str, alone: bool = False,
+               only: tuple = ()) -> argparse.Namespace:
     """--parent DIR, --change DIR (default this checkout), --out (default
     ``chiprun_out/<record>``), with ``alone`` the --alone switch, and the
-    hidden worker arguments."""
+    hidden worker arguments; with ``only`` (kernel names) --only KERNEL."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--parent", required=True,
                     help="a copy of the parent commit's tree")
@@ -45,6 +45,9 @@ def parse_args(doc: str, record: str,
     if alone:
         ap.add_argument("--alone", action="store_true",
                         help="time only the kernels alone, no path walls")
+    if only:
+        ap.add_argument("--only", choices=only,
+                        help="with --alone, time this kernel alone only")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--tmp", help=argparse.SUPPRESS)
     return ap.parse_args()
@@ -79,7 +82,9 @@ def compare(script: str, args: argparse.Namespace, prepare,
             r = subprocess.run(
                 [sys.executable, os.path.abspath(script), "--parent",
                  trees["parent"], "--worker", trees[which], "--tmp", tmp]
-                + (["--alone"] if getattr(args, "alone", False) else []),
+                + (["--alone"] if getattr(args, "alone", False) else [])
+                + (["--only", args.only] if getattr(args, "only", None)
+                   else []),
                 capture_output=True, text=True, timeout=1200,
                 cwd=trees[which])
             if r.returncode != 0:
