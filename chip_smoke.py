@@ -19,7 +19,10 @@ reveal it, clear it; a batched decode of 32 files in both precisions and a
 batched encode of 9; a VBR encode and the streaming decode and encode of the
 song, the encode's windows on the card, clear and hidden; hide, reveal and a
 streaming decode through the CLI; the song's decode and reveal with the
-device Huffman engine), checks every output against the bit-exact host
+device Huffman engine; the mesh: the song's frame-sharded decode over 2, 4
+and 8 shards, K1 after a halo, and the batches on a 4-entry ``files``
+mesh, on the visible cards in turn or on repeated entries of one card),
+checks every output against the bit-exact host
 planes, the single-file paths and the goldens, and times it. Each main path
 runs with every kernel's launch count set to 0 just before it and read just
 after; a path that launched none of its kernels fails. Every phase raises on
@@ -308,11 +311,11 @@ class Paths:
 
 
 def hold(name: str, blk: torch.Tensor, out: str, channels: int,
-         errs: dict) -> None:
-    """The kernel against its plain version on ``blk``, bit for bit; the
-    largest difference goes into ``errs[dtype]``."""
-    got = sf.synth_fused(blk, out, channels)
-    want = sf.synth_fused_torch(blk, out, channels)
+         errs: dict, halo: torch.Tensor = None) -> None:
+    """The kernel against its plain version on ``blk`` (after ``halo``),
+    bit for bit; the largest difference goes into ``errs[dtype]``."""
+    got = sf.synth_fused(blk, out, channels, halo)
+    want = sf.synth_fused_torch(blk, out, channels, halo)
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} vs the "
@@ -851,10 +854,11 @@ def _frame_slice(data: bytes, parsed, first: int, count: int) -> bytes:
 
 def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
                  enc_out: dict, s64: Steganography, runs: Paths,
-                 errs: dict) -> None:
+                 errs: dict) -> dict:
     """Phases 12-15 and the CLI round trip: the batched decode (K1 over the
     (file, channel) rows of each chunk) in float32 and float64, the batched
-    encode, VBR, and the streaming decode and encode of the song."""
+    encode, VBR, and the streaming decode and encode of the song. Returns
+    the batches and their outputs (phase 19 runs them on a mesh)."""
     from mp3stego_tpu_torch.bitstream import vbr
     from mp3stego_tpu_torch.models.streaming import decode_file_streaming
     from mp3stego_tpu_torch.parallel import (
@@ -896,9 +900,9 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     # plain version, bit for bit, in both epilogues
     synth, blks = dp.synth_fused, []
 
-    def synth_copy(blk, out="float", channels=1):
+    def synth_copy(blk, out="float", channels=1, halo=None):
         blks.append((blk.clone(), channels))
-        return synth(blk, out, channels)
+        return synth(blk, out, channels, halo)
 
     dp.synth_fused = synth_copy
     try:
@@ -927,7 +931,6 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
         if got64.shape != want.shape or not np.array_equal(got64, want):
             raise AssertionError(f"batched float64 decode of {p} != its host "
                                  f"float64 decode")
-    del floats, i16_64
     i16 = runs.run("batched decode, float32 int16", F32,
                     lambda: decode_files_batched(paths, out="int16",
                                                  device=dev))
@@ -949,6 +952,7 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
                                            out="int16", device=dev))
     wall, walls, _ = _median3(
         lambda: decode_files_batched(paths, out="int16", device=dev))
+    wall_i16 = wall
     wall64, walls64, _ = _median3(
         lambda: decode_files_batched(paths, dtype="float64", out="int16",
                                      device=dev))
@@ -1001,6 +1005,9 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
                             f"{[round(x * 1e3, 1) for x in walls]} -> "
                             f"{enc_audio / wall:.1f}x realtime; one file at a "
                             f"time {single_s * 1e3:.1f} ms")
+    batches = dict(paths=paths, metas=metas, chunks=len(chunks),
+                   floats=floats, i16_64=i16_64, i16_wall=wall_i16,
+                   jobs=jobs, enc_bytes=singles, enc_wall=wall)
 
     # ---- phase 14: VBR encode of the song at 128 kbps average
     wall, walls, outs = runs.run("VBR encode", None, lambda: _median3(
@@ -1096,6 +1103,164 @@ def batch_phases(dev, card: str, tmp: str, song: str, wav64: str,
     _say("15 cli", "python -m mp3stego_tpu_torch hide -> reveal gives the "
                    "message back; decode --stream-chunk-frames 7 writes the "
                    "façade's WAV")
+    return batches
+
+
+def mesh_entries(n: int) -> list:
+    """n mesh entries: the visible cards in turn when there are at least 2,
+    else n entries of cuda:0 (n logical shards on one card)."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", k % count if count >= 2 else 0)
+            for k in range(n)]
+
+
+def _synced_ms(fn, devices: list, iters: int = 10) -> float:
+    """ms a call of ``fn`` over ``iters`` calls after a warm-up, each
+    device synchronised before and after (a mesh that spans cards has no
+    single stream for CUDA events)."""
+    fn()
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def mesh_phase(card: str, tmp: str, song: str, batches: dict, runs: Paths,
+               errs: dict) -> None:
+    """Phase 19, the mesh (``mp3stego_tpu_torch.parallel``): K1 after a
+    seeded halo bit for bit its plain version; the song's frame-sharded
+    decode at 2, 4 and 8 shards in both dtypes bit for bit the unsharded
+    card decode, one K2 and one K1 launch a shard, timed beside it; the
+    phase-12 batch (and its first chunk as a stacked batch) and the
+    phase-13 encode on a 4-entry ``files`` mesh, equal to their outputs."""
+    from mp3stego_tpu_torch.parallel import (
+        batch_decode as BD, decode_files_batched, decode_granules_sharded,
+        encode_files_batched, frame_shard as FS, make_mesh, prepare_batch)
+    count = torch.cuda.device_count()
+    dev0 = torch.device("cuda", 0)
+    spread = (f"the {count} visible cards in turn" if count >= 2
+              else "repeated cuda:0, one card holding every shard")
+    _say("19 mesh", f"mesh entries: {spread}")
+
+    # K1 after a seeded two-granule halo, both dtypes and epilogues: one
+    # granule, odd counts around the tiles, a song's eighth
+    for dtype in (F32, F64):
+        for rows, t in ((2, 1), (2, 9), (4, 41), (2, SONG_T // 8)):
+            full = _seeded_blk(rows, t + 2, 19 * rows + t, dtype, dev0)
+            blk, halo = full[:, 2:].contiguous(), full[:, :2].contiguous()
+            for out in sf.OUTS:
+                hold("seeded halo", blk, out, 2, errs, halo)
+            longer = sf.synth_fused_torch(full)[:, 2:]
+            if not torch.equal(sf.synth_fused(blk, halo=halo), longer):
+                raise AssertionError(f"{dtype}: K1 after a halo != the "
+                                     f"longer rows less two granules")
+    _say("19 mesh", "K1 after a seeded halo bitwise equal to "
+                    "synth_fused_torch, float and int16, float32 and "
+                    f"float64, at (rows, T) (2, 1), (2, 9), (4, 41), (2, "
+                    f"{SONG_T // 8}), and to the longer rows' decode less "
+                    f"two granules")
+
+    # the song, sharded
+    with open(song, "rb") as f:
+        hp = dp.host_prepare(dh.parse_mp3(f.read()))
+    prep = dp.prep_to_torch(hp, dev0)
+    for dtype in (F64, F32):
+        name = "float32" if dtype == F32 else "float64"
+        whole = dp.decode_granules(prep, dtype).cpu().numpy()
+        times = []
+        for n in (2, 4, 8):
+            mesh = make_mesh(files=1, frames=n, devices=mesh_entries(n))
+            got = runs.run(f"sharded decode, {n} shards", dtype,
+                           lambda: decode_granules_sharded(hp, mesh, name))
+            if runs.last("granule") != n or runs.last() != n:
+                raise AssertionError(f"{n} shards: {runs.last('granule')} "
+                                     f"K2 and {runs.last()} K1 launches")
+            if got.shape != whole.shape or not np.array_equal(got, whole):
+                raise AssertionError(f"{name} song sharded over {n} != the "
+                                     f"unsharded card decode")
+            devs = list(mesh.devices[0])
+            preps = FS.shard_preps(hp, mesh)
+            plane_ms = _synced_ms(lambda: FS.shard_body(preps, dtype), devs)
+            wall, walls, _ = _median3(
+                lambda: decode_granules_sharded(hp, mesh, name))
+            times.append((n, plane_ms, wall, walls))
+            del preps
+        plane1 = _synced_ms(lambda: dp.decode_granules(prep, dtype), [dev0])
+        wall1, walls1, _ = _median3(lambda: dp.decode_granules(
+            dp.prep_to_torch(hp, dev0), dtype).cpu().numpy())
+        _say("19 mesh", f"{name} song ({hp['raw_i8'].shape[1]} granules) "
+                        f"sharded over 2, 4 and 8: bit for bit the "
+                        f"unsharded card decode, one K2 and one K1 launch "
+                        f"a shard")
+        _say("19 mesh", f"[{card}] {name}, {spread}: device half (K2 + "
+                        f"halo + K1, uploaded shards) unsharded "
+                        f"{plane1:.4f} ms; " + "; ".join(
+                            f"{n} shards {ms:.4f} ms" for n, ms, _, _
+                            in times))
+        _say("19 mesh", f"[{card}] {name} host prep -> PCM on the host, "
+                        f"median of 3: unsharded {wall1 * 1e3:.1f} ms of "
+                        f"{[round(w * 1e3, 1) for w in walls1]}; " + "; ".join(
+                            f"{n} shards {w * 1e3:.1f} ms of "
+                            f"{[round(x * 1e3, 1) for x in ws]}"
+                            for n, _, w, ws in times))
+    del prep
+
+    # the phase-12 batch and the phase-13 encode on 4 files entries
+    mesh = make_mesh(files=4, devices=mesh_entries(4))
+    paths, chunks = batches["paths"], batches["chunks"]
+    floats = runs.run("batched decode on a 4-entry mesh, float32", F32,
+                      lambda: decode_files_batched(paths, mesh))
+    if runs.last() != chunks or runs.last("granule") != chunks:
+        raise AssertionError(f"mesh batch: {runs.last()} K1 and "
+                             f"{runs.last('granule')} K2 launches for "
+                             f"{chunks} chunks")
+    i16_64 = runs.run("batched decode on a 4-entry mesh, float64 int16",
+                      F64, lambda: decode_files_batched(
+                          paths, mesh, "float64", out="int16"))
+    for p, a, b, c, d in zip(paths, floats, batches["floats"], i16_64,
+                             batches["i16_64"]):
+        if a.shape != b.shape or not np.array_equal(a, b) \
+                or c.shape != d.shape or not np.array_equal(c, d):
+            raise AssertionError(f"mesh batch decode of {p} != phase 12's")
+    del floats, i16_64
+    wall, walls, _ = _median3(lambda: decode_files_batched(
+        paths, mesh, out="int16"))
+    # the first chunk's files as a stacked batch over the mesh
+    idxs = BD._chunks(batches["metas"], 16)[0]
+    metas = [batches["metas"][i] for i in idxs]
+    batch = prepare_batch([dp.host_prepare(m) for m in metas])
+    planes = BD.decode_batch_device(batch, mesh).cpu().numpy()
+    for i, pcm in zip(idxs, BD._unpack(planes, batch, metas)):
+        if not np.array_equal(pcm, batches["floats"][i]):
+            raise AssertionError(f"stacked mesh decode of {paths[i]} != "
+                                 f"phase 12's")
+    del planes, batch
+    jobs = [(wav, out[:-4] + "_mesh.mp3") for wav, out in batches["jobs"]]
+    runs.run("batched encode on a 4-entry mesh", None,
+             lambda: encode_files_batched(jobs, mesh=mesh), kernels=ENCODE)
+    for (wav, out), want in zip(jobs, batches["enc_bytes"]):
+        with open(out, "rb") as f:
+            _expect_equal(f"mesh batched encode of {os.path.basename(wav)}",
+                          f.read(), want)
+    ewall, ewalls, _ = _median3(lambda: encode_files_batched(jobs,
+                                                             mesh=mesh))
+    _say("19 mesh", f"phase 12's {len(paths)} files on a 4-entry files "
+                    f"mesh, float32 float and float64 int16: bit for bit "
+                    f"phase 12 ({chunks} K2 and K1 launches); its first "
+                    f"chunk's {len(idxs)} files as a stacked batch over the "
+                    f"mesh bit for bit phase 12; phase 13's 9 encodes: "
+                    f"bytes equal phase 13's")
+    _say("19 mesh", f"[{card}] {spread}: float32 int16 batch wall median "
+                    f"{wall * 1e3:.1f} ms of "
+                    f"{[round(x * 1e3, 1) for x in walls]} (phase 12 "
+                    f"{batches['i16_wall'] * 1e3:.1f}); encode batch wall "
+                    f"median {ewall * 1e3:.1f} ms of "
+                    f"{[round(x * 1e3, 1) for x in ewalls]} (phase 13 "
+                    f"{batches['enc_wall'] * 1e3:.1f})")
 
 
 def streaming_encode_phase(dev, card: str, tmp: str, wav64: str,
@@ -2097,7 +2262,13 @@ def main() -> int:
         enc_out = encode_phases(dev, card, tmp, song, wav64, s64, s32, runs)
 
         # ---- phases 12-15: batched decode and encode, VBR, streaming, CLI
-        batch_phases(dev, card, tmp, song, wav64, enc_out, s64, runs, errs)
+        batches = batch_phases(dev, card, tmp, song, wav64, enc_out, s64,
+                               runs, errs)
+
+        # ---- phase 19: the mesh: K1 after a halo, the song sharded over
+        # 2, 4 and 8 shards, the phase-12 and -13 batches on 4 entries
+        mesh_phase(card, tmp, song, batches, runs, errs)
+        del batches
 
         # ---- phase 16: the device Huffman decode (the bit-scan kernel)
         huffman_row = huffman_phase(dev, card, tmp, song, enc_out, runs)

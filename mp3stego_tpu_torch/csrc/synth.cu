@@ -7,9 +7,12 @@
 // the JAX plane (mp3stego_tpu/ops/decode_plane.py::synth_from_blocks). Its
 // plain PyTorch version is mp3stego_tpu_torch/ops/synth.py::synth_fused_torch.
 //
-// Per row (one (file, channel) pair, from zero state), from the IMDCT blocks
-// blk (rows, T, 32, 36), C-contiguous:
-//   1. y[g][i][s] = blk[g][i][s] + blk[g-1][i][18+s]   (zeros for g = 0)
+// Per row (one (file, channel) pair), from the IMDCT blocks blk (rows, T, 32,
+// 36), C-contiguous, and an optional halo (rows, 2, 32, 36): the blocks of
+// granules -2 and -1 of each row, where a row continues a stream that began
+// before it (a time range of a frame-sharded decode); without one, granules
+// before 0 are zeros (the stream's start):
+//   1. y[g][i][s] = blk[g][i][s] + blk[g-1][i][18+s]
 //   2. y *= -1 where band i and sub-step s are both odd (frequency inversion)
 //   3. st[18g+s][i] = y[g][i][s]                        (step major)
 //   4. V[r][k] = sum_{i=0..31} st[r][i] * N[k][i]         (N: 64x32)
@@ -39,7 +42,10 @@
 // written close in time and meet in L2.
 //   A. cp.async copies granules g0-2 .. g0+G-1 of the row (contiguous in
 //      memory) into a shared slab; the FIR's 15 history steps live in g0-1,
-//      whose y needs g0-2's tail. Granules outside [0, T) are zeros.
+//      whose y needs g0-2's tail. Granules -2 and -1 come from the halo when
+//      there is one; other granules outside [0, T) are zeros. So the output
+//      of a row with a halo is bit for bit that of the row [halo | blk]
+//      from its start, less its first two granules.
 //   B. the overlap-add and sign build st (18(G+1) rows x 32) in shared memory.
 //   C. V for the tile's 18G steps and the 15 history steps, into shared
 //      memory over the dead slab; each thread keeps one column of N in
@@ -129,7 +135,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, Cfg<T>::kMinBlocks)
-synth_fused_kernel(const T* __restrict__ blk, const T* __restrict__ n_t,
+synth_fused_kernel(const T* __restrict__ blk, const T* __restrict__ halo,
+                   const T* __restrict__ n_t,
                    const T* __restrict__ window, void* __restrict__ out,
                    int64_t t_len, int out_i16, int channels, int wrap) {
   constexpr int G = Cfg<T>::G;
@@ -154,13 +161,17 @@ synth_fused_kernel(const T* __restrict__ blk, const T* __restrict__ n_t,
   const int64_t g0 = tile * G;
   const T* src = blk + row * t_len * kGranule;
 
-  // A. granules g0-2 .. g0+G-1 of this row; zeros outside [0, T)
+  // A. granules g0-2 .. g0+G-1 of this row; -2 and -1 from the halo if
+  // there is one, zeros elsewhere outside [0, T)
   for (int c = tid; c < slab_len<T>() / kVec; c += kThreads) {
     const int sg = c * kVec / kGranule;
     const int64_t g = g0 - 2 + sg;
+    const int off = c * kVec - sg * kGranule;
     T* dst = slab + c * kVec;
     if (g >= 0 && g < t_len) {
-      cp_async16(dst, src + g * kGranule + (c * kVec - sg * kGranule));
+      cp_async16(dst, src + g * kGranule + off);
+    } else if (g < 0 && halo != nullptr) {
+      cp_async16(dst, halo + (row * 2 + (g + 2)) * kGranule + off);
     } else {
 #pragma unroll
       for (int e = 0; e < kVec; ++e) dst[e] = T(0);
@@ -255,7 +266,8 @@ synth_fused_kernel(const T* __restrict__ blk, const T* __restrict__ n_t,
 }
 
 template <typename T>
-int launch(const void* blk, const void* n_t, const void* window, void* out,
+int launch(const void* blk, const void* halo, const void* n_t,
+           const void* window, void* out,
            int rows, long long t_len, int out_i16, int channels, int wrap,
            void* stream) {
   if (rows <= 0 || rows > 65535 || t_len <= 0 || channels <= 0
@@ -278,7 +290,8 @@ int launch(const void* blk, const void* n_t, const void* window, void* out,
                   static_cast<unsigned>(rows / channels));
   synth_fused_kernel<T><<<grid, kThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(blk), static_cast<const T*>(n_t),
+      static_cast<const T*>(blk), static_cast<const T*>(halo),
+      static_cast<const T*>(n_t),
       static_cast<const T*>(window), out, static_cast<int64_t>(t_len),
       out_i16, channels, wrap);
   return static_cast<int>(cudaGetLastError());
@@ -287,24 +300,25 @@ int launch(const void* blk, const void* n_t, const void* window, void* out,
 }  // namespace
 
 // Launch on `stream` and return cudaGetLastError() (0 = launched). Device
-// pointers: blk (rows, t_len, 32, 36), n_t = N transposed (32, 64), window
-// (16, 32), all of the entry's type and C-contiguous, blk 16-byte aligned;
-// out is (rows, t_len, 576) of that type when out_i16 == 0, else int16
-// (rows / channels, t_len * 576, channels). The caller allocates out.
-extern "C" int synth_fused_f32(const void* blk, const void* n_t,
-                               const void* window, void* out, int rows,
-                               long long t_len, int out_i16, int channels,
-                               int wrap, void* stream) {
-  return launch<float>(blk, n_t, window, out, rows, t_len, out_i16, channels,
-                       wrap, stream);
+// pointers: blk (rows, t_len, 32, 36), halo (rows, 2, 32, 36) or null (zeros
+// before granule 0), n_t = N transposed (32, 64), window (16, 32), all of
+// the entry's type and C-contiguous, blk and halo 16-byte aligned; out is
+// (rows, t_len, 576) of that type when out_i16 == 0, else int16 (rows /
+// channels, t_len * 576, channels). The caller allocates out.
+extern "C" int synth_fused_f32(const void* blk, const void* halo,
+                               const void* n_t, const void* window, void* out,
+                               int rows, long long t_len, int out_i16,
+                               int channels, int wrap, void* stream) {
+  return launch<float>(blk, halo, n_t, window, out, rows, t_len, out_i16,
+                       channels, wrap, stream);
 }
 
-extern "C" int synth_fused_f64(const void* blk, const void* n_t,
-                               const void* window, void* out, int rows,
-                               long long t_len, int out_i16, int channels,
-                               int wrap, void* stream) {
-  return launch<double>(blk, n_t, window, out, rows, t_len, out_i16, channels,
-                        wrap, stream);
+extern "C" int synth_fused_f64(const void* blk, const void* halo,
+                               const void* n_t, const void* window, void* out,
+                               int rows, long long t_len, int out_i16,
+                               int channels, int wrap, void* stream) {
+  return launch<double>(blk, halo, n_t, window, out, rows, t_len, out_i16,
+                        channels, wrap, stream);
 }
 
 // The tile of a launch, for the record: granules per CTA and dynamic shared

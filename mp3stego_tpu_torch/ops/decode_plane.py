@@ -1134,23 +1134,25 @@ def _imdct_stage(prep, x, dtype):
 
 
 def synth_from_blocks(blk: torch.Tensor, stages: dict = None,
-                      out: str = "float", channels: int = 1) -> torch.Tensor:
-    """Sequential half of the decode plane, from stream start: IMDCT
-    overlap-add -> frequency inversion -> polyphase synthesis, one fused
-    kernel over the rows of ``blk`` (rows, T, 32, 36) in its dtype
-    (``ops.synth.synth_fused``).
+                      out: str = "float", channels: int = 1,
+                      halo: torch.Tensor = None) -> torch.Tensor:
+    """Sequential half of the decode plane: IMDCT overlap-add -> frequency
+    inversion -> polyphase synthesis, one fused kernel over the rows of
+    ``blk`` (rows, T, 32, 36) in its dtype (``ops.synth.synth_fused``), from
+    stream start, or after ``halo`` (rows, 2, 32, 36), the blocks of the
+    two granules before granule 0 of each row (``parallel.frame_shard``).
 
     ``stages`` captures ``post_imdct`` and ``pre_synth`` as in
     ``decode_granules_np`` (computed beside the kernel, which keeps them in
     shared memory). Returns float PCM (rows, T, 576), or int16 (rows /
     channels, T * 576, channels) with ``out="int16"``."""
     if stages is not None:
-        post, pre = overlap_freqinv(blk)
+        post, pre = overlap_freqinv(blk, halo)
         rows, tt = blk.shape[0], blk.shape[1]
         stages["post_imdct"] = post.reshape(rows, tt, 576).clone()
         stages["pre_synth"] = pre.reshape(rows, tt, 576).clone()
     with record_function("synth"):
-        return synth_fused(blk, out, channels)
+        return synth_fused(blk, out, channels, halo)
 
 
 def decode_granules(prep: dict, dtype=torch.float32, stages: dict = None,

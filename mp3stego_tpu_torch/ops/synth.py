@@ -15,6 +15,15 @@ from zero state, in five steps (decoder/Frame.py:65-103, 624-631):
 
 then float PCM (rows, T, 576), or int16 interleaved per file (files, T*576,
 channels), saturated or (``tables.ref_pcm_wrap``) wrapped as ``to_i16``.
+
+A row need not start from zero state: ``halo`` (rows, 2, 32, 36) holds the
+blocks of the two granules before granule 0 of each row (a time range of a
+frame-sharded decode, ``parallel.frame_shard``). Granule -2's tail and
+granule -1 carry all the state a row has: granule 0's overlap-add reads
+granule -1's tail, and the FIR's 15 history steps are granule -1's last 15
+V rows, whose ``y`` is granule -1's head plus granule -2's tail. So the PCM
+is bit for bit that of the row ``[halo | blk]`` from zero state, less its
+first two granules.
 Both sums run in ascending order from +0, every product and sum rounded on
 its own: the float64 NumPy plane's order (``decode_granules_np``).
 
@@ -43,9 +52,11 @@ launches = 0
 MAX_ROWS = 65535
 OUTS = ("float", "int16")
 
-_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p)
+# blk, halo (or None), N transposed, the window, out; rows, T, out_i16,
+# channels, wrap; the stream
+_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int, ctypes.c_longlong,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p)
 _SIGNATURES = {
     "synth_fused_f32": (ctypes.c_int, _ARGS),
     "synth_fused_f64": (ctypes.c_int, _ARGS),
@@ -67,7 +78,7 @@ def _tables(dtype: torch.dtype, device: torch.device):
             inv.to(dtype=dtype, device=device))
 
 
-def _check(blk: torch.Tensor, out: str, channels: int):
+def _check(blk: torch.Tensor, out: str, channels: int, halo=None):
     if blk.dim() != 4 or blk.shape[2:] != (32, 36) or blk.shape[0] < 1 \
             or blk.shape[1] < 1:
         raise ValueError(f"synth_fused wants blk (rows, T >= 1, 32, 36), got "
@@ -80,6 +91,12 @@ def _check(blk: torch.Tensor, out: str, channels: int):
     if blk.dtype not in _ENTRY:
         raise ValueError(f"synth_fused takes float32 or float64, got "
                          f"{blk.dtype}")
+    if halo is not None and (
+            tuple(halo.shape) != (blk.shape[0], 2, 32, 36)
+            or halo.dtype != blk.dtype or halo.device != blk.device):
+        raise ValueError(f"the halo must be ({blk.shape[0]}, 2, 32, 36) "
+                         f"{blk.dtype} on {blk.device}, got "
+                         f"{tuple(halo.shape)} {halo.dtype} on {halo.device}")
 
 
 def ascending_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -92,11 +109,14 @@ def ascending_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def overlap_freqinv(blk: torch.Tensor):
+def overlap_freqinv(blk: torch.Tensor, halo: torch.Tensor = None):
     """Steps 1 and 2: (y after the overlap-add, y after the frequency
-    inversion), each (rows, T, 32, 18)."""
+    inversion), each (rows, T, 32, 18). Granule 0 adds the tail of the
+    last granule of ``halo`` (rows, H, 32, 36), or zeros without one."""
     tail = blk[..., 18:]
-    prev = torch.cat([torch.zeros_like(tail[:, :1]), tail[:, :-1]], dim=1)
+    first = torch.zeros_like(tail[:, :1]) if halo is None \
+        else halo[:, -1:, :, 18:]
+    prev = torch.cat([first, tail[:, :-1]], dim=1)
     y = blk[..., :18] + prev
     return y, y * _tables(blk.dtype, blk.device)[2]
 
@@ -132,20 +152,32 @@ def interleave_i16(pcm: torch.Tensor, channels: int) -> torch.Tensor:
         .transpose(1, 2).contiguous()
 
 
+def _synth_v(y: torch.Tensor) -> torch.Tensor:
+    """Steps 3 and 4: inverted y (rows, T, 32, 18) -> V (rows, 18T, 64)."""
+    rows, tt = y.shape[0], y.shape[1]
+    st = y.transpose(2, 3).reshape(rows, tt * 18, 32)
+    return ascending_matmul(st, _tables(y.dtype, y.device)[0])
+
+
 def synth_fused_torch(blk: torch.Tensor, out: str = "float",
-                      channels: int = 1) -> torch.Tensor:
+                      channels: int = 1, halo: torch.Tensor = None
+                      ) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel, in ``blk``'s dtype and on
-    its device: the five steps as eager ops in the kernel's order."""
-    _check(blk, out, channels)
+    its device: the five steps as eager ops in the kernel's order. With a
+    ``halo`` the overlap-add of granule 0 reads its tail and the FIR's
+    history is granule -1's V (zeros without one)."""
+    _check(blk, out, channels, halo)
     rows, tt = blk.shape[0], blk.shape[1]
-    n_t = _tables(blk.dtype, blk.device)[0]
     with record_function("overlap_freqinv"):
-        y = overlap_freqinv(blk)[1]
+        y = overlap_freqinv(blk, halo)[1]
+        if halo is not None:
+            y_prev = overlap_freqinv(halo[:, 1:], halo[:, :1])[1]
     with record_function("synth_v"):
-        st = y.transpose(2, 3).reshape(rows, tt * 18, 32)
-        v = ascending_matmul(st, n_t)                        # (rows, 18T, 64)
+        v = _synth_v(y)                                      # (rows, 18T, 64)
+        history = v.new_zeros((rows, 15, 64)) if halo is None \
+            else _synth_v(y_prev)[:, 3:]
     with record_function("synth_fir"):
-        v_ext = torch.cat([v.new_zeros((rows, 15, 64)), v], dim=1)
+        v_ext = torch.cat([history, v], dim=1)
         pcm = synth_fir_torch(v_ext, tt * 18).reshape(rows, tt, 576)
     return pcm if out == "float" else interleave_i16(pcm, channels)
 
@@ -162,24 +194,27 @@ def tile(dtype: torch.dtype) -> tuple:
 
 
 def synth_fused(blk: torch.Tensor, out: str = "float",
-                channels: int = 1) -> torch.Tensor:
+                channels: int = 1, halo: torch.Tensor = None) -> torch.Tensor:
     """(rows, T, 32, 36) IMDCT blocks -> float PCM (rows, T, 576), or int16
-    (rows / channels, T * 576, channels) with ``out="int16"``.
+    (rows / channels, T * 576, channels) with ``out="int16"``; ``halo``
+    (rows, 2, 32, 36), the blocks of granules -2 and -1 of each row, or
+    None for rows that start their stream.
 
     On a CUDA tensor (float32 or float64, C-contiguous, 16-byte aligned, at
-    most ``MAX_ROWS`` rows) this launches the hand-written kernel on the
-    current stream; anything else on the card raises. A CPU tensor takes
-    ``synth_fused_torch``."""
+    most ``MAX_ROWS`` rows, the halo likewise) this launches the
+    hand-written kernel on the current stream; anything else on the card
+    raises. A CPU tensor takes ``synth_fused_torch``."""
     global launches
-    _check(blk, out, channels)
+    _check(blk, out, channels, halo)
     if blk.device.type == "cpu":
-        return synth_fused_torch(blk, out, channels)
+        return synth_fused_torch(blk, out, channels, halo)
     if blk.device.type != "cuda":
         raise ValueError(f"synth_fused runs on CPU or CUDA tensors, got "
                          f"{blk.device}")
-    if not blk.is_contiguous() or blk.data_ptr() % 16:
-        raise ValueError("the CUDA synth_fused takes a C-contiguous, 16-byte "
-                         "aligned blk")
+    for name, t in (("blk", blk), ("halo", halo)):
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"the CUDA synth_fused takes a C-contiguous, "
+                             f"16-byte aligned {name}")
     rows, tt = blk.shape[0], blk.shape[1]
     if rows > MAX_ROWS:
         raise ValueError(f"{rows} (file, channel) rows exceed the synthesis "
@@ -195,7 +230,8 @@ def synth_fused(blk: torch.Tensor, out: str = "float",
     stream = torch.cuda.current_stream(blk.device).cuda_stream
     with torch.cuda.device(blk.device):
         rc = getattr(lib, _ENTRY[blk.dtype])(
-            blk.data_ptr(), n_t.data_ptr(), d.data_ptr(), res.data_ptr(),
+            blk.data_ptr(), None if halo is None else halo.data_ptr(),
+            n_t.data_ptr(), d.data_ptr(), res.data_ptr(),
             rows, tt, int(out == "int16"), channels, int(T.ref_pcm_wrap()),
             stream)
     if rc != 0:

@@ -17,13 +17,19 @@ Chunks group files of one samplerate (the walk and reorder tables are per
 samplerate) and come back in input order. The files are parsed on a thread
 pool first; while the card decodes chunk k, a worker thread prepares and
 stacks chunk k+1 into pinned host memory, and the PCM of chunk k goes back
-to pinned host memory on a side CUDA stream.
+to pinned host memory on a side CUDA stream of its device.
+
+With a ``mesh`` (``parallel.make_mesh``) the chunks go round-robin over the
+devices of its ``files`` axis (its ``frames`` axis is not used here, as in
+the JAX package), each device with its own side stream; the output is bit
+for bit the output without one. ``prepare_batch`` and
+``decode_batch_device`` are the JAX package's stacked file-axis layout
+(files, ...) and its decode, the file axis split into one contiguous group
+per ``files`` device, each group a concat batch there.
 
 On the card the device plane always runs. The JAX package's host-plane
-auto-select (``utils/calibrate.py``, which weighs the TPU's host link) and
-its stacked file-axis layout for sharding over a TPU mesh are not ported
-(ROADMAP.md queue 1.7 and 1.8): ``mesh`` is taken in the JAX package's
-place, and only None.
+auto-select (``utils/calibrate.py``, which weighs the TPU's host link) is
+not ported (ROADMAP.md queue 1.7).
 """
 
 import os
@@ -35,10 +41,123 @@ import torch
 from mp3stego_tpu_torch.bitstream import decoder_host as dh
 from mp3stego_tpu_torch.bitstream.id3 import parse_id3
 from mp3stego_tpu_torch.ops import decode_plane as dp
+from mp3stego_tpu_torch.parallel.mesh import check_mesh
 
 # host threads for parsing and preparing files
 _WORKERS = min(8, os.cpu_count() or 1)
 OUTS = ("float", "int16")
+# the stacked layout's escape padding: a granule index past any file
+_EXC_PAD_T = 1 << 28
+
+
+def prepare_batch(preps: list, t_pad_to: int = 1) -> dict:
+    """Stack per-file ``host_prepare`` dicts into one padded batch with a
+    file axis in front: (files, 2, T, ...) for ``T_AXIS1_KEYS``, (files, T,
+    ...) for ``T_AXIS0_KEYS``, (files, E) escapes padded with
+    ``_EXC_PAD_T`` (the others with 0), the constants stacked (files, ...),
+    plus ``lengths`` and ``num_files``. Padded granules carry raw 0 and
+    decode to silence; ``t_pad_to`` rounds T up to a multiple. Array for
+    array the JAX package's ``prepare_batch``."""
+    if not preps:
+        raise ValueError("prepare_batch: no files to batch")
+    n = len(preps)
+    t_max = max(p["raw_i8"].shape[1] for p in preps)
+    t_max += (-t_max) % max(1, t_pad_to)
+
+    def stack(key, axis):
+        shape = list(preps[0][key].shape)
+        shape[axis] = t_max
+        out = np.zeros([n] + shape, dtype=preps[0][key].dtype)
+        for i, p in enumerate(preps):
+            idx = [i] + [slice(None)] * p[key].ndim
+            idx[1 + axis] = slice(0, p[key].shape[axis])
+            out[tuple(idx)] = p[key]
+        return out
+
+    batch = {k: stack(k, 1) for k in dp.T_AXIS1_KEYS}
+    batch.update({k: stack(k, 0) for k in dp.T_AXIS0_KEYS})
+    e_max = max(1, max(len(p["exc_t"]) for p in preps))
+    for k in dp.EXC_KEYS:
+        out = np.full((n, e_max), _EXC_PAD_T if k == "exc_t" else 0,
+                      dtype=preps[0][k].dtype)
+        for i, p in enumerate(preps):
+            out[i, :len(p[k])] = p[k]
+        batch[k] = out
+    batch.update({k: np.stack([p[k] for p in preps]) for k in dp.CONST_KEYS})
+    batch["lengths"] = np.array([p["raw_i8"].shape[1] for p in preps])
+    batch["num_files"] = n
+    return batch
+
+
+def _concat_of_stacked(batch: dict, a: int, b: int) -> dict:
+    """Files ``[a, b)`` of a stacked batch (one set of constants) as one
+    concat prep: file i's granules at ``(i - a) * T``, its escapes shifted
+    alike and indexed (``index_escapes``)."""
+    f, t = b - a, batch["raw_i8"].shape[2]
+    prep = {}
+    for k in dp.T_AXIS1_KEYS:
+        x = batch[k][a:b]
+        prep[k] = np.ascontiguousarray(np.moveaxis(x, 0, 1)).reshape(
+            (x.shape[1], f * t) + x.shape[3:])
+    for k in dp.T_AXIS0_KEYS:
+        x = batch[k][a:b]
+        prep[k] = x.reshape((f * t,) + x.shape[2:])
+    exc_t = batch["exc_t"][a:b]
+    keep = exc_t < t
+    prep["exc_t"] = (exc_t.astype(np.int64)
+                     + np.arange(f)[:, None] * t)[keep].astype(np.int32)
+    for k in ("exc_ch", "exc_s", "exc_val"):
+        prep[k] = batch[k][a:b][keep]
+    prep.update({k: batch[k][a] for k in dp.CONST_KEYS})
+    return dp.index_escapes(prep)
+
+
+def _constant_runs(batch: dict, a: int, b: int) -> list:
+    """Files ``[a, b)`` as maximal runs that share the constant tables (one
+    samplerate each)."""
+    runs = [[a, a + 1]]
+    for i in range(a + 1, b):
+        if all(np.array_equal(batch[k][i], batch[k][runs[-1][0]])
+               for k in dp.CONST_KEYS):
+            runs[-1][1] = i + 1
+        else:
+            runs.append([i, i + 1])
+    return runs
+
+
+def decode_batch_device(batch: dict, mesh=None, dtype: str = "float32",
+                        to_i16: bool = False, device=None) -> torch.Tensor:
+    """Decode a stacked batch (``prepare_batch``): (files, 2, T, 576) float
+    PCM in ``dtype``, or with ``to_i16`` the WAV's int16 samples in the same
+    layout, on the first device of the mesh (or on ``device``).
+
+    The file axis is split into contiguous groups, one per device of the
+    mesh's ``files`` axis: F files over n devices give groups of ``ceil(F /
+    n)``, the JAX package's ``_pad_files`` split (the padding files are not
+    decoded: they come back nowhere). Each group runs on its device as one
+    concat batch, one K2 and one K1 launch (one each per run of files of one
+    samplerate). ``mesh`` None runs one group on ``device`` (None: CUDA)."""
+    devs = [dp.resolve_device(device)] if mesh is None \
+        else list(check_mesh(mesh, device).devices[:, 0])
+    if dtype not in dp.DTYPES:
+        raise ValueError(f"dtype must be one of {tuple(dp.DTYPES)}, got "
+                         f"{dtype!r}")
+    n, t = batch["num_files"], batch["raw_i8"].shape[2]
+    per = -(-n // len(devs))
+    outs = []
+    for i, dev in enumerate(devs):
+        if i * per >= n:
+            break
+        for a, b in _constant_runs(batch, i * per, min(n, (i + 1) * per)):
+            prep = _concat_of_stacked(batch, a, b)
+            args = {k: torch.from_numpy(np.ascontiguousarray(prep[k])).to(dev)
+                    for k in dp.TORCH_KEYS}
+            pcm = dp.decode_granules(args, dp.DTYPES[dtype], files=b - a,
+                                     out="int16" if to_i16 else "float")
+            pcm = pcm.reshape(b - a, t, 576, 2).permute(0, 3, 1, 2) \
+                if to_i16 else pcm.reshape(b - a, 2, t, 576)
+            outs.append(pcm.to(devs[0]))
+    return torch.cat(outs)
 
 
 def prepare_batch_concat(preps: list) -> dict:
@@ -93,15 +212,6 @@ def _read_parsed(path: str):
     return parsed
 
 
-def _refuse_mesh(mesh) -> None:
-    """The batched entry points take the JAX package's ``mesh`` argument,
-    but shard over no mesh yet: any mesh but None raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the batched entry points run on one card: pass mesh=None (a "
-            "mesh over several cards is ROADMAP.md queue 1.8)")
-
-
 def decode_files_batched(paths: list, mesh=None, dtype: str = "float32",
                          errors: str = "raise", out: str = "float",
                          device=None, chunk_files: int = 16) -> list:
@@ -112,20 +222,22 @@ def decode_files_batched(paths: list, mesh=None, dtype: str = "float32",
 
     The arguments up to ``out`` are the JAX package's, in its order.
 
-    :param mesh: the JAX package's device mesh; only None (one card) is
-        taken here, any other raises ``NotImplementedError``.
+    :param mesh: a ``parallel.make_mesh`` mesh: chunks go round-robin over
+        its ``files`` devices; None runs them on ``device``. Any other
+        object raises ``TypeError``.
     :param dtype: the plane's float type, "float32" or "float64" (the
         bit-exact plane: its int16 equals each file's host decode).
     :param errors: "raise" propagates the first file that fails to parse;
         "isolate" decodes the others and puts the exception in its slot.
     :param out: "float" PCM, or "int16" WAV samples converted on the device
         (half the bytes back to the host).
-    :param device: the plane's device; None means CUDA (a missing card
-        raises).
+    :param device: the plane's device without a mesh; None means CUDA (a
+        missing card raises). Passing it with a mesh raises.
     :param chunk_files: files per chunk, one synthesis-kernel launch each;
         0 decodes each samplerate's files as one chunk.
     """
-    _refuse_mesh(mesh)
+    devs = None if mesh is None \
+        else list(check_mesh(mesh, device).devices[:, 0])
     if out not in OUTS:
         raise ValueError(f"out must be one of {OUTS}, got {out!r}")
     if dtype not in dp.DTYPES:
@@ -134,7 +246,7 @@ def decode_files_batched(paths: list, mesh=None, dtype: str = "float32",
     if errors not in ("raise", "isolate"):
         raise ValueError(f"errors must be 'raise' or 'isolate', got "
                          f"{errors!r}")
-    dev = dp.resolve_device(device)
+    devs = devs or [dp.resolve_device(device)]
     metas, kept, results = [], [], [None] * len(paths)
     # the parse and host_prepare of many files run on a thread pool (the
     # native parser and the NumPy passes release the GIL)
@@ -149,7 +261,7 @@ def decode_files_batched(paths: list, mesh=None, dtype: str = "float32",
                     raise
                 results[i] = e
         if metas:
-            decoded = _decode_pipelined(metas, dev, dp.DTYPES[dtype],
+            decoded = _decode_pipelined(metas, devs, dp.DTYPES[dtype],
                                         out == "int16", chunk_files, pool)
             for i, pcm in zip(kept, decoded):
                 results[i] = pcm
@@ -185,14 +297,13 @@ def _unpack(planes: np.ndarray, batch: dict, metas: list) -> list:
     return out
 
 
-def _decode_pipelined(metas: list, dev: torch.device, dtype, to_i16: bool,
+def _decode_pipelined(metas: list, devs: list, dtype, to_i16: bool,
                       chunk_files: int, workers) -> list:
-    """Chunk by chunk: prep of chunk k+1 on a worker thread (its
-    ``host_prepare`` calls spread over ``workers``) while the card runs
-    chunk k; the PCM comes back on a side stream and is unpacked one chunk
-    later."""
-    cuda = dev.type == "cuda"
-    side = torch.cuda.Stream(dev) if cuda else None
+    """Chunk by chunk, chunk k on ``devs[k % len(devs)]``: prep of chunk
+    k+1 on a worker thread (its ``host_prepare`` calls spread over
+    ``workers``) while the card runs chunk k; the PCM comes back on a side
+    stream of its device and is unpacked one chunk later."""
+    sides = {d: torch.cuda.Stream(d) for d in set(devs) if d.type == "cuda"}
     chunks = _chunks(metas, chunk_files)
     results = [None] * len(metas)
 
@@ -201,11 +312,12 @@ def _decode_pipelined(metas: list, dev: torch.device, dtype, to_i16: bool,
             dp.host_prepare, [metas[i] for i in idxs]))))
         host = {k: torch.from_numpy(np.ascontiguousarray(batch[k]))
                 for k in dp.TORCH_KEYS}
-        if cuda:
+        if sides:
             host = {k: v.pin_memory() for k, v in host.items()}
         return batch, host
 
-    def dispatch(batch, host, idxs):
+    def dispatch(batch, host, idxs, dev):
+        cuda = dev.type == "cuda"
         args = {k: v.to(dev, non_blocking=True) for k, v in host.items()}
         channels = 1 if all(metas[i].header.channels == 1
                             for i in idxs) else 2
@@ -217,6 +329,7 @@ def _decode_pipelined(metas: list, dev: torch.device, dtype, to_i16: bool,
         if not cuda:
             return pcm, None
         fetched = torch.empty(pcm.shape, dtype=pcm.dtype, pin_memory=True)
+        side = sides[dev]
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             fetched.copy_(pcm, non_blocking=True)
@@ -238,7 +351,8 @@ def _decode_pipelined(metas: list, dev: torch.device, dtype, to_i16: bool,
             batch, host = fut.result()
             if k + 1 < len(chunks):
                 fut = pool.submit(prep, chunks[k + 1])
-            fetched, done = dispatch(batch, host, idxs)
+            fetched, done = dispatch(batch, host, idxs,
+                                     devs[k % len(devs)])
             if pending is not None:
                 finish(*pending)
             pending = (fetched, done, batch, idxs)

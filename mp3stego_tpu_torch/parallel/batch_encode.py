@@ -13,9 +13,14 @@ redone lane's address chain never reaches into another file. The bytes
 equal each file's own ``MP3Encoder`` run.
 
 A group above ``MAX_LANES`` runs as sub-batches; the host finish of one
-overlaps the card's work on the next. The JAX package's host-engine
-auto-select (``utils/calibrate.py``, which weighs the TPU's host link) is
-not ported: the card always searches (ROADMAP.md queue 1.7).
+overlaps the card's work on the next. With a ``mesh``
+(``parallel.make_mesh``) of n devices on its ``files`` axis, each group is
+cut into sub-batches of at most ``ceil(files / n)`` files, whole mesh rows
+as in the JAX package, and the sub-batches go round-robin over those
+devices, one host thread a distinct device; the bytes do not change. The
+JAX package's host-engine auto-select (``utils/calibrate.py``, which weighs
+the TPU's host link) is not ported: the card always searches (ROADMAP.md
+queue 1.7).
 """
 
 import os
@@ -26,7 +31,7 @@ import torch
 
 from mp3stego_tpu_torch.models.encoder import MP3Encoder, resolve_device
 from mp3stego_tpu_torch.ops import search_plane as SP
-from mp3stego_tpu_torch.parallel.batch_decode import _refuse_mesh
+from mp3stego_tpu_torch.parallel.mesh import check_mesh
 from mp3stego_tpu_torch.utils.wav import read_wav
 
 # lanes (files x channels x granules) per search pass. The 240.7 s stereo
@@ -47,17 +52,20 @@ def encode_files_batched(jobs: list, bitrate: int = 320, mesh=None,
 
     The arguments up to ``errors`` are the JAX package's, in its order.
 
-    :param mesh: the JAX package's device mesh; only None (one card) is
-        taken here, any other raises ``NotImplementedError``.
+    :param mesh: a ``parallel.make_mesh`` mesh: sub-batches go round-robin
+        over its ``files`` devices; None runs them on ``device``. Any other
+        object raises ``TypeError``.
     :param max_workers: threads for the host redo and serialization.
-    :param device: the planes' device; None means CUDA (a missing card
-        raises).
+    :param device: the planes' device without a mesh; None means CUDA (a
+        missing card raises). Passing it with a mesh raises.
     """
-    _refuse_mesh(mesh)
+    devs = None if mesh is None \
+        else list(check_mesh(mesh, device).devices[:, 0])
     if errors not in ("raise", "isolate"):
         raise ValueError(f"errors must be 'raise' or 'isolate', got "
                          f"{errors!r}")
-    dev = resolve_device(device)
+    devs = devs or [resolve_device(device)]
+    dev = devs[0]
     results = [None] * len(jobs)
     groups = {}
     for i, (wav_path, mp3_path) in enumerate(jobs):
@@ -76,12 +84,23 @@ def encode_files_batched(jobs: list, bitrate: int = 320, mesh=None,
         key = (enc.band_row, enc.wav.num_of_channels)
         groups.setdefault(key, []).append((i, mp3_path, enc, nf))
 
+    # sub-batch j on devs[j % n]; each distinct device's sub-batches in
+    # order on a host thread of its own
+    by_dev, j = {}, 0
+    for group in groups.values():
+        for sub in _sub_batches(group, -(-len(group) // len(devs))):
+            by_dev.setdefault(devs[j % len(devs)], []).append(sub)
+            j += 1
+
+    def on_device(d, subs):
+        return [f for sub in subs for f in _run_sub_batch(sub, d, pool)]
+
     workers = max_workers or min(8, os.cpu_count() or 1)
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        futures = []
-        for group in groups.values():
-            for sub in _sub_batches(group):
-                futures += _run_sub_batch(sub, dev, pool)
+    with ThreadPoolExecutor(max_workers=workers) as pool, \
+            ThreadPoolExecutor(max_workers=max(1, len(by_dev))) as cards:
+        runs = [cards.submit(on_device, d, subs)
+                for d, subs in by_dev.items()]
+        futures = [f for run in runs for f in run.result()]
         for i, fut in futures:
             try:
                 results[i] = fut.result()
@@ -97,13 +116,13 @@ def _lanes(item) -> int:
     return enc.wav.num_of_channels * nf * enc.granules_per_frame
 
 
-def _sub_batches(group: list) -> list:
-    """Consecutive runs of files of at most ``MAX_LANES`` lanes (a file
-    larger than that runs alone)."""
+def _sub_batches(group: list, max_files: int) -> list:
+    """Consecutive runs of at most ``max_files`` files and ``MAX_LANES``
+    lanes (a file larger than that runs alone)."""
     subs, cur, lanes = [], [], 0
     for item in group:
         n = _lanes(item)
-        if cur and lanes + n > MAX_LANES:
+        if cur and (lanes + n > MAX_LANES or len(cur) == max_files):
             subs.append(cur)
             cur, lanes = [], 0
         cur.append(item)
@@ -112,11 +131,12 @@ def _sub_batches(group: list) -> list:
 
 
 def _run_sub_batch(sub: list, dev: torch.device, pool) -> list:
-    """The card's half of one sub-batch (analysis per file, one search and
-    one scfsi pass over all its lanes), then each file's host half on
-    ``pool``. Returns (job index, future) pairs."""
+    """The card's half of one sub-batch on ``dev`` (analysis per file, one
+    search and one scfsi pass over all its lanes), then each file's host
+    half on ``pool``. Returns (job index, future) pairs."""
     xrs, budgets, framing = [], [], []
     for _, _, enc, nf in sub:
+        enc.device = dev
         xrs.append(enc._analysis_device(nf))
         paddings, mean_bits_f = enc._plane_framing(nf)
         framing.append((paddings, mean_bits_f))

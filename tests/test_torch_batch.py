@@ -248,16 +248,22 @@ def test_batched_decode_takes_the_jax_signature(form, streams, monkeypatch):
 
 
 @pytest.mark.parametrize("fn", ["decode", "encode"])
-def test_batched_entry_points_refuse_a_mesh(fn, streams, tmp_path):
-    """A mesh that is not None raises before any file is touched, naming
-    the roadmap item that would shard over one."""
-    with pytest.raises(NotImplementedError, match="queue 1.8"):
-        if fn == "decode":
-            decode_files_batched([streams["fixture"]], object(),
-                                 device="cpu")
-        else:
+def test_batched_entry_points_refuse_a_foreign_mesh(fn, streams, tmp_path):
+    """A mesh that is not the port's own (``parallel.make_mesh``) raises
+    ``TypeError`` naming it, and a mesh with ``device=`` beside it raises
+    ``ValueError``, both before any file is touched."""
+    from mp3stego_tpu_torch.parallel import make_mesh
+    if fn == "decode":
+        def call(mesh, **kw):
+            decode_files_batched([streams["fixture"]], mesh, **kw)
+    else:
+        def call(mesh, **kw):
             encode_files_batched([("missing.wav", str(tmp_path / "a.mp3"))],
-                                 320, object(), device="cpu")
+                                 320, mesh, **kw)
+    with pytest.raises(TypeError, match="parallel.make_mesh"):
+        call(object())
+    with pytest.raises(ValueError, match="not both"):
+        call(make_mesh(files=2, devices=["cpu"] * 2), device="cpu")
 
 
 def test_float64_batch_on_the_cpu(streams):

@@ -13,7 +13,9 @@ crafted, LSF, mono and device-Huffman preps; a file's blocks alike alone
 and in a concat batch; ``stages`` beside it; the wrapper's refusals), the
 device decode plane in both
 precisions (float64 with the host plane's bytes), the default façade decode,
-the batched decode (one kernel launch per chunk), and the encode planes (Q31
+the batched decode (one kernel launch per chunk), K1 after a halo, the
+frame-sharded decode and the mesh batches on entries of cuda:0, and the
+encode planes (Q31
 analysis K3 at its launch shapes, on tile edges and from the WAV's
 interleaved buffer, with no channel stream built on the host by a
 whole-file encode; exact search, the VBR lane cost, golden hide bytes),
@@ -539,6 +541,86 @@ def test_batched_decode_one_launch_per_chunk(card, tmp_path):
                                    device=card, chunk_files=2)
     for p, got in zip(metas, outs):
         assert np.array_equal(got, dp.decode_pcm_i16_host(p))
+
+
+@pytest.mark.parametrize("out", ["float", "int16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,t", [(2, 1), (2, 9), (4, 41), (2, 2298)])
+def test_kernel_with_a_halo_equals_plain_version(card, dtype, out, rows, t):
+    """K1 after a seeded two-granule halo: bit for bit its plain version,
+    and the plain decode of the longer rows less their first two granules;
+    a misaligned halo is refused."""
+    from mp3stego_tpu_torch.ops import synth as sf
+    full = _blk(rows, t + 2, rows * 11 + t, dtype, card)
+    blk, halo = full[:, 2:].contiguous(), full[:, :2].contiguous()
+    before = sf.launches
+    got = sf.synth_fused(blk, out, 2, halo=halo)
+    want = sf.synth_fused_torch(blk, out, 2, halo=halo)
+    longer = sf.synth_fused_torch(full, out, 2)
+    torch.cuda.synchronize()
+    assert sf.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, longer[:, 2:] if out == "float"
+                       else longer[:, 2 * 576:])
+    flat = torch.zeros(halo.numel() + 1, dtype=dtype, device=card)
+    with pytest.raises(ValueError, match="aligned halo"):
+        sf.synth_fused(blk, out, 2, halo=flat[1:].view(halo.shape))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sharded_decode_on_one_card(card, dtype):
+    """The synthetic batch sharded over 2, 8 and 64 entries of cuda:0 (one
+    granule a shard at 64): bit for bit the unsharded card decode, one K2
+    and one K1 launch a shard."""
+    from chip_smoke import synthetic_prep
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    from mp3stego_tpu_torch.ops import synth as sf
+    from mp3stego_tpu_torch.parallel import decode_granules_sharded, make_mesh
+    prep = synthetic_prep(64)
+    whole = dp.decode_granules(dp.prep_to_torch(prep, card),
+                               dp.DTYPES[dtype]).cpu().numpy()
+    for frames in (2, 8, 64):
+        mesh = make_mesh(files=1, frames=frames, devices=["cuda:0"] * frames)
+        k2, k1 = dp.launches, sf.launches
+        got = decode_granules_sharded(prep, mesh, dtype)
+        assert dp.launches - k2 == sf.launches - k1 == frames
+        assert np.array_equal(got, whole), frames
+
+
+def test_batched_decode_and_encode_on_a_card_mesh(card, tmp_path):
+    """Five goldens, one a chunk, round-robin over 4 entries of cuda:0:
+    bit for bit the batch without a mesh; two encodes likewise, the
+    goldens' bytes."""
+    import os
+    from mp3stego_tpu_torch.parallel import (decode_files_batched,
+                                             encode_files_batched, make_mesh)
+    gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    eg = np.load(os.path.join(gold, "encode_golden.npz"))["mp3_bytes"]
+    mr = np.load(os.path.join(gold, "multirate_golden.npz"))
+    blobs = [eg] + [mr[f"mp3_{t}"] for t in ("32000_64", "48000_96")] \
+        + [eg, eg]
+    paths = []
+    for i, b in enumerate(blobs):
+        paths.append(str(tmp_path / f"{i}.mp3"))
+        with open(paths[-1], "wb") as f:
+            f.write(b.tobytes())
+    mesh = make_mesh(files=4, devices=["cuda:0"] * 4)
+    for dtype, out in (("float32", "float"), ("float64", "int16")):
+        got = decode_files_batched(paths, mesh, dtype, out=out,
+                                   chunk_files=1)
+        want = decode_files_batched(paths, None, dtype, out=out,
+                                    device=card, chunk_files=1)
+        for a, b in zip(got, want):
+            assert np.array_equal(a, b)
+    wav = str(tmp_path / "g.wav")
+    with open(wav, "wb") as f:
+        f.write(np.load(os.path.join(gold, "stego_golden.npz"))[
+            "wav_bytes"].tobytes())
+    jobs = [(wav, str(tmp_path / f"e{i}.mp3")) for i in range(2)]
+    encode_files_batched(jobs, 320, mesh)
+    for _, out in jobs:
+        with open(out, "rb") as f:
+            assert f.read() == eg.tobytes()
 
 
 def _search_lanes(name: str):
