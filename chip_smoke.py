@@ -8,8 +8,8 @@ the kernels are built for sm_90a). It builds every kernel of the port's
 paths from the sources in the checkout (the decode granule plane K2,
 ``csrc/granule.cu``, and the fused synthesis kernel K1, ``csrc/synth.cu``,
 each in float32 and float64, the Huffman bit-scan, ``csrc/huffman.cu``, the
-Q31 encode analysis K3, ``csrc/analysis.cu``, and the rate-control search
-K4, ``csrc/search.cu``),
+Q31 encode analysis K3, ``csrc/analysis.cu``, the rate-control search
+K4, ``csrc/search.cu``, and the cost grid K5, ``csrc/cost_grid.cu``),
 holds each against its plain PyTorch version bit for bit (and times a
 library pair that computes K1's function), drives every
 entry point at a size users send (one 240.7-second 320 kbps stereo song
@@ -21,7 +21,9 @@ song, the encode's windows on the card, clear and hidden; hide, reveal and a
 streaming decode through the CLI; the song's decode and reveal with the
 device Huffman engine; the mesh: the song's frame-sharded decode over 2, 4
 and 8 shards, K1 after a halo, and the batches on a 4-entry ``files``
-mesh, on the visible cards in turn or on repeated entries of one card),
+mesh, on the visible cards in turn or on repeated entries of one card;
+the cost-grid encode engine on a 30 s slice of the song, clear, hidden and
+VBR),
 checks every output against the bit-exact host
 planes, the single-file paths and the goldens, and times it. Each main path
 runs with every kernel's launch count set to 0 just before it and read just
@@ -55,6 +57,7 @@ from mp3stego_tpu_torch.ops import _cuda
 from mp3stego_tpu_torch.ops import decode_plane as dp
 from mp3stego_tpu_torch.ops import encode_plane as EP
 from mp3stego_tpu_torch.ops import huffman_device as hd
+from mp3stego_tpu_torch.ops import quant_batch as QB
 from mp3stego_tpu_torch.ops import search_plane as SP
 from mp3stego_tpu_torch.ops import synth as sf
 from mp3stego_tpu_torch.steganography import _frame_message
@@ -138,9 +141,21 @@ K2_INSTANCES = {(F32, False): "granule_kernelIfa",
                 (F32, True): "granule_kernelIfi",
                 (F64, False): "granule_kernelIda",
                 (F64, True): "granule_kernelIdi"}
+# integer operations of K5's function (the note in csrc/cost_grid.cu),
+# counted from quant_batch._cost_all_steps and charged to this run's data:
+# every cell quantizes its 576 samples, the quick reject's cells included
+# (K4's 7 a sample, the approx test, and the run lengths' 4), then the
+# count1 quads (K4's 19 each) and the big-values pairs (K4's 27 each: the
+# lengths under 13/15/16/24 with signs and escapes, the region, its 5 sums
+# and its max); the per-cell constants (bail, subdivide, table choice) and
+# the pairs past big_values, which the function masks out, left out
+K5_OPS_SAMPLE = 7 + 1 + 4
+K5_OPS_QUAD = K4_OPS_QUAD
+K5_OPS_PAIR = K4_OPS_PAIR
+GRID_SECONDS = 30                            # the grid engine's song slice
 # the hand kernels, each module with its wrapper's launch count
 KERNELS = {"granule": dp, "synth_fused": sf, "huffman_scan": hd,
-           "search": SP, "analysis": EP}
+           "search": SP, "analysis": EP, "cost_grid": QB}
 DECODE = ("granule", "synth_fused")          # the kernels a decode runs
 ENCODE = ("search", "analysis")              # the kernels an encode runs
 # the bit-scan kernel's plane instantiation, as -Xptxas -v names it
@@ -1603,6 +1618,44 @@ def search_lanes(name: str):
     return xr, mb
 
 
+def grid_lanes() -> np.ndarray:
+    """16 seeded edge lanes of the cost grid K5, built without JAX (the
+    tests hold the JAX grid to the port's on them, and the card run holds
+    the kernel to its plain version): all zeros; a lone INT32_MIN (its
+    wrapped |x| clips xrmax to 0, so it never bails, while its true
+    magnitude reaches the float64 fallback: approx at the finer steps);
+    INT32_MIN everywhere; INT32_MIN on a quiet floor; full scale, +-(2^31 - 1), which
+    bails at the finest 58 steps; one nonzero sample at 0, at 575 and at 45
+    (band row 5's odd edge); quiet lanes that quantize to 0 and 1 only
+    (big_values 0 with count1 quads); a constant 2^27 (approx without a
+    bail at several steps); a ramp; sparse full-scale spikes on a quiet
+    floor; random lanes up to 2^24 and 2^16; all ones. Returns (16, 576)
+    int32."""
+    rng = np.random.default_rng(15)
+    xr = np.zeros((16, 576), np.int64)
+    xr[1, 300] = -2 ** 31
+    xr[2] = -2 ** 31
+    xr[3] = rng.integers(-100, 100, size=576)
+    xr[3, 0] = -2 ** 31
+    xr[4] = rng.choice([-(2 ** 31 - 1), 2 ** 31 - 1], size=576)
+    xr[5, 0] = 1 << 20
+    xr[6, 575] = -(1 << 20)
+    xr[7, 45] = 1 << 22
+    xr[8, :40] = rng.choice([-65536, 65536], size=40)
+    xr[9] = 1 << 27
+    xr[10] = np.linspace(-2 ** 30, 2 ** 30, 576).astype(np.int64)
+    xr[11] = rng.integers(-2000, 2000, size=576)
+    spikes = rng.random(576) < 0.05
+    xr[11, spikes] = rng.integers(-(2 ** 31 - 1), 2 ** 31 - 1,
+                                  size=spikes.sum())
+    xr[12] = rng.integers(-(1 << 24), 1 << 24, size=576)
+    xr[13] = rng.integers(-(1 << 16), 1 << 16, size=576)
+    xr[13, 200:] //= 64
+    xr[14] = rng.choice([-262144, 0, 262144], size=576, p=[0.1, 0.8, 0.1])
+    xr[15] = 1
+    return xr.astype(np.int32)
+
+
 def hold_search(name: str, got: dict, want: dict) -> int:
     """K4's results against its plain version's, bit for bit on every row,
     count and the ix plane; returns the largest difference (0)."""
@@ -1755,6 +1808,216 @@ def search_phase(dev, card: str, wav64: str, enc_out: dict, runs: Paths,
                 source="mp3stego_tpu_torch/csrc/search.cu",
                 replaces="mp3stego_tpu/ops/search_plane.py:385",
                 launches=runs.launches("search"), max_abs_err=err,
+                ms=best["kernel"], plain_ms=best["plain"], bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+def hold_grid(name: str, xr: torch.Tensor, sr_idx: int, with_hide: bool,
+              work: dict = None) -> int:
+    """K5 against its plain version on ``xr``, both on the card: every row
+    of every cell bit for bit; returns the largest difference (0)."""
+    rows = QB.ROWS_HIDE if with_hide else QB.ROWS_CLEAR
+    got = QB._launch(xr, sr_idx, rows)
+    want = QB.cost_all_steps_torch(xr, sr_idx, with_hide, work=work)
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: the grid {tuple(got.shape)} vs the "
+                             f"plain {tuple(want.shape)}")
+    err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        names = list(QB._BASE_KEYS) + (list(QB._HIDE_SCALAR) + [
+            f"{k}[{r}]" for k in QB._HIDE_R3 for r in range(3)]
+            if with_hide else [])
+        bad = [names[r] for r in range(rows) if not torch.equal(got[r],
+                                                                 want[r])]
+        raise AssertionError(f"{name}: cost_grid != cost_all_steps_torch "
+                             f"(band row {sr_idx}) on {bad}: max |d| {err}")
+    return err
+
+
+def grid_bound(n: int, rows: int, work: dict):
+    """The least time for K5's work on the card: (the n spectra read once
+    and the (rows, n, 128) int16 grid written once) over HBM's rate,
+    against (the integer operations of the function on this run's data:
+    ``K5_OPS_SAMPLE`` a sample of every cell, ``K5_OPS_PAIR`` a big-values
+    pair and ``K5_OPS_QUAD`` a count1 quad, the counts from the plain
+    version's ``work``) over the INT32 rate. Returns (ms, "bytes" or
+    "operations", bytes, operations)."""
+    nbytes = 4 * n * 576 + 2 * rows * n * QB.S_STEPS
+    ops = (work["cells"] * 576 * K5_OPS_SAMPLE + work["pairs"] * K5_OPS_PAIR
+           + work["quads"] * K5_OPS_QUAD)
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = ops / PEAK_INT_OPS_S * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes", nbytes, ops
+    return by_ops, "operations", nbytes, ops
+
+
+@contextlib.contextmanager
+def grid_engine():
+    """The cost-grid engine (``MP3STEGO_TPU_SEARCH_PLANE=0``) while the
+    block runs."""
+    old = os.environ.get("MP3STEGO_TPU_SEARCH_PLANE")
+    os.environ["MP3STEGO_TPU_SEARCH_PLANE"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MP3STEGO_TPU_SEARCH_PLANE"]
+        else:
+            os.environ["MP3STEGO_TPU_SEARCH_PLANE"] = old
+
+
+def grid_phase(dev, card: str, tmp: str, wav64: str, runs: Paths) -> dict:
+    """Phase 20: the cost grid K5 (``csrc/cost_grid.cu``) bit for bit its
+    plain version on the card, clear (7 rows) and with the hide channels
+    (27): every lane of the song, the search's seeded and forced-flag
+    lanes and the grid's edge lanes, on MPEG-1, MPEG-2 and MPEG-2.5 band
+    rows; K5 and the plain version by CUDA events on the song, each beside
+    its bound, with the kernel's registers, shared memory and spills (a
+    spill fails the phase) and resident warps an SM. Then the cost-grid
+    engine (``MP3STEGO_TPU_SEARCH_PLANE=0``) on a 30 s slice of the song,
+    clear, hidden at 90 % of its channel and VBR, and on the goldens: bytes
+    equal to the plane engine's and the host C++ engine's; a clear or
+    hidden encode launches K3 once and K5 once. Returns K5's row of the
+    kernels line."""
+    enc = MP3Encoder(read_wav(wav64, 320), device=dev)
+    nf = enc._num_frames()
+    band = enc.band_row
+    xr = enc._analysis_device(nf)
+    work = {}
+    err = hold_grid("song, clear", xr, band, False, work)
+    err = max(err, hold_grid("song, hide channels", xr, band, True))
+    seeded = np.concatenate([search_lanes(n)[0] for n in
+                             ("fixture", "loud", "escape", "forced")]
+                            + [grid_lanes()])
+    xs = torch.from_numpy(seeded).to(dev)
+    for sr_idx in (0, 5, 8, 13):
+        for hide in (False, True):
+            err = max(err, hold_grid(f"seeded lanes, band row {sr_idx}", xs,
+                                     sr_idx, hide))
+    cells = QB.cost_all_steps(xs, 0, True)
+    want = QB._unpack(QB.cost_all_steps_torch(xs, 0, True).cpu().numpy(),
+                      True)
+    for k, v in want.items():
+        if cells[k].dtype != v.dtype or not np.array_equal(cells[k], v):
+            raise AssertionError(f"cost_all_steps {k} != the plain version's")
+    if not (cells["approx"].any() and cells["bail"].any()
+            and ((cells["bv"] == 0) & ~cells["bail"]).any()):
+        raise AssertionError("the seeded lanes reach no approx, bail or "
+                             "big_values-0 cell")
+    torch.cuda.synchronize()
+    _say("20 K5", f"cost_grid bitwise equal to cost_all_steps_torch on every "
+                  f"row of every cell: the song's {xr.shape[0]} lanes (clear "
+                  f"and with the hide channels), {xs.shape[0]} seeded, "
+                  f"forced-flag and edge lanes at band rows 0, 5, 8 and 13; "
+                  f"{int(cells['approx'].sum())} approx, "
+                  f"{int(cells['bail'].sum())} bailed cells there")
+
+    fns = {"kernel": lambda: QB._launch(xr, band, QB.ROWS_CLEAR),
+           "hide kernel": lambda: QB._launch(xr, band, QB.ROWS_HIDE),
+           "plain": lambda: QB.cost_all_steps_torch(xr, band, False),
+           "hide plain": lambda: QB.cost_all_steps_torch(xr, band, True)}
+    times = {k: [] for k in fns}
+    for pre in ("", "hide "):
+        for which in ("plain", "kernel", "kernel", "plain"):
+            times[pre + which].append(_card_ms(
+                fns[pre + which], 1 if which == "plain" else 10))
+    best = {k: min(v) for k, v in times.items()}
+    n = xr.shape[0]
+    bound, by, nbytes, ops = grid_bound(n, QB.ROWS_CLEAR, work)
+    hbound, hby, hbytes, _ = grid_bound(n, QB.ROWS_HIDE, work)
+    _say("20 K5", f"[{card}] song grid, {n} lanes x 128 steps "
+                  f"({work['cells']} cells, {work['pairs']} big-values pairs, "
+                  f"{work['quads']} count1 quads), clear: kernel "
+                  f"{times['kernel']} ms, bound {bound:.4f} ms by {by} "
+                  f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G int ops), at "
+                  f"{bound / best['kernel']:.1%} of it; plain "
+                  f"{times['plain']} ms (plain/kernel "
+                  f"{best['plain'] / best['kernel']:.1f}x)")
+    _say("20 K5", f"[{card}] song grid with the hide channels: kernel "
+                  f"{times['hide kernel']} ms, bound {hbound:.4f} ms by {hby} "
+                  f"({hbytes / 1e6:.1f} MB), at "
+                  f"{hbound / best['hide kernel']:.1%} of it; plain "
+                  f"{times['hide plain']} ms")
+    res = _cuda.ptxas_resources("cost_grid", "cost_grid_kernel")
+    occ = QB.occupancy(dev)
+    _say("20 K5", f"[{card}] cost_grid_kernel: {res['registers']} registers "
+                  f"a thread, {res['smem'] + occ['smem']} B of shared memory "
+                  f"a CTA ({occ['smem']} B dynamic), spills "
+                  f"{res['spill_stores']} B stored and {res['spill_loads']} B "
+                  f"loaded (-Xptxas -v); {occ['ctas']} CTAs of {occ['warps']} "
+                  f"warps an SM, {occ['ctas'] * occ['warps']} resident warps "
+                  f"(the runtime's occupancy query)")
+    if res["spill_stores"] or res["spill_loads"]:
+        raise AssertionError("cost_grid_kernel spills registers")
+    del xr, xs, fns
+    torch.cuda.empty_cache()
+
+    # the cost-grid engine on a 30 s slice of the song
+    pcm = _wav_i16(wav64).reshape(-1, 2)[:GRID_SECONDS * 44100]
+    wav = os.path.join(tmp, "grid.wav")
+    write_wav(wav, 44100, pcm)
+    usable = _encode_bytes(wav, dev)[1].hide_str_offset
+    bits = "".join(np.random.default_rng(20).choice(
+        ["0", "1"], size=int(usable * HIDE_SHARE)))
+    for label, b, vbr, kbps in (("clear", "", False, 320),
+                                ("90 % hide", bits, False, 320),
+                                ("VBR", "", True, 128)):
+        plane = _encode_bytes(wav, dev, b, kbps, vbr=vbr)[0]
+        host = _encode_bytes(wav, dev, b, kbps, host=True, vbr=vbr)[0]
+        kernels = ("analysis", "cost_grid") + (("search",) if vbr else ())
+        with grid_engine():
+            t0 = time.perf_counter()
+            got, genc = runs.run(f"cost-grid engine, {label}, "
+                                 f"{GRID_SECONDS} s", None,
+                                 lambda: _encode_bytes(wav, dev, b, kbps,
+                                                       vbr=vbr),
+                                 kernels=kernels)
+            wall = time.perf_counter() - t0
+        counts = runs.log[-1][2]
+        if not vbr and (counts["analysis"], counts["cost_grid"]) != (1, 1):
+            raise AssertionError(f"grid engine, {label}: K3 and K5 launched "
+                                 f"{counts['analysis']} and "
+                                 f"{counts['cost_grid']} times, not once")
+        _expect_equal(f"grid engine, {label}: vs the plane engine", got,
+                      plane)
+        _expect_equal(f"grid engine, {label}: vs the host C++ engine", got,
+                      host)
+        _say("20 grid", f"[{card}] {GRID_SECONDS} s {label}: the cost-grid "
+                        f"engine's bytes equal the plane and host C++ "
+                        f"engines' ({counts['analysis']} K3, "
+                        f"{counts['cost_grid']} K5, {counts['search']} K4 "
+                        f"launches); wall {wall * 1e3:.1f} ms -> "
+                        f"{GRID_SECONDS / wall:.1f}x realtime")
+        _say_stages(f"20 grid {label}", card, [genc.timer.times])
+
+    sg = np.load(os.path.join(GOLD, "stego_golden.npz"))
+    gold_wav = _write(os.path.join(tmp, "grid_gold.wav"),
+                      sg["wav_bytes"].tobytes())
+    msgs = {"hidden_short": "ddd",
+            "hidden_long": sg["msg_long"].tobytes().decode(),
+            "hidden_toolong": "ddd" * 100}
+    mp3 = np.load(os.path.join(GOLD, "encode_golden.npz"))["mp3_bytes"]
+    with grid_engine():
+        got = runs.run("cost-grid engine, the goldens", None, lambda: [
+            _encode_bytes(gold_wav, dev)[0]] + [
+            _encode_bytes(gold_wav, dev, _frame_message(m))[0]
+            for m in msgs.values()], kernels=("analysis", "cost_grid"))
+    for name, b, m, want in zip(["encode_golden"] + list(msgs), got,
+                                [""] + list(msgs.values()),
+                                [mp3] + [sg[k] for k in msgs]):
+        _expect_equal(f"grid engine, {name}", b, want.tobytes())
+        _expect_equal(f"grid engine, {name}: vs the host C++ engine", b,
+                      _encode_bytes(gold_wav, dev, _frame_message(m) if m
+                                    else "", host=True)[0])
+    _say("20 grid", "the cost-grid engine writes the goldens byte for byte "
+                    "on the card, as the host C++ engine does: "
+                    "encode_golden, hidden_short, hidden_long, "
+                    "hidden_toolong")
+    return dict(name="cost_all_steps", route="cuda",
+                source="mp3stego_tpu_torch/csrc/cost_grid.cu",
+                replaces="mp3stego_tpu/ops/quant_batch.py:55",
+                launches=runs.launches("cost_grid"), max_abs_err=err,
                 ms=best["kernel"], plain_ms=best["plain"], bound_ms=bound,
                 bound_by=by, library_ms=None)
 
@@ -2055,13 +2318,14 @@ def main() -> int:
         built = [pool.submit(_cuda.load, name, mod._SIGNATURES)
                  for name, mod in (("granule", dp), ("synth", sf),
                                    ("huffman", hd), ("search", SP),
-                                   ("analysis", EP))]
+                                   ("analysis", EP), ("cost_grid", QB))]
         for b in built:
             b.result()
         if host_lib.result() is None:
             raise RuntimeError("the native host library did not build or "
                                "load")
-    for name in ("granule", "synth", "huffman", "search", "analysis"):
+    for name in ("granule", "synth", "huffman", "search", "analysis",
+                 "cost_grid"):
         info = _cuda.builds[name]
         _say("1 build", f"csrc/{name}.cu -> "
                         f"{os.path.relpath(info['path'], REPO)} in "
@@ -2283,6 +2547,11 @@ def main() -> int:
         # its time at the song's shapes, with its bound
         search_row = search_phase(dev, card, wav64, enc_out, runs, errs)
 
+        # ---- phase 20: K5 bit for bit its plain version on the song and
+        # the seeded lanes, timed with its bound; the cost-grid engine's
+        # clear, hide and VBR encodes of a 30 s slice and of the goldens
+        grid_row = grid_phase(dev, card, tmp, wav64, runs)
+
         # ---- phase 7: K1's time on the song's own blocks in both dtypes,
         # beside its plain version and the library pair, each with its bound
         timing = {}
@@ -2349,7 +2618,7 @@ def main() -> int:
         replaces="mp3stego_tpu/ops/pallas_kernels.py:42",
         launches=runs.launches("synth_fused", dtype),
         max_abs_err=errs[dtype], **timing[dtype]) for dtype in (F64, F32)]
-        + [huffman_row, search_row, dict(
+        + [huffman_row, search_row, grid_row, dict(
             name="analysis_mdct", route="cuda",
             source="mp3stego_tpu_torch/csrc/analysis.cu",
             replaces="mp3stego_tpu/ops/encode_plane.py:35",

@@ -25,6 +25,13 @@ next (``_slot_carry``), as do the reservoir, the padding slot lag and the
 stego cursor.
 * host C++ (``_encode_host``): the native analysis and sequential whole-file
   search; the card's oracle.
+* cost grid (``MP3STEGO_TPU_SEARCH_PLANE=0``, the JAX package's own switch;
+  ``_encode_grid``): the whole file's analysis on the device, then every
+  granule costed at all 128 quantizer steps in one launch
+  (``ops/quant_batch``, kernel K5); the reference's sequential frame loop
+  then replays each granule's bisection and inner loop from the grid
+  (``_outer_loop_cached``), evaluating on the host only the cells the grid
+  flags and each granule's final state. Clear, hide and VBR.
 * host oracle (``device_search=False``): the sequential per-frame search of
   the reference, native or NumPy.
 
@@ -52,8 +59,9 @@ from mp3stego_tpu_torch.bitstream.bits import BitWriter
 from mp3stego_tpu_torch.ops import encode_plane as EP
 from mp3stego_tpu_torch.ops import fixedpoint as fx
 from mp3stego_tpu_torch.ops import quant as Q
+from mp3stego_tpu_torch.ops import quant_batch as QB
 from mp3stego_tpu_torch.ops import search_plane as SP
-from mp3stego_tpu_torch.utils.profiling import StageTimer, trace
+from mp3stego_tpu_torch.utils.profiling import StageTimer, progress, trace
 from mp3stego_tpu_torch.utils.wav import WavFile, read_wav
 
 _LN2 = 0.69314718  # the reference's constant (encoder/util.py:13), not log(2)
@@ -250,6 +258,12 @@ class MP3Encoder:
         # each (gr, ch) slot's step (nch, gpf) and stale addresses (nch,
         # gpf, 3) after the frames encoded so far; None at the file's start
         self._slot_carry = None
+        # the cost-grid engine's grid (quant_batch.cost_all_steps), its
+        # granules a channel, and the step of the search's last evaluation
+        # when that evaluation ran exactly on the host (None otherwise)
+        self._cost = None
+        self._tg = None
+        self._last_exact_step = None
 
         self.mode = w.mpeg_mode
         self.bitrate = w.bitrate
@@ -375,7 +389,9 @@ class MP3Encoder:
             return
         with trace():
             if not self.device_search:
-                self._encode_sequential(num_frames, timer)
+                self._encode_sequential(num_frames, timer, quiet)
+            elif os.environ.get("MP3STEGO_TPU_SEARCH_PLANE", "1") == "0":
+                self._encode_grid(num_frames, timer, quiet)
             elif self.hide_str:
                 self._encode_hide(num_frames, timer)
             else:
@@ -386,7 +402,7 @@ class MP3Encoder:
         if not quiet:
             timer.print_report()
 
-    def _encode_sequential(self, num_frames: int, timer):
+    def _encode_sequential(self, num_frames: int, timer, quiet=True):
         """The host oracle: native (or torch-on-CPU) analysis, then the
         reference's sequential per-frame search and serialization."""
         with timer.stage("analysis+mdct (host)"):
@@ -398,14 +414,46 @@ class MP3Encoder:
         if self.vbr:
             # sets _vbr_rate_idx/_vbr_rates; _encode_frame reads them
             self._vbr_framing(mdct_all.reshape(-1, 576), num_frames)
+        self._frame_loop(mdct_all, num_frames, timer, quiet)
+
+    def _frame_loop(self, mdct_all: np.ndarray, num_frames: int, timer,
+                    quiet=True):
+        """The reference's sequential frame loop (MP3_Encoder.py:596-618)
+        over host spectra (nch, Tg, 576): each frame's search, reservoir
+        and serialization, then the final flush."""
         gpf = self.granules_per_frame
         with timer.stage("rate control + serialize (host)"):
-            for f in range(num_frames):
+            for f in progress(range(num_frames), desc="encoding",
+                              enabled=not quiet):
                 self._frame_idx = f
                 self._encode_frame(mdct_all[:, f * gpf:(f + 1) * gpf])
                 self.out_buffer += self.bw.take_frame()
             # final flush (MP3_Encoder.py:616-618)
             self.out_buffer += self.bw.take_frame()
+
+    def _encode_grid(self, num_frames: int, timer, quiet=True):
+        """The cost-grid engine: the whole file's analysis on the device
+        (K3), every granule costed at all 128 steps in one launch (K5,
+        ``quant_batch.cost_all_steps``, with the hide's channels when
+        hiding), VBR framing on the resident spectra (exact, ``_lane_cost``),
+        then one fetch of the spectra and the reference's frame loop, whose
+        search replays the grid (``_outer_loop_cached``)."""
+        nch = self.wav.num_of_channels
+        tg = num_frames * self.granules_per_frame
+        with timer.stage("analysis+mdct (device)"):
+            xr = self._analysis_device(num_frames)
+        with timer.stage("step-cost grid (device)"):
+            self._cost = QB.cost_all_steps(xr, self.band_row,
+                                           with_hide=bool(self.hide_str))
+            self._tg = tg
+        if self.vbr:
+            # sets _vbr_rate_idx/_vbr_rates; _encode_frame reads them
+            with timer.stage("framing"):
+                self._vbr_framing(xr, num_frames)
+        with timer.stage("d2h"):
+            mdct_all = xr.reshape(nch, tg, 576).cpu().numpy()
+        del xr
+        self._frame_loop(mdct_all, num_frames, timer, quiet)
 
     # ---------------------------------------------------------- search plane
 
@@ -1345,14 +1393,142 @@ class MP3Encoder:
         return choice
 
     def _outer_loop(self, max_bits, xr, xrabs, xrmax, gr, ch):
-        """MP3_Encoder.py:933-956."""
+        """MP3_Encoder.py:933-956. Under the cost-grid engine both loops
+        replay the reference's trajectory over the grid
+        (``_outer_loop_cached``)."""
         cod_info = self.gr_info[gr][ch]
+        if self._cost is not None:
+            return self._outer_loop_cached(max_bits, xr, xrabs, xrmax, gr, ch,
+                                           cod_info)
         cod_info.quantizerStepSize = self._bin_search_step_size(
             max_bits, xr, xrabs, xrmax, gr, ch, cod_info)
         cod_info.part2_length = self._part2_length(gr, ch)
         huff_bits = max_bits - cod_info.part2_length
         bits = self._inner_loop(xr, xrabs, xrmax, huff_bits, gr, ch, cod_info)
         cod_info.part2_3_length = cod_info.part2_length + bits
+        return cod_info.part2_3_length
+
+    # ------------------------------------------------- cost-grid replay
+
+    def _gidx(self, gr, ch):
+        return ch * self._tg + self._frame_idx * self.granules_per_frame + gr
+
+    def _cached_eval(self, g, step, xr, xrabs, xrmax, gr, ch, cod_info):
+        """One search evaluation from the cost grid; an exact host
+        evaluation for flagged cells (``approx``, ``bv == 0``) and steps off
+        the grid. Mirrors the quantize -> run-length -> count1 -> subdivide
+        -> table-select -> bit-count body (MP3_Encoder.py:977-985)."""
+        C = self._cost
+        s = step + 127
+        if not (0 <= s < C["bail"].shape[1]):
+            bits = self._exact_eval(step, xr, xrabs, xrmax, gr, ch, cod_info)
+            self._last_exact_step = step if bits != 100000 else None
+            return bits
+        if C["bail"][g, s]:
+            self._last_exact_step = None
+            return 100000
+        if C["approx"][g, s] or C["bv"][g, s] == 0 \
+                or C["ixmax"][g, s] > Q.MAX_QUANTIZE_STEP:
+            bits = self._exact_eval(step, xr, xrabs, xrmax, gr, ch, cod_info)
+            self._last_exact_step = step if bits != 100000 else None
+            return bits
+        self._last_exact_step = None
+
+        if self.hide_str != "":
+            bits = int(min(C["sum0"][g, s], C["sum1"][g, s]))
+            idx = self.hide_str_offset
+            for r in range(3):
+                pre = int(C["choice"][g, s, r])
+                if pre == 0:
+                    continue
+                if idx < len(self.hide_str):
+                    t = int(T.TRANSFORM_HUF[pre, int(self.hide_str[idx])])
+                else:
+                    t = pre
+                bits += QB.table_cost(C, g, s, r, t)
+                idx += 1
+        else:
+            bits = int(C["bits_total"][g, s])
+        # keep the stale-address state the reference would carry
+        # (addresses survive into later big_values == 0 evaluations)
+        cod_info.address1 = int(C["a1"][g, s])
+        cod_info.address2 = int(C["a2"][g, s])
+        cod_info.address3 = 2 * int(C["bv"][g, s])
+        return bits
+
+    def _exact_eval(self, step, xr, xrabs, xrmax, gr, ch, cod_info):
+        """One exact evaluation at ``step`` into ``l3_enc`` and
+        ``cod_info`` (the native twin's ``rate_exact_eval``; NumPy where the
+        library is missing or the step is off steptab, which the native
+        quantizer does not check); 100000 where quantize bails or ixmax
+        exceeds 8192."""
+        if _native_rate_lib() is not None and 0 <= step + 127 < QB.S_STEPS:
+            return self._rate_native_call("rate_exact_eval", xr, xrabs,
+                                          xrmax, step, gr, ch, cod_info)
+        ix, ix_max = Q.quantize(xr, xrabs, xrmax, step)
+        if ix_max > Q.MAX_QUANTIZE_STEP:
+            return 100000
+        self.l3_enc[ch][gr] = ix
+        return self._eval(self.l3_enc[ch][gr], cod_info)
+
+    def _cached_ixmax(self, g, step, xr, xrabs, xrmax):
+        C = self._cost
+        s = step + 127
+        if not (0 <= s < C["bail"].shape[1]):
+            _, ix_max = Q.quantize(xr, xrabs, xrmax, step)
+            return ix_max
+        if C["bail"][g, s]:
+            return 16384
+        if C["approx"][g, s]:
+            _, ix_max = Q.quantize(xr, xrabs, xrmax, step)
+            return ix_max
+        return int(C["ixmax"][g, s])
+
+    def _outer_loop_cached(self, max_bits, xr, xrabs, xrmax, gr, ch,
+                           cod_info):
+        """The bisection and inner loop (MP3_Encoder.py:958-996,
+        1064-1095) replayed over the grid; the final state (ix, every side
+        information field, the stego table selection) comes from one exact
+        host evaluation, unless the search's last evaluation already ran
+        exactly at that step."""
+        g = self._gidx(gr, ch)
+
+        nxt = -120
+        count = 120
+        while True:
+            half = count // 2
+            bits = self._cached_eval(g, nxt + half, xr, xrabs, xrmax, gr, ch,
+                                     cod_info)
+            if bits < max_bits:
+                count = half
+            else:
+                nxt += half
+                count -= half
+            if count <= 1:
+                break
+        cod_info.quantizerStepSize = nxt
+
+        cod_info.part2_length = self._part2_length(gr, ch)
+        huff_bits = max_bits - cod_info.part2_length
+
+        if huff_bits < 0:
+            cod_info.quantizerStepSize -= 1
+        while True:
+            while self._cached_ixmax(g, cod_info.quantizerStepSize + 1,
+                                     xr, xrabs, xrmax) > Q.MAX_QUANTIZE_STEP:
+                cod_info.quantizerStepSize += 1
+            cod_info.quantizerStepSize += 1
+            bits = self._cached_eval(g, cod_info.quantizerStepSize, xr, xrabs,
+                                     xrmax, gr, ch, cod_info)
+            if bits <= huff_bits:
+                break
+
+        if self._last_exact_step == cod_info.quantizerStepSize:
+            final_bits = bits
+        else:
+            final_bits = self._exact_eval(cod_info.quantizerStepSize, xr,
+                                          xrabs, xrmax, gr, ch, cod_info)
+        cod_info.part2_3_length = cod_info.part2_length + final_bits
         return cod_info.part2_3_length
 
     def _rate_native_call(self, fn_name, xr, xrabs, xrmax, arg, gr, ch,

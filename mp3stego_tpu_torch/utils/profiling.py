@@ -11,6 +11,8 @@
   MP3STEGO_TPU_TRACE=<dir> to trace any pipeline without code changes). The
   decode plane's stages run under ``record_function`` scopes named like the
   JAX package's ``jax.named_scope``s, so the two packages' traces line up.
+* ``progress()`` — tqdm-wrapped iterable (the encoder's frame loop) when
+  available/enabled, else the plain iterable.
 * ``byte_bar()`` — tqdm byte-progress bar when available/enabled.
 """
 
@@ -84,6 +86,19 @@ def trace(log_dir: str = None):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def progress(iterable, desc: str = "", enabled: bool = True):
+    """tqdm-wrapped iterable (the reference's progress observability,
+    MP3_Encoder.py:607), degrading to the plain iterable when disabled or
+    tqdm is missing."""
+    if not enabled:
+        return iterable
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return iterable
+    return tqdm(iterable, desc=desc)
 
 
 class _NullBar:

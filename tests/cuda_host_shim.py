@@ -10,8 +10,9 @@ rewritten by text.
 
 Used by ``tests/test_torch_search_kernel.py`` (K4),
 ``tests/test_torch_analysis_kernel.py`` (K3),
-``tests/test_torch_granule_kernel.py`` (K2) and
-``tests/test_torch_huffman_kernel.py`` (the Huffman bit-scan).
+``tests/test_torch_granule_kernel.py`` (K2),
+``tests/test_torch_huffman_kernel.py`` (the Huffman bit-scan) and
+``tests/test_torch_cost_grid_kernel.py`` (K5, the cost grid).
 """
 
 import ctypes
@@ -48,6 +49,7 @@ HOST_SHIM = r"""#pragma once
 #define __grid_constant__
 
 struct alignas(8) int2 { int x, y; };
+struct alignas(8) uint2 { unsigned x, y; };
 struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
@@ -106,6 +108,17 @@ template <class T> inline T __shfl_sync(unsigned, T v, int src) {
   w.bar.arrive_and_wait();
   return s;
 }
+inline unsigned __ballot_sync(unsigned, int pred) {
+  ShimWarp& w = shim_warp();
+  w.vals[threadIdx.x & 31] = pred != 0;
+  w.bar.arrive_and_wait();
+  unsigned b = 0;
+  for (int i = 0; i < 32; ++i) b |= static_cast<unsigned>(w.vals[i] != 0) << i;
+  w.bar.arrive_and_wait();
+  return b;
+}
+inline int __any_sync(unsigned m, int pred) { return __ballot_sync(m, pred) != 0; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __mulhi(int a, int b) {
   return static_cast<int>((static_cast<long long>(a) * b) >> 32);
 }

@@ -967,3 +967,103 @@ def test_granule_kernel_refuses_what_it_cannot_launch(card):
         dp.granule_blocks({k: v for k, v in prep.items() if k != "raw_i8"},
                           torch.float32)
     assert dp.launches == before
+
+
+def _grid_lanes() -> np.ndarray:
+    from chip_smoke import grid_lanes
+    return np.ascontiguousarray(np.concatenate(
+        [_search_lanes(n)[0] for n in ("fixture", "loud", "escape", "forced",
+                                       "int32_min")] + [grid_lanes()]))
+
+
+@pytest.mark.parametrize("with_hide", [False, True])
+@pytest.mark.parametrize("sr_idx", [0, 5, 8, 13])
+def test_cost_grid_kernel_equals_plain_version(card, sr_idx, with_hide):
+    """K5 (``csrc/cost_grid.cu``) against its plain version, both on the
+    card, in one launch: every row of every cell bit for bit on the golden
+    fixture's spectra and the seeded, forced-flag, INT32_MIN and edge
+    lanes; the wrapper's host dict equals the plain version's."""
+    from mp3stego_tpu_torch.ops import quant_batch as QB
+    xr = torch.from_numpy(_grid_lanes()).to(card)
+    rows = QB.ROWS_HIDE if with_hide else QB.ROWS_CLEAR
+    before = QB.launches
+    got = QB._launch(xr, sr_idx, rows)
+    want = QB.cost_all_steps_torch(xr, sr_idx, with_hide)
+    torch.cuda.synchronize()
+    assert QB.launches == before + 1
+    assert got.shape == want.shape == (rows, xr.shape[0], 128)
+    for r in range(rows):
+        assert torch.equal(got[r], want[r]), r
+    cells = QB.cost_all_steps(xr, sr_idx, with_hide)
+    assert QB.launches == before + 2
+    for k, v in QB._unpack(want.cpu().numpy(), with_hide).items():
+        assert cells[k].dtype == v.dtype and np.array_equal(cells[k], v), k
+
+
+def test_cost_grid_kernel_takes_numpy_and_empty_spectra(card):
+    from mp3stego_tpu_torch.ops import quant_batch as QB
+    xr = _grid_lanes()
+    before = QB.launches
+    got = QB.cost_all_steps(xr, 0, True)                 # to CUDA, launched
+    assert QB.launches == before + 1
+    want = QB.cost_all_steps(torch.from_numpy(xr), 0, True)   # the CPU
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+    empty = QB.cost_all_steps(torch.from_numpy(xr[:0]).to(card), 0)
+    assert QB.launches == before + 1
+    assert all(v.shape == (0, 128) for v in empty.values())
+
+
+def test_cost_grid_kernel_refuses_what_it_cannot_launch(card):
+    from mp3stego_tpu_torch.ops import quant_batch as QB
+    xr = torch.from_numpy(_grid_lanes()).to(card)
+    with pytest.raises(ValueError, match="int32"):
+        QB.cost_all_steps(xr.to(torch.int64), 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        QB.cost_all_steps(xr.T.contiguous().T, 0)
+    with pytest.raises(ValueError, match="576"):
+        QB.cost_all_steps(xr[:, :288].contiguous(), 0)
+
+
+@pytest.mark.parametrize("case", ["clear", "hidden_short", "hidden_long",
+                                  "hidden_toolong", "vbr"])
+def test_card_grid_engine_bytes(card, case, tmp_path, monkeypatch):
+    """The cost-grid engine (``MP3STEGO_TPU_SEARCH_PLANE=0``) on the card:
+    the goldens' bytes and the plane engine's, one K3 and one K5 launch a
+    clear or hidden encode (VBR adds its K4 step costs)."""
+    import os
+    from mp3stego_tpu_torch.models.encoder import MP3Encoder
+    from mp3stego_tpu_torch.ops import encode_plane as EP
+    from mp3stego_tpu_torch.ops import quant_batch as QB
+    from mp3stego_tpu_torch.steganography import _frame_message
+    from mp3stego_tpu_torch.utils.wav import read_wav
+    gdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+    sg = np.load(os.path.join(gdir, "stego_golden.npz"))
+    wav = tmp_path / "g.wav"
+    wav.write_bytes(sg["wav_bytes"].tobytes())
+    msg = {"hidden_short": "ddd", "hidden_toolong": "ddd" * 100,
+           "hidden_long": sg["msg_long"].tobytes().decode()}.get(case)
+    bits = "" if msg is None else _frame_message(msg)
+    kbps = 160 if case == "vbr" else 320
+
+    def encode():
+        enc = MP3Encoder(read_wav(str(wav), kbps), hide_str=bits,
+                         vbr=case == "vbr", device=card)
+        enc.encode()
+        return enc
+
+    monkeypatch.setenv("MP3STEGO_TPU_SEARCH_PLANE", "0")
+    k3, k5 = EP.launches, QB.launches
+    grid = encode()
+    assert QB.launches == k5 + 1
+    if case != "vbr":
+        assert EP.launches == k3 + 1
+    monkeypatch.delenv("MP3STEGO_TPU_SEARCH_PLANE")
+    plane = encode()
+    assert bytes(grid.out_buffer) == bytes(plane.out_buffer)
+    assert grid.hide_str_offset == plane.hide_str_offset
+    if case == "clear":
+        want = np.load(os.path.join(gdir, "encode_golden.npz"))["mp3_bytes"]
+        assert bytes(grid.out_buffer) == want.tobytes()
+    elif msg is not None:
+        assert bytes(grid.out_buffer) == sg[case].tobytes()
