@@ -152,6 +152,29 @@ K2_INSTANCES = {(F32, False): "granule_kernelIfa",
 K5_OPS_SAMPLE = 7 + 1 + 4
 K5_OPS_QUAD = K4_OPS_QUAD
 K5_OPS_PAIR = K4_OPS_PAIR
+# the integer operations K5's function needs on this run's data, in the
+# form csrc/cost_grid.cu computes it (grid_need_bound; K5_OPS_* above stay
+# PR 15's yardstick, which quantizes every sample of every cell): a lane's
+# true |x|, its suffix maxima and its int32-wrapped maximum (3 a sample);
+# a cell's bail (product, rounding add, shift, compare: 4), its ixmax and
+# approx from the lane's largest |x| (a quantize of 3, clip, gather, two
+# tests: 7), two 10-probe searches of the suffix maxima for the last
+# nonzero and the last sample above 1 (a quantize and a compare, 4 a
+# probe: 80), the run lengths (6), the subdivide's read (1), three
+# regions' table choice (the ESC rules' read, two costs of a product and
+# an add, two compares and two selects: 8 each) and bits (4); a sample it
+# reads (below the end of its quads or of its last region: product,
+# rounding add, shift, clip); a pair below the last region's end (two
+# int2idx gathers, its index into the pair table (two clips, one
+# shift-add) and the table's read, its region (two compares) with the
+# 64-bit add of its 5 packed sums (2), its max and its region's (2)); a
+# count1 quad (its pattern's 3 shifts and 3 ors, the signs as one
+# population count, 2 table lengths and 4 adds)
+K5_NEED_LANE = 576 * 3
+K5_NEED_CELL = 4 + 7 + 2 * 10 * 4 + 6 + 1 + 3 * 8 + 4
+K5_NEED_SAMPLE = 4
+K5_NEED_PAIR = 2 + 3 + 1 + 2 + 2 + 2
+K5_NEED_QUAD = 6 + 1 + 2 + 4
 GRID_SECONDS = 30                            # the grid engine's song slice
 # the hand kernels, each module with its wrapper's launch count
 KERNELS = {"granule": dp, "synth_fused": sf, "huffman_scan": hd,
@@ -1852,6 +1875,25 @@ def grid_bound(n: int, rows: int, work: dict):
     return by_ops, "operations", nbytes, ops
 
 
+def grid_need_bound(n: int, rows: int, work: dict):
+    """The least time for K5's work on the card as ``grid_bound``, with the
+    operations the function needs on this run's data (``K5_NEED_*``): each
+    lane's suffix maxima, each cell's constants, the samples it reads, the
+    pairs below its last region's end and its count1 quads, the counts from
+    the plain version's ``work``. Returns (ms, "bytes" or "operations",
+    bytes, operations)."""
+    nbytes = 4 * n * 576 + 2 * rows * n * QB.S_STEPS
+    ops = (n * K5_NEED_LANE + work["cells"] * K5_NEED_CELL
+           + work["samples"] * K5_NEED_SAMPLE
+           + work["region_pairs"] * K5_NEED_PAIR
+           + work["quads"] * K5_NEED_QUAD)
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = ops / PEAK_INT_OPS_S * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes", nbytes, ops
+    return by_ops, "operations", nbytes, ops
+
+
 @contextlib.contextmanager
 def grid_engine():
     """The cost-grid engine (``MP3STEGO_TPU_SEARCH_PLANE=0``) while the
@@ -1867,13 +1909,16 @@ def grid_engine():
             os.environ["MP3STEGO_TPU_SEARCH_PLANE"] = old
 
 
-def grid_phase(dev, card: str, tmp: str, wav64: str, runs: Paths) -> dict:
+def grid_phase(dev, card: str, tmp: str, wav64: str, seeded_wav: str,
+               runs: Paths) -> dict:
     """Phase 20: the cost grid K5 (``csrc/cost_grid.cu``) bit for bit its
     plain version on the card, clear (7 rows) and with the hide channels
-    (27): every lane of the song, the search's seeded and forced-flag
-    lanes and the grid's edge lanes, on MPEG-1, MPEG-2 and MPEG-2.5 band
-    rows; K5 and the plain version by CUDA events on the song, each beside
-    its bound, with the kernel's registers, shared memory and spills (a
+    (27): every lane of the song and of the seeded song (which repeats
+    nothing), the search's seeded and forced-flag lanes and the grid's edge
+    lanes, on MPEG-1, MPEG-2 and MPEG-2.5 band rows; K5 and the plain
+    version by CUDA events on the song, K5 on the seeded song, each beside
+    its bound on that data (``grid_need_bound``; PR 15's ``grid_bound``
+    beside it), with the kernel's registers, shared memory and spills (a
     spill fails the phase) and resident warps an SM. Then the cost-grid
     engine (``MP3STEGO_TPU_SEARCH_PLANE=0``) on a 30 s slice of the song,
     clear, hidden at 90 % of its channel and VBR, and on the goldens: bytes
@@ -1924,20 +1969,26 @@ def grid_phase(dev, card: str, tmp: str, wav64: str, runs: Paths) -> dict:
                 fns[pre + which], 1 if which == "plain" else 10))
     best = {k: min(v) for k, v in times.items()}
     n = xr.shape[0]
-    bound, by, nbytes, ops = grid_bound(n, QB.ROWS_CLEAR, work)
-    hbound, hby, hbytes, _ = grid_bound(n, QB.ROWS_HIDE, work)
+    bound, by, nbytes, ops = grid_need_bound(n, QB.ROWS_CLEAR, work)
+    hbound, hby, hbytes, _ = grid_need_bound(n, QB.ROWS_HIDE, work)
+    pr15 = grid_bound(n, QB.ROWS_CLEAR, work)
+    hpr15 = grid_bound(n, QB.ROWS_HIDE, work)[0]
     _say("20 K5", f"[{card}] song grid, {n} lanes x 128 steps "
-                  f"({work['cells']} cells, {work['pairs']} big-values pairs, "
+                  f"({work['cells']} cells, {work['samples']} samples read, "
+                  f"{work['region_pairs']} pairs below the last region's "
+                  f"end, {work['pairs']} big-values pairs, "
                   f"{work['quads']} count1 quads), clear: kernel "
                   f"{times['kernel']} ms, bound {bound:.4f} ms by {by} "
                   f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G int ops), at "
-                  f"{bound / best['kernel']:.1%} of it; plain "
-                  f"{times['plain']} ms (plain/kernel "
-                  f"{best['plain'] / best['kernel']:.1f}x)")
+                  f"{bound / best['kernel']:.1%} of it (PR 15's bound "
+                  f"{pr15[0]:.4f} ms, {pr15[3] / 1e9:.3f} G int ops: "
+                  f"{pr15[0] / best['kernel']:.1%}); plain {times['plain']} "
+                  f"ms (plain/kernel {best['plain'] / best['kernel']:.1f}x)")
     _say("20 K5", f"[{card}] song grid with the hide channels: kernel "
                   f"{times['hide kernel']} ms, bound {hbound:.4f} ms by {hby} "
                   f"({hbytes / 1e6:.1f} MB), at "
-                  f"{hbound / best['hide kernel']:.1%} of it; plain "
+                  f"{hbound / best['hide kernel']:.1%} of it (PR 15's bound "
+                  f"{hpr15:.4f} ms: {hpr15 / best['hide kernel']:.1%}); plain "
                   f"{times['hide plain']} ms")
     res = _cuda.ptxas_resources("cost_grid", "cost_grid_kernel")
     occ = QB.occupancy(dev)
@@ -1951,6 +2002,32 @@ def grid_phase(dev, card: str, tmp: str, wav64: str, runs: Paths) -> dict:
     if res["spill_stores"] or res["spill_loads"]:
         raise AssertionError("cost_grid_kernel spills registers")
     del xr, xs, fns
+    torch.cuda.empty_cache()
+
+    # the seeded song: its grid bit for bit, K5's time and its bound there
+    es = MP3Encoder(read_wav(seeded_wav, 320), device=dev)
+    xq = es._analysis_device(es._num_frames())
+    swork = {}
+    err = max(err, hold_grid("seeded song, clear", xq, band, False, swork))
+    err = max(err, hold_grid("seeded song, hide channels", xq, band, True))
+    st = {rows: [_card_ms(lambda: QB._launch(xq, band, rows))
+                 for _ in range(2)] for rows in (QB.ROWS_CLEAR, QB.ROWS_HIDE)}
+    sb, sby, _, sops = grid_need_bound(xq.shape[0], QB.ROWS_CLEAR, swork)
+    sbh = grid_need_bound(xq.shape[0], QB.ROWS_HIDE, swork)[0]
+    sold = grid_bound(xq.shape[0], QB.ROWS_CLEAR, swork)[0]
+    _say("20 K5", f"[{card}] seeded song grid, {xq.shape[0]} lanes "
+                  f"({swork['samples']} samples read, "
+                  f"{swork['region_pairs']} pairs below the last region's "
+                  f"end, {swork['pairs']} big-values pairs, "
+                  f"{swork['quads']} count1 quads), bitwise the plain "
+                  f"version clear and with the hide channels: kernel "
+                  f"{st[QB.ROWS_CLEAR]} ms clear, bound {sb:.4f} ms by {sby} "
+                  f"({sops / 1e9:.3f} G int ops), at "
+                  f"{sb / min(st[QB.ROWS_CLEAR]):.1%} of it (PR 15's bound "
+                  f"{sold:.4f} ms: {sold / min(st[QB.ROWS_CLEAR]):.1%}); "
+                  f"{st[QB.ROWS_HIDE]} ms with the hide channels, at "
+                  f"{sbh / min(st[QB.ROWS_HIDE]):.1%} of its bound")
+    del xq, es
     torch.cuda.empty_cache()
 
     # the cost-grid engine on a 30 s slice of the song
@@ -2019,7 +2096,7 @@ def grid_phase(dev, card: str, tmp: str, wav64: str, runs: Paths) -> dict:
                 replaces="mp3stego_tpu/ops/quant_batch.py:55",
                 launches=runs.launches("cost_grid"), max_abs_err=err,
                 ms=best["kernel"], plain_ms=best["plain"], bound_ms=bound,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, bound_pr15_ms=pr15[0])
 
 
 def library_pair(blk: torch.Tensor):
@@ -2550,7 +2627,8 @@ def main() -> int:
         # ---- phase 20: K5 bit for bit its plain version on the song and
         # the seeded lanes, timed with its bound; the cost-grid engine's
         # clear, hide and VBR encodes of a 30 s slice and of the goldens
-        grid_row = grid_phase(dev, card, tmp, wav64, runs)
+        grid_row = grid_phase(dev, card, tmp, wav64,
+                              enc_out["seeded_wav"], runs)
 
         # ---- phase 7: K1's time on the song's own blocks in both dtypes,
         # beside its plain version and the library pair, each with its bound

@@ -250,6 +250,15 @@ def _cost_pack(xr, band, with_hide: bool, c, work=None):
         work["cells"] = work.get("cells", 0) + c1.numel()
         work["pairs"] = work.get("pairs", 0) + int(out["bv"].sum())
         work["quads"] = work.get("quads", 0) + int(c1.sum())
+        # what the cells read: the samples below max(i0, e) and the pairs
+        # that start below e, e = max(bvr, a2) the end of the last region
+        # and i0 = bvr + 4 c1 the end of the count1 quads
+        bvr = 2 * out["bv"].to(torch.int64)
+        a2 = out["a2"].to(torch.int64)
+        work["samples"] = work.get("samples", 0) + int(
+            torch.maximum(bvr + 4 * c1, a2).sum())
+        work["region_pairs"] = work.get("region_pairs", 0) + int(
+            ((torch.maximum(bvr, a2) + 1) >> 1).sum())
     if with_hide:
         out.update(out_hide)
     rows = [out[k].to(torch.int16) for k in _BASE_KEYS]
@@ -280,7 +289,10 @@ def cost_all_steps_torch(xr: torch.Tensor, sr_idx: int,
     (rows, N, 128) int16 tensor the kernel writes (7 rows, 27 with
     ``with_hide``), ``CHUNK`` lanes at a time. ``work``, when given,
     gathers the function's work on this data: ``cells``, ``pairs`` (the
-    cells' big-values pairs) and ``quads`` (their count1 quads)."""
+    cells' big-values pairs), ``quads`` (their count1 quads), ``samples``
+    (the samples below the end of the quads or of the last region, the
+    ones a cell reads) and ``region_pairs`` (the pairs below the end of
+    the last region)."""
     _check(xr)
     c = _consts(xr.device)
     band = c["band"][sr_idx]
@@ -310,16 +322,33 @@ def _unpack(packed: np.ndarray, with_hide: bool) -> dict:
     return out
 
 
+def esc_table() -> np.ndarray:
+    """The ESC families' choice as a function of a region's largest ix m
+    (0 .. int2idx's largest, 1000), (1001,) int32: t16 | t24 << 8 |
+    linbits(t16) << 16 | linbits(t24) << 24, with t16 = 15 +
+    #(linmax[15..23] < m - 15) and t24 = 24 + #(linmax[24..31] < m - 15),
+    their linbits indices clipped as ``_cost_all_steps`` clips them."""
+    m = np.arange(int(T.loop_tables()[2].max()) + 1)[:, None] - 15
+    t16 = 15 + (T.HUFF_LINMAX[15:24] < m).sum(axis=1)
+    t24 = 24 + (T.HUFF_LINMAX[24:32] < m).sum(axis=1)
+    lb = T.HUFF_LINBITS.astype(np.int64)
+    return (t16 | t24 << 8 | lb[np.minimum(t16, 31)] << 16
+            | lb[np.clip(t24, 24, 31)] << 24).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_tables(device: torch.device, sr_idx: int) -> tuple:
-    """:func:`_consts` packed for the kernel: the small tables (297,) int32
-    (steptabi 128, linmax 34, linbits 34, SUBDV_TABLE 46, the count1 lengths
-    q0 16 and q1 16, the band row 23), int2idx (10000,) int16 and the pair
-    lengths of tables 13, 15, 16 and 24 (4 * 256,) uint8 [t, x, y]."""
+    """:func:`_consts` packed for the kernel: the small tables (1230,)
+    int32 (steptabi 128, SUBDV_TABLE 46, the count1 lengths q0 16 and q1
+    16, the band row 23, :func:`esc_table` 1001: the ESC rules as the
+    kernel reads them),
+    int2idx (10000,) int16 and the pair lengths of tables 13, 15, 16 and 24
+    (4 * 256,) uint8 [t, x, y]."""
     c = _consts(device)
-    small = torch.cat([c["steptabi"].to(torch.int32), c["linmax"],
-                       c["linbits"], c["subdv"].reshape(-1), c["q0"],
-                       c["q1"], c["band"][sr_idx]])
+    small = torch.cat([c["steptabi"].to(torch.int32),
+                       c["subdv"].reshape(-1), c["q0"], c["q1"],
+                       c["band"][sr_idx],
+                       torch.from_numpy(esc_table()).to(device)])
     hlen = torch.cat([c[k].reshape(-1) for k in ("h13", "h15", "h16",
                                                  "h24")])
     return small, c["int2idx"].to(torch.int16), hlen.to(torch.uint8)

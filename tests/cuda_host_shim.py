@@ -108,6 +108,15 @@ template <class T> inline T __shfl_sync(unsigned, T v, int src) {
   w.bar.arrive_and_wait();
   return s;
 }
+template <class T> inline T __shfl_down_sync(unsigned, T v, unsigned d) {
+  ShimWarp& w = shim_warp();
+  const unsigned l = threadIdx.x & 31;
+  w.vals[l] = static_cast<long long>(v);
+  w.bar.arrive_and_wait();
+  T s = static_cast<T>(w.vals[l + d < 32 ? l + d : l]);
+  w.bar.arrive_and_wait();
+  return s;
+}
 inline unsigned __ballot_sync(unsigned, int pred) {
   ShimWarp& w = shim_warp();
   w.vals[threadIdx.x & 31] = pred != 0;

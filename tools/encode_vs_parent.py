@@ -39,6 +39,19 @@ registers and shared memory where the tree has no query) and writes the
 kernel's SASS to ``chiprun_out/k3_<the tree's directory>.sass`` with a
 count of each loop's instructions by pipe. ``--alone`` times only the
 kernels alone.
+
+Each worker also times the cost grid K5 alone (``quant_batch._launch``,
+CUDA events behind a card spin, the median of 10 after a warm-up) on the
+song's 36,864 lanes and on the seeded song's (``chip_smoke.seeded_song``,
+as long as the song and repeating nothing), each clear (7 rows) and with
+the hide channels (27 rows); the spectra are computed once, before the
+workers, by this checkout's K3, and the bound of each (``chip_smoke.
+grid_need_bound``, and PR 15's ``grid_bound``) from the plain version's
+work counts on them. Each grid's SHA-256 must be the same in all four
+workers. It keeps K5's ``-Xptxas -v`` lines and CTAs an SM and writes its
+SASS to ``chiprun_out/k5_<the tree's directory>.sass`` with a count of
+each loop's instructions by pipe. ``--alone --only grid`` times K5 alone
+and nothing else.
 """
 
 import collections
@@ -56,6 +69,7 @@ import vs_parent
 
 SONG_COPIES = 256
 HIDE_SHARE = 0.9
+GRID_DATA = ("song", "seeded song")
 
 
 def search_alone(wav: str, dev, sha: dict) -> tuple:
@@ -192,6 +206,8 @@ def sass_loops(sass: str, kernel: str) -> dict:
                             if o.startswith("IMAD.HI")),
                 pipes=dict(collections.Counter(_pipe(o) for _, o, _ in
                                                body)),
+                opcodes=dict(collections.Counter(
+                    o.split(".")[0] for _, o, _ in body).most_common()),
                 loops=loops)
 
 
@@ -255,23 +271,64 @@ def analysis_alone(wav: str, dev, sha: dict, label: str) -> tuple:
         occ = dict(ctas=_estimate_ctas(res["registers"],
                                        smem + res["smem"], 256),
                    warps=8, smem=smem, source="estimated from ptxas")
-    sass = {}
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    r = subprocess.run([tool, "-sass", info["path"]], capture_output=True,
-                       text=True, timeout=300)
-    if r.returncode == 0:
-        path = os.path.join(vs_parent.REPO, "chiprun_out", f"k3_{label}.sass")
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "w") as f:
-            f.write(r.stdout)
-        sass = sass_loops(r.stdout, "analysis_kernel")
-    else:
-        sass = dict(error=(r.stdout + r.stderr)[-2000:])
+    sass = _sass(info["path"], "analysis_kernel", f"k3_{label}.sass")
     return dict(ms=ms, dims=dims), dict(ptxas=ptxas, **occ), sass
 
 
-def worker(root: str, tmp: str, alone: bool = False) -> dict:
-    """Times every encode path of the tree at ``root`` on the card."""
+def _sass(lib: str, kernel: str, name: str) -> dict:
+    """``cuobjdump -sass`` of the library ``lib`` written to
+    ``chiprun_out/<name>``, and ``kernel``'s counts (``sass_loops``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    r = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0:
+        return dict(error=(r.stdout + r.stderr)[-2000:])
+    path = os.path.join(vs_parent.REPO, "chiprun_out", name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(r.stdout)
+    return sass_loops(r.stdout, kernel)
+
+
+def _grid_file(tmp: str, data: str) -> str:
+    return os.path.join(tmp, f"grid_{data.replace(' ', '_')}.npy")
+
+
+def grid_alone(tmp: str, dev, sha: dict, label: str) -> dict:
+    """K5 alone on the song's and the seeded song's spectra, clear and with
+    the hide channels: the ms of each, the build's ptxas lines, CTAs and
+    warps an SM, and the SASS count; each grid goes into ``sha``."""
+    import numpy as np
+    import torch
+    from mp3stego_tpu_torch.ops import _cuda
+    from mp3stego_tpu_torch.ops import quant_batch as QB
+    with open(os.path.join(tmp, "grid.json")) as f:
+        inputs = json.load(f)
+    band = inputs["band"]
+    ms = {}
+    for data in GRID_DATA:
+        xr = torch.from_numpy(np.load(_grid_file(tmp, data))).to(dev)
+        for rows, what in ((QB.ROWS_CLEAR, "clear"),
+                           (QB.ROWS_HIDE, "hide channels")):
+            name = f"{data}, {what}"
+            fn = lambda: QB._launch(xr, band, rows)  # noqa: E731
+            sha[f"K5 {name}"] = hashlib.sha256(
+                fn().cpu().numpy().tobytes()).hexdigest()
+            ms[name] = _card_ms(fn)
+        del xr
+    info = _cuda.builds["cost_grid"]
+    ptxas = [line.strip() for line in info["log"].splitlines()
+             if "registers" in line or "spill" in line]
+    return dict(ms=ms, ptxas=ptxas, bounds=inputs["bounds"],
+                **QB.occupancy(dev),
+                sass=_sass(info["path"], "cost_grid_kernel",
+                           f"k5_{label}.sass"))
+
+
+def worker(root: str, tmp: str, alone: bool = False,
+           only: str = None) -> dict:
+    """Times every encode path of the tree at ``root`` on the card; with
+    ``alone`` the kernels alone only (``only="grid"``: K5 only)."""
     vs_parent.import_tree(root)
     import numpy as np
     import torch
@@ -282,6 +339,10 @@ def worker(root: str, tmp: str, alone: bool = False) -> dict:
     dev = torch.device("cuda")
     wav = os.path.join(tmp, "song.wav")
     out, sha, stage = {}, {}, {}
+    label = os.path.basename(os.path.abspath(root))
+    if only == "grid":
+        return dict(root=root, walls_ms={}, sha=sha,
+                    grid_alone=grid_alone(tmp, dev, sha, label))
 
     def encode(bits="", kbps=320, vbr=False):
         enc = MP3Encoder(read_wav(wav, kbps), hide_str=bits, device=dev,
@@ -306,11 +367,11 @@ def worker(root: str, tmp: str, alone: bool = False) -> dict:
 
     usable = encode().hide_str_offset                       # warm-up
     k4_ms, k4_build = search_alone(wav, dev, sha)
-    label = os.path.basename(os.path.abspath(root))
     k3, k3_build, k3_sass = analysis_alone(wav, dev, sha, label)
     alone_record = dict(root=root, search_alone_ms=k4_ms,
                         search_build=k4_build, analysis_alone=k3,
-                        analysis_build=k3_build, analysis_sass=k3_sass)
+                        analysis_build=k3_build, analysis_sass=k3_sass,
+                        grid_alone=grid_alone(tmp, dev, sha, label))
     if alone:
         return dict(walls_ms={}, analysis_stage_ms={}, sha=sha,
                     **alone_record)
@@ -369,15 +430,73 @@ def _write_inputs(tmp: str) -> None:
         f.write((mp3.tobytes() + b"\0") * SONG_COPIES)
     Steganography(quiet=True, device="cpu").decode_mp3_to_wav(
         song, os.path.join(tmp, "song.wav"))
+    _write_grid_inputs(tmp)
+
+
+def _write_grid_inputs(tmp: str) -> None:
+    """K5's inputs: the song's spectra and the seeded song's (this
+    checkout's K3 on the card), and in ``grid.json`` their band row and the
+    bounds of each from the plain version's work counts."""
+    import numpy as np
+    import torch
+    from chip_smoke import grid_bound, grid_need_bound, seeded_song
+    from mp3stego_tpu_torch.models.encoder import MP3Encoder
+    from mp3stego_tpu_torch.ops import quant_batch as QB
+    from mp3stego_tpu_torch.utils.wav import read_wav
+    dev = torch.device("cuda")
+    song = os.path.join(tmp, "song.wav")
+    wavs = {"song": song, "seeded song": os.path.join(tmp, "seeded.wav")}
+    seeded_song(wavs["seeded song"], read_wav(song, 320).num_of_samples
+                / 44100)
+    band, bounds = None, {}
+    for data in GRID_DATA:
+        enc = MP3Encoder(read_wav(wavs[data], 320), device=dev)
+        xr = enc._analysis_device(enc._num_frames())
+        band = enc.band_row
+        np.save(_grid_file(tmp, data), xr.cpu().numpy())
+        work = {}
+        QB.cost_all_steps_torch(xr, band, False, work=work)
+        for rows, what in ((QB.ROWS_CLEAR, "clear"),
+                           (QB.ROWS_HIDE, "hide channels")):
+            ms, by, nbytes, ops = grid_need_bound(xr.shape[0], rows, work)
+            pr15 = grid_bound(xr.shape[0], rows, work)
+            bounds[f"{data}, {what}"] = dict(
+                lanes=xr.shape[0], bound_ms=ms, bound_by=by, bytes=nbytes,
+                operations=ops, bound_pr15_ms=pr15[0],
+                operations_pr15=pr15[3], **work)
+        del xr
+    torch.cuda.empty_cache()
+    with open(os.path.join(tmp, "grid.json"), "w") as f:
+        json.dump(dict(band=band, bounds=bounds), f)
 
 
 def main() -> int:
     args = vs_parent.parse_args(__doc__, "encode_vs_parent.json",
-                                alone=True)
+                                alone=True, only=("grid",))
     if args.worker:
-        print(json.dumps(worker(args.worker, args.tmp, args.alone)))
+        print(json.dumps(worker(args.worker, args.tmp, args.alone,
+                                args.only)))
         return 0
+    if args.only and not args.alone:
+        raise SystemExit("--only takes --alone")
     card, runs, med = vs_parent.compare(__file__, args, _write_inputs)
+    k5 = {}
+    for name, bound in runs[0]["grid_alone"]["bounds"].items():
+        k5[name] = dict(bound)
+        for which in ("parent", "change"):
+            times = sorted(r["grid_alone"]["ms"][name] for r in runs
+                           if r["tree"] == which)
+            k5[name][which] = dict(ms=times, share_of_bound=[
+                bound["bound_ms"] / t for t in times],
+                share_of_bound_pr15=[bound["bound_pr15_ms"] / t
+                                     for t in times])
+    grid_build = {r["tree"]: {k: v for k, v in r["grid_alone"].items()
+                              if k not in ("ms", "bounds")}
+                  for r in runs[::-1]}
+    if args.only == "grid":
+        vs_parent.write(args.out, card, runs, med, grid_alone=k5,
+                        grid_build=grid_build)
+        return 0
     sys.path.insert(0, vs_parent.REPO)
     from chip_smoke import analysis_bound
     alone, k3 = {}, {}
@@ -401,7 +520,8 @@ def main() -> int:
             r["tree"]: r["search_build"] for r in runs[::-1]
             if r["search_build"]["ptxas"]},
         analysis_alone=k3, analysis_build={
-            r["tree"]: r["analysis_build"] for r in runs[::-1]})
+            r["tree"]: r["analysis_build"] for r in runs[::-1]},
+        grid_alone=k5, grid_build=grid_build)
     return 0
 
 
