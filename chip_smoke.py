@@ -23,12 +23,20 @@ device Huffman engine; the mesh: the song's frame-sharded decode over 2, 4
 and 8 shards, K1 after a halo, and the batches on a 4-entry ``files``
 mesh, on the visible cards in turn or on repeated entries of one card;
 the cost-grid encode engine on a 30 s slice of the song, clear, hidden and
-VBR),
+VBR; then the engine choice, measured: the probe of ``utils/calibrate.py``,
+the engine its cost models pick for the smoke's inputs, a 1 s slice and
+the 32-file batch through the entry point's default (the card) and both
+engines its override pins,
+the song's ``ix`` and 8-shard PCM fetched through pinned staging and
+through ``.cpu()``, a traced clear encode and hide read back by the
+device-trace readers (idle share, device ms per stage), and
+``decode_pcm_device`` on the song),
 checks every output against the bit-exact host
 planes, the single-file paths and the goldens, and times it. Each main path
 runs with every kernel's launch count set to 0 just before it and read just
-after; a path that launched none of its kernels fails. Every phase raises on
-a fault; nothing is caught. The last line of standard output is ``{"ok":
+after; a path that launched none of its kernels fails. Every phase but 21
+runs the entry points' default engines (no override set: the card). Every
+phase raises on a fault; nothing is caught. The last line of standard output is ``{"ok":
 true, "device": {...}}``; the line before it lists the kernels (launches
 during the main-path runs, error against the plain version, times, bound,
 library time), and the one before that the card's name and power limit.
@@ -2370,6 +2378,226 @@ def granule_phase(dev, card: str, tmp: str, song: str, errs: dict) -> None:
                   f"{', '.join(names)} and the song's device-Huffman plane")
 
 
+# the engine overrides of utils/calibrate.py, which phase 21 sets per run
+OVERRIDES = ("MP3STEGO_TPU_BATCH_HOST_G", "MP3STEGO_TPU_BATCH_ENC_HOST",
+             "MP3STEGO_TPU_ENC_HOST")
+# each hand kernel's module and the name its CUDA kernel has in a trace
+TRACE_NAMES = {"granule": "granule_kernel", "synth_fused": "synth_fused_kernel",
+               "analysis": "analysis_kernel", "search": "rate_search_kernel",
+               "huffman_scan": "huffman_scan_kernel",
+               "cost_grid": "cost_grid_kernel"}
+
+
+@contextlib.contextmanager
+def engines(**env):
+    """The block with the engine overrides ``env`` and no other (a value of
+    None: that override unset, the entry point's default, the card)."""
+    saved = {k: os.environ.get(k) for k in OVERRIDES}
+    try:
+        for k in OVERRIDES:
+            os.environ.pop(k, None)
+        os.environ.update({k: v for k, v in env.items() if v is not None})
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _turns_ms(fns: dict, rounds: int = 5) -> dict:
+    """Each function once to warm up, then ``rounds`` rounds in turns, the
+    order reversed every other round, each call synchronised (host clock):
+    name -> the median ms."""
+    for fn in fns.values():
+        fn()
+    times, names = {k: [] for k in fns}, list(fns)
+    for r in range(rounds):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def engine_phase(dev, card: str, tmp: str, song: str, wav64: str,
+                 enc_out: dict, inputs: dict, runs: Paths) -> None:
+    """Phase 21: the engine choice (``utils/calibrate.py``), the pinned
+    transfers (``utils/transfer.py``), the device-trace readers
+    (``utils/profiling.py``) and ``decode_pcm_device``, on the song and
+    phase 12's and 13's batches."""
+    from mp3stego_tpu_torch.parallel import (decode_files_batched,
+                                             frame_shard as FS, make_mesh)
+    from mp3stego_tpu_torch.utils import calibrate as C
+    from mp3stego_tpu_torch.utils import profiling as P
+    from mp3stego_tpu_torch.utils.transfer import fetch_concat
+
+    # the probe, measured here (no entry point measures or reads one)
+    probe = C.measure_probe(dev)
+    _say("21 engine", f"[{card}] measure_probe: {json.dumps(probe.__dict__)}")
+
+    with open(song, "rb") as f:
+        song_b = f.read()
+    parsed = dh.parse_mp3(song_b)
+    second_frames = 39                                    # 1.02 s
+    second = _write(os.path.join(tmp, "second.mp3"),
+                    _frame_slice(song_b, parsed, 0, second_frames))
+    paths, jobs = inputs["paths"], inputs["jobs"]
+    g_batch = 2 * sum(m.num_frames for m in inputs["metas"])
+    g_jobs = 2 * sum(MP3Encoder(read_wav(w, 320), device=dev)._num_frames()
+                     for w, _ in jobs)
+    picks = {
+        "song, single encode": C.single_encode_engine(probe, dev),
+        "song, int16 decode": C.batch_decode_engine(
+            2 * parsed.num_frames, probe, dev),
+        "32-file decode batch": C.batch_decode_engine(g_batch, probe,
+                                                      dev),
+        "9-file encode batch": C.batch_encode_engine(g_jobs, probe, dev),
+        "1 s slice, decode": C.batch_decode_engine(
+            2 * second_frames, probe, dev),
+        "1 s slice, encode": C.batch_encode_engine(
+            2 * second_frames, probe, dev),
+        "7-frame window, decode": C.batch_decode_engine(14, probe, dev),
+        "7-frame window, encode": C.batch_encode_engine(14, probe, dev),
+    }
+    _say("21 engine", f"[{card}] the cost model's picks: " + "; ".join(
+        f"{k} -> {v}" for k, v in picks.items()))
+
+    # the 1 s slice and the 32-file batch through the entry point's default
+    # (no override: the card) and both pinned engines; the host plane is
+    # float64 exact, the card's float32 within 1 LSB of it
+    for name, files, pick in (("1 s slice", [second],
+                               picks["1 s slice, decode"]),
+                              ("32-file batch", paths,
+                               picks["32-file decode batch"])):
+        outs, fns = {}, {}
+        for engine, env in (("default", None), ("host", str(1 << 40)),
+                            ("device", "0")):
+            def run(env=env, engine=engine):
+                with engines(MP3STEGO_TPU_BATCH_HOST_G=env):
+                    outs[engine] = decode_files_batched(files, out="int16",
+                                                        device=dev)
+            fns[engine] = run
+        runs.run(f"engine choice, {name}, pinned device", F32,
+                 fns["device"])
+        ms = _turns_ms(fns, 3)
+        for k, (a, b, c) in enumerate(zip(outs["default"], outs["host"],
+                                           outs["device"])):
+            f = os.path.basename(files[k])
+            tol = MAX_LSB_RATE if f.startswith(("slice", "second")) \
+                else TONE_MAX_LSB_RATE
+            _lsb_contract(f"{name} {f}: device vs host", c, b, tol)
+            if a.tobytes() != c.tobytes():
+                raise AssertionError(f"{name} {f}: the default engine's "
+                                     f"bytes are not the card's")
+        faster = min(("host", "device"), key=ms.get)
+        _say("21 engine", f"[{card}] {name} ({len(files)} files), int16 "
+                          f"float32: default (the card) {ms['default']:.2f} "
+                          f"ms, host {ms['host']:.2f} ms, device "
+                          f"{ms['device']:.2f} ms (medians of 3 in turns); "
+                          f"outputs within the float32 contract, the "
+                          f"default's bytes the card's; the cost model "
+                          f"would pick {pick}, "
+                          f"{'the faster' if pick == faster else 'the slower'}"
+                          f" engine ({faster} is faster)")
+
+    # the pinned fetches against pageable .cpu(): the song's ix (to_host)
+    # and its 8-shard PCM
+    enc = MP3Encoder(read_wav(wav64, 320), device=dev)
+    nf = enc._num_frames()
+    xr = enc._analysis_device(nf)
+    _, mean_bits_f = enc._plane_framing(nf)
+    res_d = SP.search(xr, torch.from_numpy(enc._lane_budgets(mean_bits_f))
+                      .to(dev), enc.band_row)
+    keys = list(SP.ROWS) + list(SP.COUNTS)
+    new = SP.to_host(res_d)
+    old_rows = torch.stack([res_d[k] for k in keys]).cpu().numpy()
+    old_ix = res_d["ix"].cpu().numpy()
+    if new["ix"].tobytes() != old_ix.tobytes() or any(
+            new[k].tobytes() != old_rows[r].tobytes()
+            for r, k in enumerate(keys)):
+        raise AssertionError("to_host through fetch_pieces != .cpu()")
+    ms_ix = _turns_ms({
+        "pageable .cpu()": lambda: (
+            torch.stack([res_d[k] for k in keys]).cpu().numpy(),
+            res_d["ix"].cpu().numpy()),
+        "fetch_pieces": lambda: SP.to_host(res_d)})
+    ix_mb = old_ix.nbytes / 1e6
+    del xr, res_d, new, old_rows, old_ix
+    hp = dp.host_prepare(parsed)
+    mesh = make_mesh(files=1, frames=8, devices=mesh_entries(8))
+    pcm = FS.shard_body(FS.shard_preps(hp, mesh), F32)
+    old = np.concatenate([p.cpu().numpy() for p in pcm], axis=1)
+    if fetch_concat(pcm, 1).tobytes() != old.tobytes():
+        raise AssertionError("8-shard PCM through fetch_concat != .cpu()")
+    ms_pcm = _turns_ms({
+        "pageable .cpu() + np.concatenate": lambda: np.concatenate(
+            [p.cpu().numpy() for p in pcm], axis=1),
+        "fetch_concat": lambda: fetch_concat(pcm, 1)})
+    _say("21 transfer", f"[{card}] the song's ix ({ix_mb:.1f} MB int32) "
+                        f"and rows, bytes equal: " + "; ".join(
+                            f"{k} {v:.3f} ms" for k, v in ms_ix.items())
+         + f"; its 8-shard float32 PCM ({old.nbytes / 1e6:.1f} MB), bytes "
+           f"equal: " + "; ".join(f"{k} {v:.3f} ms"
+                                  for k, v in ms_pcm.items())
+         + " (medians of 5 in turns)")
+    del pcm, old
+
+    # one clear encode and one 90 % hide of the song under trace(), read
+    # back by the device-trace readers
+    for name, bits in (("clear encode", ""), ("90 % hide",
+                                              enc_out["hide_bits"])):
+        log_dir = os.path.join(tmp, f"trace_{len(bits)}")
+        _encode_bytes(wav64, dev, bits)                     # warm-up
+        torch.cuda.synchronize()
+        with P.trace(log_dir):
+            t0 = time.perf_counter()
+            _, enc = runs.run(f"traced {name}", None,
+                              lambda: _encode_bytes(wav64, dev, bits),
+                              kernels=ENCODE)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        got = P.parse_device_trace(log_dir)
+        names = " | ".join(op["name"] for op in got["ops"])
+        for k, n in runs.log[-1][2].items():
+            if n and TRACE_NAMES[k] not in names:
+                raise AssertionError(f"traced {name}: {k} launched {n} "
+                                     f"times and no {TRACE_NAMES[k]} record")
+        busy = P.device_busy(log_dir, wall_ms=wall_ms)
+        if busy["idle_share"] is None:
+            raise AssertionError(f"traced {name}: no kernel in the trace")
+        util = P.stage_utilization(got["ops"], list(enc.timer.times),
+                                   rolled_stage="(no scope)")
+        _say("21 trace", f"[{card}] {name}: traced wall {wall_ms:.1f} ms, "
+                         f"device busy {busy['busy_ms']:.3f} ms over "
+                         f"{busy['counts']}, idle share "
+                         f"{busy['idle_share']:.4f}; device ms per stage: "
+                         + "; ".join(f"{k} {v['ms']:.3f} ({v['dominant']})"
+                                     for k, v in util.items())
+                         + f"; top kernels: " + "; ".join(
+                             f"{t['name'][:40]} x{t['launches']} "
+                             f"{t['ms']:.3f} ms"
+                             for t in busy["top_kernels"][:5]))
+
+    # decode_pcm_device: the song through the scan, bit for bit the float32
+    # decode through the host parse
+    got, _ = runs.run("decode_pcm_device (float32)", F32,
+                      lambda: hd.decode_pcm_device(song_b, 0, dev),
+                      kernels=("huffman_scan",) + DECODE)
+    want = dp.decode_pcm(parsed, "float32", dev)
+    if got.dtype != np.float32 or got.tobytes() != want.tobytes():
+        raise AssertionError("decode_pcm_device != the float32 decode "
+                             "through the host parse")
+    _say("21 huffman", f"decode_pcm_device on the song: {got.shape} float32 "
+                       f"PCM bit for bit the host-parse float32 decode "
+                       f"({runs.last('huffman_scan')} scan, "
+                       f"{runs.last('granule')} K2, {runs.last()} K1 "
+                       f"launches)")
+
+
 def main() -> int:
     # ---- phase 0: card and precision
     if not torch.cuda.is_available():
@@ -2386,6 +2614,8 @@ def main() -> int:
             or torch.backends.cudnn.allow_tf32):
         raise RuntimeError("TF32 could not be switched off")
     _say("0 card", "TF32 off (matmul and cuDNN)")
+    for k in OVERRIDES:                 # every entry point on its default
+        os.environ.pop(k, None)
 
     # ---- phase 1: build the kernels (one nvcc per source, sm_90a) and the
     # host library (g++), all started together
@@ -2609,6 +2839,7 @@ def main() -> int:
         # ---- phase 19: the mesh: K1 after a halo, the song sharded over
         # 2, 4 and 8 shards, the phase-12 and -13 batches on 4 entries
         mesh_phase(card, tmp, song, batches, runs, errs)
+        inputs = {k: batches[k] for k in ("paths", "metas", "jobs")}
         del batches
 
         # ---- phase 16: the device Huffman decode (the bit-scan kernel)
@@ -2629,6 +2860,10 @@ def main() -> int:
         # clear, hide and VBR encodes of a 30 s slice and of the goldens
         grid_row = grid_phase(dev, card, tmp, wav64,
                               enc_out["seeded_wav"], runs)
+
+        # ---- phase 21: the engine choice, the pinned transfers, the
+        # device-trace readers and decode_pcm_device
+        engine_phase(dev, card, tmp, song, wav64, enc_out, inputs, runs)
 
         # ---- phase 7: K1's time on the song's own blocks in both dtypes,
         # beside its plain version and the library pair, each with its bound

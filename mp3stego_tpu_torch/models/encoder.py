@@ -24,7 +24,9 @@ each (gr, ch) slot's step and stale addresses carry from one call to the
 next (``_slot_carry``), as do the reservoir, the padding slot lag and the
 stego cursor.
 * host C++ (``_encode_host``): the native analysis and sequential whole-file
-  search; the card's oracle.
+  search; the card's oracle, and the plane engines' stand-in under
+  ``MP3STEGO_TPU_ENC_HOST=1`` (``utils/calibrate.entry_engine``: the
+  override only, no cost model).
 * cost grid (``MP3STEGO_TPU_SEARCH_PLANE=0``, the JAX package's own switch;
   ``_encode_grid``): the whole file's analysis on the device, then every
   granule costed at all 128 quantizer steps in one launch
@@ -61,7 +63,9 @@ from mp3stego_tpu_torch.ops import fixedpoint as fx
 from mp3stego_tpu_torch.ops import quant as Q
 from mp3stego_tpu_torch.ops import quant_batch as QB
 from mp3stego_tpu_torch.ops import search_plane as SP
+from mp3stego_tpu_torch.utils import calibrate
 from mp3stego_tpu_torch.utils.profiling import StageTimer, progress, trace
+from mp3stego_tpu_torch.utils.transfer import fetch_pieces, put_pieces
 from mp3stego_tpu_torch.utils.wav import WavFile, read_wav
 
 _LN2 = 0.69314718  # the reference's constant (encoder/util.py:13), not log(2)
@@ -392,10 +396,12 @@ class MP3Encoder:
                 self._encode_sequential(num_frames, timer, quiet)
             elif os.environ.get("MP3STEGO_TPU_SEARCH_PLANE", "1") == "0":
                 self._encode_grid(num_frames, timer, quiet)
-            elif self.hide_str:
-                self._encode_hide(num_frames, timer)
-            else:
-                self._encode_plane(num_frames, timer)
+            elif not (calibrate.entry_engine("single_encode") == "host"
+                      and self._encode_host(num_frames, timer)):
+                if self.hide_str:
+                    self._encode_hide(num_frames, timer)
+                else:
+                    self._encode_plane(num_frames, timer)
         if self.vbr:
             self.out_buffer = (bytearray(self._xing_frame(num_frames))
                                + self.out_buffer)
@@ -451,7 +457,7 @@ class MP3Encoder:
             with timer.stage("framing"):
                 self._vbr_framing(xr, num_frames)
         with timer.stage("d2h"):
-            mdct_all = xr.reshape(nch, tg, 576).cpu().numpy()
+            mdct_all = fetch_pieces([xr.reshape(nch, tg, 576)])[0]
         del xr
         self._frame_loop(mdct_all, num_frames, timer, quiet)
 
@@ -461,17 +467,16 @@ class MP3Encoder:
         """The resident (nch * Tg, 576) spectra; lane g = ch*tg + f*gpf + gr.
 
         The WAV's interleaved int16 buffer crosses to the device once as the
-        host holds it, up to the last sample the analysis reads (the reader
-        pads it with as many zeros again), and the analysis reads channel c
-        at c + nch * t there (``encode_plane.analysis_interleaved``): the
-        spectra of :meth:`_channel_streams_i16`'s streams, which no card
-        path builds."""
+        host holds it (staged through pinned memory, ``put_pieces``), up to
+        the last sample the analysis reads (the reader pads it with as many
+        zeros again), and the analysis reads channel c at c + nch * t there
+        (``encode_plane.analysis_interleaved``): the spectra of
+        :meth:`_channel_streams_i16`'s streams, which no card path builds."""
         nch = self.wav.num_of_channels
         tg = num_frames * self.granules_per_frame
-        buf = torch.from_numpy(np.ascontiguousarray(
-            self.wav.buffer[:nch * tg * 576], np.int16))
-        return EP.analysis_interleaved(buf.to(self.device), nch, tg) \
-            .reshape(-1, 576)
+        buf = put_pieces(np.ascontiguousarray(
+            self.wav.buffer[:nch * tg * 576], np.int16), self.device)
+        return EP.analysis_interleaved(buf, nch, tg).reshape(-1, 576)
 
     def _lane_budgets(self, mean_bits_f) -> np.ndarray:
         """(nch * Tg,) int32 per-granule bit budgets in lane order."""
@@ -487,7 +492,7 @@ class MP3Encoder:
         if self.version != 3:
             return None, None
         tot, en = SP.scfsi_sums(xr, self.band_row)
-        return tot.cpu().numpy(), en.cpu().numpy()
+        return tuple(fetch_pieces([tot, en]))
 
     def _encode_plane(self, num_frames: int, timer, xr=None):
         """Encode on the device planes: analysis + MDCT and the rate-control
@@ -1154,7 +1159,7 @@ class MP3Encoder:
             stats["blocks"] += 1
             q += k
         with st("d2h"):
-            res["ix"] = ix_d.cpu().numpy()
+            res["ix"] = fetch_pieces([ix_d])[0]
             del ix_d
         for g, ix in redone.items():
             res["ix"][g] = ix

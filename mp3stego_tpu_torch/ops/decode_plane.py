@@ -61,6 +61,7 @@ from mp3stego_tpu_torch import tables as T
 from mp3stego_tpu_torch.ops.synth import MAX_ROWS as MAX_SYNTH_ROWS
 from mp3stego_tpu_torch.ops.synth import (ascending_matmul, overlap_freqinv,
                                           synth_fused)
+from mp3stego_tpu_torch.utils.transfer import fetch_pieces, put_tree
 
 SQRT2 = math.sqrt(2)
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -700,11 +701,10 @@ def prep_to_torch(prep: dict, device) -> dict:
     Takes the dict that ``host_prepare`` (of either package) returns, keyed
     by ``ALL_KEYS`` (less ``RAW_KEYS`` for ``raw=False``), and indexes its
     escapes by granule (``index_escapes``); the narrow int8/int16 planes and
-    bool masks cross as they are."""
-    device = torch.device(device)
+    bool masks cross as they are, on the card in one staged copy
+    (``utils.transfer.put_tree``)."""
     prep = index_escapes(prep)
-    return {k: torch.from_numpy(np.ascontiguousarray(prep[k])).to(device)
-            for k in TORCH_KEYS if k in prep}
+    return put_tree({k: prep[k] for k in TORCH_KEYS if k in prep}, device)
 
 
 def imdct_symmetric(c_long_t: torch.Tensor, c_short_t: torch.Tensor) -> bool:
@@ -1434,7 +1434,7 @@ def decode_pcm(p, dtype: str = "float64", device=None) -> np.ndarray:
             pcm = decode_granules_np(host_prepare(p))
     else:
         prep = prep_to_torch(host_prepare(p), dev)
-        pcm = decode_granules(prep, DTYPES[dtype]).cpu().numpy()
+        pcm = fetch_pieces([decode_granules(prep, DTYPES[dtype])])[0]
     ch = p.header.channels
     t = pcm.shape[1]
     inter = pcm[:ch].transpose(1, 2, 0).reshape(t * 576, ch)
@@ -1472,5 +1472,5 @@ def decode_pcm_i16(p, device, dtype: str = "float32",
     with timer.stage("device plane"):
         inter = decode_granules_i16(prep, DTYPES[dtype], channels=ch)[0]
     with timer.stage("d2h"):
-        inter = inter.cpu().numpy()
+        inter = fetch_pieces([inter])[0]
     return _finish_inter(p, inter)

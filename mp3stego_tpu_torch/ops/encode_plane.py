@@ -42,6 +42,7 @@ import torch
 
 from mp3stego_tpu_torch import tables as T
 from mp3stego_tpu_torch.ops import fixedpoint as fx
+from mp3stego_tpu_torch.utils.transfer import put_pieces
 
 _PAST = 480          # deepest lookback of the window: 31 - 63 - 448 = -480
 CHUNK_G = 1024       # granules per chunk of analysis_stream_torch
@@ -131,7 +132,7 @@ def run_analysis_device(pcm_i16: np.ndarray, num_granules: int, device,
     The int16 PCM crosses to the device once and is upshifted there, by the
     kernel on the card (``chunk_g`` bounds only the plain version's memory
     on the CPU)."""
-    full = torch.from_numpy(_padded_streams(pcm_i16, num_granules)).to(device)
+    full = put_pieces(_padded_streams(pcm_i16, num_granules), device)
     return analysis_stream(full, chunk_g)
 
 

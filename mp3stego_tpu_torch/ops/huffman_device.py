@@ -9,7 +9,11 @@ plane that the decode plane reads as ``raw_dense``
 package's ``ops/huffman_device.decode_samples_device``, an XLA
 ``fori_loop`` that decodes 8 symbols of every granule per step in lockstep.
 
-Layout (``pack``). Lane ``g`` is one granule of one channel, in parse order
+Layout (``pack``, the counterpart of the JAX package's ``pack_descriptors``,
+which pads every lane's words to one row of the longest frame's length
+plus 4 words, so that XLA reads a rectangle; a thread reads its own lane's
+words by index, so ``pack`` stores each frame's words once and no lane
+carries padding). Lane ``g`` is one granule of one channel, in parse order
 frame ▸ gr ▸ ch (G = 4 F lanes); its samples go to ``out[ch, 2 f + gr]``.
 Each frame's spliced main data is stored once, as big-endian 32-bit words,
 the frames back to back with ``PAD_WORDS`` zero words at the end. Each lane
@@ -45,6 +49,9 @@ decoder/Frame.py:443-559):
   LUT (``T.dec_lut``). It runs on the host whatever its inputs' device, so
   the flat LUTs (30 MiB) never go to the card. The kernel equals it bit for
   bit.
+* ``decode_pcm_device`` / ``decode_pcm_i16_device`` — a whole decode
+  through the scan: float32 PCM, as the JAX package's
+  ``decode_pcm_device``, or the int16 WAV samples in either precision.
 * ``scan_chain`` — the kernel's walk without the plane's stores (each lane's
   weighted sum of its samples), a measurement of the chain alone.
 * ``occupancy`` — the runtime's CTAs an SM for the kernel.
@@ -58,6 +65,7 @@ import numpy as np
 import torch
 
 from mp3stego_tpu_torch import tables as T
+from mp3stego_tpu_torch.utils.transfer import fetch_pieces, put_tree
 
 launches = 0
 LUT_BITS = T.LUT_BITS            # 19: the longest big-values codeword
@@ -362,9 +370,31 @@ def decode_raw_device(descriptors: list, device) -> torch.Tensor:
     """``parse_mp3_light`` descriptors -> the (2, T, 576) int32 sample plane,
     resident on ``device`` (the decode plane's ``raw_dense``)."""
     words, fields = pack(descriptors)
+    up = put_tree({"words": words, "fields": fields}, device)
+    return decode_samples(up["words"], up["fields"])
+
+
+def decode_pcm_device(data: bytes, offset: int, device):
+    """A whole float32 decode with the Huffman bit-scan on ``device``: the
+    light host parse, ``pack``, the scan, then the float32 decode plane from
+    the resident sample plane. Returns (interleaved float32 PCM (samples,
+    channels), the ParsedMP3, whose ``raw_samples`` stay zero): bit for
+    bit ``decode_plane.decode_pcm(parse_mp3(data, offset), "float32",
+    device)``. It raises where :func:`decode_pcm_i16_device` raises (an
+    LSF stream: ``ValueError``)."""
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    parsed, descriptors = dh.parse_mp3_light(data, offset)
+    if parsed.num_frames == 0:
+        return np.zeros((0, 2), np.float32), parsed
     dev = torch.device(device)
-    return decode_samples(torch.from_numpy(words).to(dev),
-                          torch.from_numpy(fields).to(dev))
+    raw = decode_raw_device(descriptors, dev)
+    prep = dp.prep_to_torch(dp.host_prepare(parsed, raw=False), dev)
+    prep["raw_dense"] = raw
+    pcm = fetch_pieces([dp.decode_granules(prep, dp.DTYPES["float32"])])[0]
+    ch, t = parsed.header.channels, pcm.shape[1]
+    inter = pcm[:ch].transpose(1, 2, 0).reshape(t * 576, ch)
+    return dp._finish_inter(parsed, inter), parsed
 
 
 def decode_pcm_i16_device(data: bytes, offset: int, device,
@@ -389,8 +419,8 @@ def decode_pcm_i16_device(data: bytes, offset: int, device,
     with timer.stage("pack (host)"):
         words, fields = pack(descriptors)
     with timer.stage("h2d (lanes)"):
-        words = torch.from_numpy(words).to(dev)
-        fields = torch.from_numpy(fields).to(dev)
+        up = put_tree({"words": words, "fields": fields}, dev)
+        words, fields = up["words"], up["fields"]
     with timer.stage("huffman scan (device)"):
         raw = decode_samples(words, fields)
     with timer.stage("host_prepare"):
@@ -403,5 +433,5 @@ def decode_pcm_i16_device(data: bytes, offset: int, device,
         inter = dp.decode_granules_i16(prep, dp.DTYPES[precision],
                                        channels=ch)[0]
     with timer.stage("d2h"):
-        inter = inter.cpu().numpy()
+        inter = fetch_pieces([inter])[0]
     return dp._finish_inter(parsed, inter), parsed

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from mp3stego_tpu_torch import tables as T
+from mp3stego_tpu_torch.utils.transfer import fetch_pieces
 
 S_STEPS = 128          # step_size + 127 in [0, 127]
 _BAIL = 165140         # 8192**(4/3), quantize's quick-reject threshold
@@ -429,7 +430,7 @@ def cost_all_steps(xr, sr_idx: int, with_hide: bool = False,
         packed = cost_all_steps_torch(xr, sr_idx, with_hide)
     else:
         packed = _launch(xr, sr_idx, ROWS_HIDE if with_hide else ROWS_CLEAR)
-    return _unpack(packed.cpu().numpy(), with_hide)
+    return _unpack(fetch_pieces([packed])[0], with_hide)
 
 
 # ------------------------------------------------------------ host-side recost

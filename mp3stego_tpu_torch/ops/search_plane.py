@@ -65,6 +65,7 @@ import torch
 
 from mp3stego_tpu_torch import tables as T
 from mp3stego_tpu_torch.ops import fixedpoint as fx
+from mp3stego_tpu_torch.utils.transfer import fetch_pieces
 
 _BAIL = 165140         # 8192**(4/3): quantize's quick-reject threshold
 MAX_STEP = 8192        # MAX_QUANTIZE_STEP
@@ -528,20 +529,26 @@ def cost_step(xr: torch.Tensor, step: int, sr_idx: int,
     return _launch(xr, None, sr_idx, xr.shape[0], mode=1, step=step, big=big)
 
 
-def rows_to_host(res: dict) -> dict:
-    """The resident ``ROWS`` and ``COUNTS`` of search results -> NumPy, in
-    one copy, plus ``rounds``: the most inner-loop rounds any lane ran."""
-    rows = torch.stack([res[k] for k in _KEYS]).cpu().numpy()
+def _host_rows(rows: np.ndarray) -> dict:
     out = {k: rows[r] for r, k in enumerate(_KEYS)}
     out["rounds"] = int(out["inner"].max(initial=0))
     return out
 
 
+def rows_to_host(res: dict) -> dict:
+    """The resident ``ROWS`` and ``COUNTS`` of search results -> NumPy, in
+    one copy, plus ``rounds``: the most inner-loop rounds any lane ran."""
+    return _host_rows(fetch_pieces([torch.stack([res[k] for k in _KEYS])])[0])
+
+
 def to_host(res: dict) -> dict:
     """Resident search results -> NumPy: the rows and counts in one copy,
-    ``ix`` in another."""
-    out = rows_to_host(res)
-    out["ix"] = res["ix"].cpu().numpy()
+    ``ix`` in another, both in one fetch (``utils.transfer.fetch_pieces``:
+    pinned buffers, one wait)."""
+    rows, ix = fetch_pieces([torch.stack([res[k] for k in _KEYS]),
+                             res["ix"]])
+    out = _host_rows(rows)
+    out["ix"] = ix
     return out
 
 

@@ -27,9 +27,15 @@ for bit the output without one. ``prepare_batch`` and
 (files, ...) and its decode, the file axis split into one contiguous group
 per ``files`` device, each group a concat batch there.
 
-On the card the device plane always runs. The JAX package's host-plane
-auto-select (``utils/calibrate.py``, which weighs the TPU's host link) is
-not ported (ROADMAP.md queue 1.7).
+Engine choice (``out="int16"``, float32): ``MP3STEGO_TPU_BATCH_HOST_G=
+<granules>`` sends a batch of at most that many granules to the native
+float64 host plane per file (``decode_plane.decode_pcm_i16_host``,
+bit-exact), on every device; otherwise the plane runs where the caller put
+it (the card's within 1 LSB of the host's bytes). The JAX package's cost
+model (``utils/calibrate.batch_decode_engine``) is ported but not consulted
+here (``utils/calibrate.entry_engine``), so the output never depends on a
+probe's timings. The JAX package's switch for a threaded fetch (its probe's
+duplex gain) is not ported: the PCM always comes back on a side stream.
 """
 
 import os
@@ -42,6 +48,7 @@ from mp3stego_tpu_torch.bitstream import decoder_host as dh
 from mp3stego_tpu_torch.bitstream.id3 import parse_id3
 from mp3stego_tpu_torch.ops import decode_plane as dp
 from mp3stego_tpu_torch.parallel.mesh import check_mesh
+from mp3stego_tpu_torch.utils import calibrate
 
 # host threads for parsing and preparing files
 _WORKERS = min(8, os.cpu_count() or 1)
@@ -230,7 +237,9 @@ def decode_files_batched(paths: list, mesh=None, dtype: str = "float32",
     :param errors: "raise" propagates the first file that fails to parse;
         "isolate" decodes the others and puts the exception in its slot.
     :param out: "float" PCM, or "int16" WAV samples converted on the device
-        (half the bytes back to the host).
+        (half the bytes back to the host); with float32,
+        ``MP3STEGO_TPU_BATCH_HOST_G`` may send it to the host plane
+        instead (see the module docstring).
     :param device: the plane's device without a mesh; None means CUDA (a
         missing card raises). Passing it with a mesh raises.
     :param chunk_files: files per chunk, one synthesis-kernel launch each;
@@ -260,11 +269,19 @@ def decode_files_batched(paths: list, mesh=None, dtype: str = "float32",
                 if errors != "isolate":
                     raise
                 results[i] = e
-        if metas:
+        decoded = None
+        if (out == "int16" and dtype == "float32" and metas
+                and calibrate.entry_engine(
+                    "batch_decode",
+                    sum(m.num_frames for m in metas) * 2) == "host"):
+            decoded = list(pool.map(dp.decode_pcm_i16_host, metas))
+            if any(pcm is None for pcm in decoded):   # no native library
+                decoded = None
+        if metas and decoded is None:
             decoded = _decode_pipelined(metas, devs, dp.DTYPES[dtype],
                                         out == "int16", chunk_files, pool)
-            for i, pcm in zip(kept, decoded):
-                results[i] = pcm
+        for i, pcm in zip(kept, decoded or ()):
+            results[i] = pcm
     return results
 
 

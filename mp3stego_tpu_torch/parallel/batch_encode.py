@@ -17,10 +17,14 @@ overlaps the card's work on the next. With a ``mesh``
 (``parallel.make_mesh``) of n devices on its ``files`` axis, each group is
 cut into sub-batches of at most ``ceil(files / n)`` files, whole mesh rows
 as in the JAX package, and the sub-batches go round-robin over those
-devices, one host thread a distinct device; the bytes do not change. The
-JAX package's host-engine auto-select (``utils/calibrate.py``, which weighs
-the TPU's host link) is not ported: the card always searches (ROADMAP.md
-queue 1.7).
+devices, one host thread a distinct device; the bytes do not change.
+
+Engine choice without a mesh: ``MP3STEGO_TPU_BATCH_ENC_HOST=1`` sends
+every file to the host C++ engine (``MP3Encoder._encode_host``, the same
+bytes), on every device; otherwise, and always with a mesh, the card (or
+the device the caller names) runs. The JAX package's cost model
+(``utils/calibrate.batch_encode_engine``) is ported but not consulted here
+(``utils/calibrate.entry_engine``).
 """
 
 import os
@@ -29,9 +33,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from mp3stego_tpu_torch.models.encoder import MP3Encoder, resolve_device
+from mp3stego_tpu_torch.models.encoder import (MP3Encoder, _native_rate_lib,
+                                               resolve_device)
 from mp3stego_tpu_torch.ops import search_plane as SP
 from mp3stego_tpu_torch.parallel.mesh import check_mesh
+from mp3stego_tpu_torch.utils import calibrate
+from mp3stego_tpu_torch.utils.profiling import StageTimer
+from mp3stego_tpu_torch.utils.transfer import fetch_pieces
 from mp3stego_tpu_torch.utils.wav import read_wav
 
 # lanes (files x channels x granules) per search pass. The 240.7 s stereo
@@ -84,6 +92,13 @@ def encode_files_batched(jobs: list, bitrate: int = 320, mesh=None,
         key = (enc.band_row, enc.wav.num_of_channels)
         groups.setdefault(key, []).append((i, mp3_path, enc, nf))
 
+    items = [item for group in groups.values() for item in group]
+    workers = max_workers or min(8, os.cpu_count() or 1)
+    if (items and mesh is None
+            and calibrate.entry_engine("batch_encode") == "host"
+            and _host_engine()):
+        return _encode_host_all(items, results, workers, errors)
+
     # sub-batch j on devs[j % n]; each distinct device's sub-batches in
     # order on a host thread of its own
     by_dev, j = {}, 0
@@ -95,12 +110,42 @@ def encode_files_batched(jobs: list, bitrate: int = 320, mesh=None,
     def on_device(d, subs):
         return [f for sub in subs for f in _run_sub_batch(sub, d, pool)]
 
-    workers = max_workers or min(8, os.cpu_count() or 1)
     with ThreadPoolExecutor(max_workers=workers) as pool, \
             ThreadPoolExecutor(max_workers=max(1, len(by_dev))) as cards:
         runs = [cards.submit(on_device, d, subs)
                 for d, subs in by_dev.items()]
         futures = [f for run in runs for f in run.result()]
+        for i, fut in futures:
+            try:
+                results[i] = fut.result()
+            except Exception as e:  # noqa: BLE001 - isolation mode reports it
+                if errors != "isolate":
+                    raise
+                results[i] = e
+    return results
+
+
+def _host_engine() -> bool:
+    """Whether the native library holds the host C++ encode engine."""
+    lib = _native_rate_lib()
+    return (lib is not None and hasattr(lib, "rate_search_file")
+            and hasattr(lib, "encode_analysis"))
+
+
+def _encode_host_all(items: list, results: list, workers: int,
+                     errors: str) -> list:
+    """Every file through the host C++ engine on a thread pool, each
+    written to its mp3 path; ``results`` filled in as
+    :func:`encode_files_batched` returns them."""
+    def host_one(item):
+        _, mp3_path, enc, nf = item
+        if not enc._encode_host(nf, StageTimer(enabled=False)):
+            raise RuntimeError("the host C++ encode engine is unavailable")
+        enc.write_mp3_file(mp3_path)
+        return mp3_path
+
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        futures = [(item[0], pool.submit(host_one, item)) for item in items]
         for i, fut in futures:
             try:
                 results[i] = fut.result()
@@ -154,7 +199,7 @@ def _run_sub_batch(sub: list, dev: torch.device, pool) -> list:
         b = a + xr.shape[0]
         res = SP.to_host({k: v[a:b] for k, v in res_d.items()})
         en = (None, None) if scfsi is None else \
-            tuple(s[a:b].cpu().numpy() for s in scfsi)
+            tuple(fetch_pieces([s[a:b] for s in scfsi]))
         futures.append((i, pool.submit(_finish_file, enc, nf, res, xr, maxb,
                                        en, fr, mp3_path)))
         a = b

@@ -29,6 +29,7 @@ import torch
 
 from mp3stego_tpu_torch.ops import decode_plane as dp
 from mp3stego_tpu_torch.parallel.mesh import Mesh, check_mesh
+from mp3stego_tpu_torch.utils.transfer import fetch_concat, put_tree
 
 
 def _pad_t(prep: dict, t_pad: int) -> dict:
@@ -68,8 +69,7 @@ def shard_preps(prep: dict, mesh: Mesh) -> list:
         sh.update({key: host[key][a:b] for key in dp.EXC_KEYS})
         sh["exc_t"] = (sh["exc_t"] - s).astype(np.int32)
         sh["exc_start"] = (start[s:e + 1] - a).astype(np.int32)
-        shards.append({key: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                       for key, v in sh.items()})
+        shards.append(put_tree(sh, dev))
     return shards
 
 
@@ -124,7 +124,8 @@ def decode_granules_sharded(prep: dict, mesh: Mesh,
     axis sharded over the mesh's ``frames`` axis (the first row of the
     mesh). Pads T up to a multiple of the axis size (padded granules decode
     as silence and are trimmed). Returns float PCM (2, T, 576) in
-    ``dtype``, one fetch per shard."""
+    ``dtype``: every shard fetched into its offset of one pinned output
+    (``utils.transfer.fetch_concat``), no host concatenation."""
     check_mesh(mesh)
     if dtype not in dp.DTYPES:
         raise ValueError(f"dtype must be one of {tuple(dp.DTYPES)}, got "
@@ -133,4 +134,4 @@ def decode_granules_sharded(prep: dict, mesh: Mesh,
     if t == 0:
         return np.zeros((2, 0, 576), np.dtype(dtype))
     pcm = shard_body(shard_preps(prep, mesh), dp.DTYPES[dtype])
-    return np.concatenate([p.cpu().numpy() for p in pcm], axis=1)[:, :t]
+    return fetch_concat(pcm, 1)[:, :t]

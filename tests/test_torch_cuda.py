@@ -19,7 +19,10 @@ encode planes (Q31
 analysis K3 at its launch shapes, on tile edges and from the WAV's
 interleaved buffer, with no channel stream built on the host by a
 whole-file encode; exact search, the VBR lane cost, golden hide bytes),
-each equal to the plain version, the CPU torch result or the native host twin. Marked
+each equal to the plain version, the CPU torch result or the native host twin;
+and the pinned staging of ``utils/transfer`` (held results and views
+through later fetches, uploads queued behind a long kernel, a producer on
+a non-default stream) and the probe without the golden stream. Marked
 ``cuda``; without a card every test skips.
 
 This file imports no JAX and uses no conftest fixture (tests/conftest.py
@@ -1067,3 +1070,85 @@ def test_card_grid_engine_bytes(card, case, tmp_path, monkeypatch):
         assert bytes(grid.out_buffer) == want.tobytes()
     elif msg is not None:
         assert bytes(grid.out_buffer) == sg[case].tobytes()
+
+
+# ------------------------------------------------- utils/transfer on the card
+
+def _slow_producer(card, shape, value, stream=None):
+    """A tensor of ``value`` on ``card`` that a long kernel queued before it
+    on ``stream`` (None: the current one) keeps unwritten for a while."""
+    s = stream or torch.cuda.current_stream(card)
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)           # tens of ms
+        return torch.full(shape, value, dtype=torch.int32, device=card)
+
+
+def test_card_fetches_leave_held_results_and_views_intact(card):
+    """Each fetch waits on the producer's stream and lands in a pinned
+    buffer; a result the caller holds (or a view of it) is never the
+    buffer of a later fetch."""
+    from mp3stego_tpu_torch.utils import transfer as X
+    first = X.fetch_pieces([_slow_producer(card, (1 << 20,), 1)])[0]
+    assert (first == 1).all()
+    view = first[5:]
+    second = X.fetch_pieces([_slow_producer(card, (1 << 20,), 2)])[0]
+    del first
+    for v in range(3, 8):
+        got = X.fetch_pieces([_slow_producer(card, (1 << 20,), v),
+                              _slow_producer(card, (3, 5), -v)])
+        assert (got[0] == v).all() and (got[1] == -v).all()
+    assert (view == 1).all() and (second == 2).all()
+    assert torch.from_numpy(second).is_pinned()
+
+
+def test_card_upload_buffer_is_not_reused_while_its_copy_runs(card):
+    """put_pieces returns before its copy has run (a long kernel holds the
+    stream): the next upload takes another buffer, and the host may
+    change its array at once."""
+    from mp3stego_tpu_torch.utils import transfer as X
+    pool = X.pool(card)
+    n = 1 << 22
+    a = np.full(n, 7, np.int32)
+    b = np.full(n, 9, np.int32)
+    before = {id(s) for s in pool._slabs if s.busy()}
+    torch.cuda._sleep(100_000_000)
+    ta = X.put_pieces(a, card)
+    a[:] = 0                                    # the caller's to change
+    tb = X.put_pieces(b, card)
+    b[:] = 0
+    mine = [s for s in pool._slabs if s.busy() and id(s) not in before]
+    assert len(mine) == 2                       # both copies still queued
+    assert (ta == 7).all().item() and (tb == 9).all().item()
+    torch.cuda.synchronize(card)
+    assert not any(s.busy() for s in mine)
+
+
+def test_card_fetch_concat_waits_on_the_current_stream(card):
+    """fetch_concat and fetch_pieces on a stream that is not the default
+    one: the side stream waits on that stream's work, and every part lands
+    at its offset."""
+    from mp3stego_tpu_torch.utils import transfer as X
+    other = torch.cuda.Stream(card)
+    with torch.cuda.stream(other):
+        parts = [_slow_producer(card, (2, n, 3), k)
+                 for k, n in enumerate((4, 1, 6))]
+        got = X.fetch_concat(parts, 1)
+        single = X.fetch_pieces(parts)
+    want = np.concatenate([np.full((2, n, 3), k, np.int32)
+                           for k, n in enumerate((4, 1, 6))], axis=1)
+    np.testing.assert_array_equal(got, want)
+    for k, s in enumerate(single):
+        assert (s == k).all()
+
+
+def test_card_probe_without_the_golden_stream(card, tmp_path, monkeypatch):
+    """measure_probe where tests/golden is missing (an installed package):
+    the plane rates are the defaults, the rest is measured."""
+    from mp3stego_tpu_torch.utils import calibrate as C
+    monkeypatch.setattr(C, "_GOLD", str(tmp_path / "missing.npz"))
+    p = C.measure_probe()
+    assert p.probed
+    assert (p.device_gps, p.h2d_bpg, p.host_plane_gps) == (
+        C._DEFAULTS["device_gps"], C._DEFAULTS["h2d_bpg"],
+        C._DEFAULTS["host_plane_gps"])
+    assert p.link_out_mbps > 0 and p.device_search_gps > 0

@@ -395,3 +395,40 @@ def test_free_format_decode_writes_host_bytes(free_format_mp3, tmp_path,
                       monkeypatch)
     assert "decode (device huffman)" in dd.timer.times
     assert dev == host and dd.output_bits == dh_.output_bits
+
+
+@pytest.mark.parametrize("name", ("fixture", "multirate_32000_64",
+                                  "crafted_is_ms_short", "linbits",
+                                  "flipped_1", "mono"))
+def test_decode_pcm_device_equals_the_host_parse_decode(name, streams):
+    """``decode_pcm_device`` (light parse, scan, float32 plane) is bit for
+    bit the port's float32 decode through the host parse."""
+    data = streams[name]
+    got, parsed = hd.decode_pcm_device(data, 0, "cpu")
+    host = pdh.parse_mp3(data, 0)
+    want = pdp.decode_pcm(host, "float32", "cpu")
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+    assert parsed.num_frames == host.num_frames
+    assert vars(parsed.header) == vars(host.header)
+
+
+def test_decode_pcm_device_within_one_lsb_of_the_jax_package(streams):
+    """Against the JAX package's ``decode_pcm_device`` on the CPU (as
+    tests/test_huffman_device.py runs it): the float32 planes round apart
+    (the JAX plane's linbits escapes go through exp2/log2), within 1 int16
+    LSB."""
+    got, parsed = hd.decode_pcm_device(streams["fixture"], 0, "cpu")
+    want, jparsed = jhd.decode_pcm_device(streams["fixture"], 0)
+    assert got.shape == want.shape and want.dtype == np.float32
+    assert float(np.abs(got - want).max()) <= 1 / 32768
+    assert parsed.header.bit_rate == jparsed.header.bit_rate == 320000
+
+
+def test_decode_pcm_device_refuses_lsf_like_the_int16_entry(streams):
+    data = streams["torch_lsf_mpeg2_24k_64"]
+    with pytest.raises(ValueError) as want:
+        hd.decode_pcm_i16_device(data, 0, "cpu")
+    with pytest.raises(ValueError) as got:
+        hd.decode_pcm_device(data, 0, "cpu")
+    assert str(got.value) == str(want.value)

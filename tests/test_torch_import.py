@@ -158,3 +158,87 @@ def test_port_builds_no_path_into_the_jax_package():
             if "mp3stego_tpu/" in line:
                 assert not any(call in line for call in
                                ("open(", "load(", "join(", "Path(")), line
+
+
+# public functions of the JAX package whose port has another name or lives
+# in another module: (JAX module, name) -> (port module, name)
+COUNTERPARTS = {
+    ("ops/decode_plane.py", "decode_granules_impl"):
+        ("ops/decode_plane.py", "decode_granules"),
+    ("ops/encode_plane.py", "analysis_mdct_i16"):
+        ("ops/encode_plane.py", "analysis_interleaved"),
+    ("ops/encode_plane.py", "run_analysis"):
+        ("ops/encode_plane.py", "analysis_stream"),
+    ("ops/huffman_device.py", "decode_samples_device"):
+        ("ops/huffman_device.py", "decode_samples"),
+    ("ops/huffman_device.py", "pack_descriptors"):
+        ("ops/huffman_device.py", "pack"),
+    ("ops/pallas_kernels.py", "available"): ("ops/_cuda.py", "load"),
+    ("ops/pallas_kernels.py", "synth_fir_host"):
+        ("ops/synth.py", "synth_fused"),
+}
+# public functions the port does not have, each with the line of
+# ROADMAP.md's "Not to port" list that says why
+_LOGS = ("the float32 quantize with its logs and host re-check "
+         "(`FLAG_LOGOVF`, `FLAG_FINAL_APPROX`, `FLAG_IXBAND`, "
+         "`log_steps`/`log_bits`, `fetch_rows_logs`, "
+         "`quant_np.verify_cells*`);")
+_WIRE = "the int8 `ix` wire plane (`dense_ix`, `fetch_rows`);"
+_FIXPOINT = ("the re-pinning hide fixpoint and `_encode_hide_hybrid` "
+             "(`search_hide_fused`, `search_single_fused`, `search_batch`);")
+NOT_TO_PORT = {
+    ("ops/quant_np.py", "verify_cells"): _LOGS,
+    ("ops/quant_np.py", "verify_cells_hide"): _LOGS,
+    ("ops/quant_np.py", "verify_cells_hide_loop"): _LOGS,
+    ("ops/quant_np.py", "verify_cells_loop"): _LOGS,
+    ("ops/search_plane.py", "fetch_rows_logs"): _LOGS,
+    ("ops/search_plane.py", "dense_ix"): _WIRE,
+    ("ops/search_plane.py", "fetch_rows"): _WIRE,
+    ("ops/search_plane.py", "search_batch"): _FIXPOINT,
+    ("ops/search_plane.py", "search_hide_fused"): _FIXPOINT,
+    ("ops/search_plane.py", "search_single_fused"): _FIXPOINT,
+    ("utils/calibrate.py", "device_usable"):
+        "`calibrate.device_usable`: the port has no host route for a "
+        "missing card (it raises, as `resolve_device` does);",
+}
+
+
+def _public(package: str) -> dict:
+    """{module path: public top-level function and class names}, read from
+    the sources (nothing is imported)."""
+    import ast
+    root = os.path.join(REPO, package)
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            if n.endswith(".py"):
+                path = os.path.join(d, n)
+                with open(path) as f:
+                    tree = ast.parse(f.read())
+                out[os.path.relpath(path, root)] = {
+                    node.name for node in tree.body
+                    if isinstance(node, (ast.FunctionDef, ast.ClassDef))
+                    and not node.name.startswith("_")}
+    return out
+
+
+def test_every_public_function_of_the_jax_package_has_a_port():
+    jax_pkg, port = _public("mp3stego_tpu"), _public("mp3stego_tpu_torch")
+    with open(os.path.join(REPO, "ROADMAP.md")) as f:
+        roadmap = " ".join(f.read().split())
+    missing = []
+    for module, names in sorted(jax_pkg.items()):
+        for name in sorted(names):
+            if name in port.get(module, ()):
+                continue
+            if (module, name) in COUNTERPARTS:
+                pmod, pname = COUNTERPARTS[(module, name)]
+                assert pname in port.get(pmod, ()), (module, name)
+            elif (module, name) in NOT_TO_PORT:
+                assert NOT_TO_PORT[(module, name)] in roadmap, (module, name)
+            else:
+                missing.append(f"{module}:{name}")
+    assert not missing, f"no port and no not-to-port entry: {missing}"
+    # every entry still names a public function of the JAX package
+    for module, name in list(COUNTERPARTS) + list(NOT_TO_PORT):
+        assert name in jax_pkg.get(module, ()), (module, name)

@@ -1,0 +1,144 @@
+"""utils/transfer.py: the card's staged transfers, held on the CPU.
+
+The staging path (``_put_staged``, ``_fetch_staged``, ``_concat_staged``)
+is what the card runs, with pinned buffers and side streams; here it runs
+with an unpinned pool on CPU tensors, ``PIECE_BYTES`` small enough that
+every copy is split. The public functions on a CPU device are plain
+``from_numpy`` / ``.numpy()``. The JAX package's ``put_pieces`` /
+``fetch_pieces`` give the same values.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mp3stego_tpu.utils import transfer as JX
+from mp3stego_tpu_torch.utils import transfer as X
+
+CPU = torch.device("cpu")
+DTYPES = (np.int8, np.int16, np.int32, np.int64, np.float32, np.float64)
+# 0-d, empty, one piece, above a piece (PIECE_BYTES = 64 below)
+SHAPES = ((), (0, 5), (3,), (7, 33))
+
+
+def _array(dtype, shape, seed):
+    rng = np.random.default_rng(seed)
+    if np.issubdtype(dtype, np.floating):
+        return rng.standard_normal(shape).astype(dtype)
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max, size=shape, dtype=dtype,
+                        endpoint=True)
+
+
+@pytest.fixture
+def staging(monkeypatch):
+    monkeypatch.setattr(X, "PIECE_BYTES", 64)
+    return X.StagingPool(CPU, pin=False)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+def test_staged_round_trip_is_exact(staging, dtype, shape):
+    a = _array(dtype, shape, 1)
+    (t,) = X._put_staged([a], CPU, staging)
+    assert t.shape == a.shape and t.numpy().dtype == a.dtype
+    (back,) = X._fetch_staged([t], staging)
+    assert back.shape == a.shape and back.dtype == a.dtype
+    np.testing.assert_array_equal(back, a)
+    # the public path on the CPU is plain and shares memory
+    pt = X.put_pieces(a, "cpu")
+    assert np.shares_memory(pt.numpy(), a) or a.size == 0
+    np.testing.assert_array_equal(X.fetch_pieces([pt])[0], a)
+
+
+def test_put_tree_equals_per_array_puts(staging):
+    tree = {f"{np.dtype(d).name}{i}": _array(d, s, i)
+            for i, (d, s) in enumerate(zip(DTYPES, SHAPES * 2))}
+    tree["mask"] = _array(np.int8, (9, 2), 7) > 0
+    got = X._put_staged(list(tree.values()), CPU, staging)
+    for (k, a), t in zip(tree.items(), got):
+        one = X._put_staged([a], CPU, staging)[0]
+        assert t.dtype == one.dtype and t.shape == one.shape, k
+        assert torch.equal(t, one), k
+    # every tensor of a tree starts at an ALIGN-ed offset of one buffer
+    base = got[0].untyped_storage().data_ptr()
+    for t in got:
+        if t.numel():
+            assert t.untyped_storage().data_ptr() == base
+            assert (t.data_ptr() - base) % X.ALIGN == 0
+    assert list(X.put_tree(tree, "cpu")) == list(tree)
+
+
+def test_a_later_fetch_leaves_an_earlier_result_intact(staging):
+    first_src = torch.from_numpy(_array(np.float64, (40, 9), 2))
+    first = X._fetch_staged([first_src], staging)[0]
+    view = first[3:]                       # the caller keeps a view only
+    want = first_src.numpy()[3:].copy()
+    del first
+    for seed in range(3, 6):
+        X._fetch_staged([torch.from_numpy(_array(np.float64, (40, 9),
+                                                 seed))], staging)
+    np.testing.assert_array_equal(view, want)
+    assert len(staging._slabs) == 2        # held one, reused the other
+    del view
+    X._fetch_staged([first_src], staging)
+    assert len(staging._slabs) == 2        # the released buffer came back
+
+
+def test_the_pool_grows_a_free_buffer_too_small(staging):
+    X._fetch_staged([torch.zeros(10, dtype=torch.uint8)], staging)
+    assert len(staging._slabs) == 1
+    big = X._GRAIN * 3 + 5
+    X._fetch_staged([torch.zeros(big, dtype=torch.uint8)], staging)
+    assert len(staging._slabs) == 1 and staging.nbytes() >= big
+
+
+@pytest.mark.parametrize("dim", (0, 1, 2))
+def test_fetch_concat_equals_numpy_concatenate(staging, dim):
+    parts = []
+    for k, n in enumerate((3, 1, 4)):
+        shape = [2, 5, 6]
+        shape[dim] = n
+        parts.append(torch.from_numpy(_array(np.float32, shape, k)))
+    want = np.concatenate([p.numpy() for p in parts], axis=dim)
+    got = X._concat_staged(parts, dim, staging)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(X.fetch_concat(parts, dim), want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+def test_same_values_as_the_jax_package(staging, dtype):
+    arrs = [_array(dtype, s, 9) for s in SHAPES]
+    want = JX.fetch_pieces([JX.put_pieces(a) for a in arrs])
+    got = X._fetch_staged(X._put_staged(arrs, CPU, staging), staging)
+    for a, w, g in zip(arrs, want, got):
+        assert g.shape == np.asarray(w).shape == a.shape
+        np.testing.assert_array_equal(g, np.asarray(w))
+    jtree = JX.put_tree({"a": arrs[3], "b": arrs[2]})
+    ttree = X.put_tree({"a": arrs[3], "b": arrs[2]}, "cpu")
+    for k in ("a", "b"):
+        np.testing.assert_array_equal(ttree[k].numpy(), np.asarray(jtree[k]))
+
+
+def test_the_pool_keeps_at_most_keep_bytes_free(staging, monkeypatch):
+    monkeypatch.setattr(X, "KEEP_BYTES", X._GRAIN)
+    srcs = [torch.from_numpy(_array(np.int32, (X._GRAIN // 4,), k))
+            for k in range(4)]
+    held = [X._fetch_staged([s], staging)[0] for s in srcs]
+    assert len(staging._slabs) == 4        # every result holds its buffer
+    keep = held.pop(1)
+    del held                               # three buffers come free
+    last = X._fetch_staged([srcs[0]], staging)[0]
+    # the two held buffers (the one just taken reused a free one), and
+    # the free ones up to KEEP_BYTES
+    free = [s for s in staging._slabs if not s.busy()]
+    assert sum(s.buf.numel() for s in free) <= X.KEEP_BYTES
+    assert len(staging._slabs) == 3
+    del last
+    staging.trim()
+    assert len(staging._slabs) == 1        # only the held one stays
+    np.testing.assert_array_equal(keep, srcs[1].numpy())
+    del keep
+    staging.trim()
+    assert staging.nbytes() == 0

@@ -13,7 +13,7 @@ clear encode and for a hide of 90 % of the song's stego channel, takes
   trace the device's busy time (the union of kernel, memcpy and memset
   intervals), the count of each, the heaviest kernels, and that run's own
   wall and stages; the idle share is 1 - busy / traced wall, both numbers
-  from the same traced run.
+  from the same traced run (``utils.profiling.device_busy``).
 
 It writes the record as JSON and prints a summary with the card's
 ``nvidia-smi`` name and power limit.
@@ -36,11 +36,11 @@ sys.path.insert(0, REPO)
 
 from mp3stego_tpu_torch import Steganography  # noqa: E402
 from mp3stego_tpu_torch.models.encoder import MP3Encoder  # noqa: E402
+from mp3stego_tpu_torch.utils.profiling import device_busy  # noqa: E402
 from mp3stego_tpu_torch.utils.wav import read_wav  # noqa: E402
 
 SONG_COPIES = 256
 HIDE_SHARE = 0.9
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def _card_line() -> str:
@@ -54,33 +54,6 @@ def _encode(wav: str, bits: str = "") -> MP3Encoder:
     enc = MP3Encoder(read_wav(wav, 320), hide_str=bits, device="cuda")
     enc.encode()
     return enc
-
-
-def _busy(trace_path: str) -> dict:
-    """Device busy time and counts from a chrome trace of the profiler."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    spans, count, by_name = [], {c: 0 for c in DEVICE_CATS}, {}
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
-            continue
-        count[e["cat"]] += 1
-        spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
-        if e["cat"] == "kernel":
-            name = e["name"][:96]
-            n, us = by_name.get(name, (0, 0.0))
-            by_name[name] = (n + 1, us + float(e["dur"]))
-    spans.sort()
-    busy_us, end = 0.0, -1.0
-    for a, b in spans:
-        if b <= end:
-            continue
-        busy_us += b - max(a, end)
-        end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    return {"busy_ms": busy_us / 1e3, "counts": count,
-            "top_kernels": [{"name": k, "launches": n, "ms": us / 1e3}
-                            for k, (n, us) in top]}
 
 
 def _profile_case(name: str, wav: str, bits: str, tmp: str) -> dict:
@@ -98,12 +71,10 @@ def _profile_case(name: str, wav: str, bits: str, tmp: str) -> dict:
         traced = time.perf_counter() - t0
     path = os.path.join(tmp, f"{name}.json")
     prof.export_chrome_trace(path)
-    rec = _busy(path)
+    rec = device_busy(path, wall_ms=traced * 1e3)
+    rec["traced_wall_ms"] = rec.pop("wall_ms")
     rec.update(
         wall_ms=sorted(walls)[1] * 1e3, walls_ms=[w * 1e3 for w in walls],
-        traced_wall_ms=traced * 1e3,
-        idle_share=(1.0 - rec["busy_ms"] / (traced * 1e3))
-        if rec["counts"]["kernel"] else None,
         traced_stages_ms={k: v * 1e3 for k, v in enc.timer.times.items()},
         hide_stats=enc.hide_stats, redo_stats=enc.redo_stats)
     return rec
