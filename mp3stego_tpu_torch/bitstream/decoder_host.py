@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from mp3stego_tpu_torch import tables as T
+from mp3stego_tpu_torch.utils.profiling import count, span
 
 HEADER_SIZE = 4
 NUM_PREV_FRAMES = 9
@@ -781,7 +782,8 @@ def parse_mp3_native(file_data: bytes, offset: int = 0):
     data = np.frombuffer(bytes(file_data), dtype=np.uint8)
     n = len(data)
     dup = np.zeros(1, dtype=np.int32)
-    fcount = int(lib.mp3_count_frames(data, n, offset, dup))
+    with span("parse.walk"):
+        fcount = int(lib.mp3_count_frames(data, n, offset, dup))
     p = ParsedMP3()
     if fcount == 0:
         p.num_frames = 0
@@ -792,28 +794,32 @@ def parse_mp3_native(file_data: bytes, offset: int = 0):
 
     l1, l2, book_row, linbits, maxval, quad_lut, bil = _native_luts()
     F = fcount
-    header_out = np.zeros(8, dtype=np.int32)
-    p.frame_sizes = np.zeros(F, dtype=np.int64)
-    p.raw_samples = np.zeros((F, 2, 2, 576), dtype=np.int32)
-    z = lambda *s: np.zeros(s, dtype=np.int32)  # noqa: E731
-    arrs = {name: z(F, 2, 2) for name in
-            ("block_type", "mixed_block_flag", "window_switching",
-             "global_gain", "scale_fac_scale", "pre_flag")}
-    p.sub_block_gain = z(F, 2, 2, 3)
-    p.scale_fac_l = z(F, 2, 2, 22)
-    p.scale_fac_s = z(F, 2, 2, 3, 13)
-    p.table_select = z(F, 2, 2, 3)
-    ms = np.zeros(F, dtype=np.uint8)
+    with span("parse.planes"):
+        header_out = np.zeros(8, dtype=np.int32)
+        p.frame_sizes = np.zeros(F, dtype=np.int64)
+        p.raw_samples = np.zeros((F, 2, 2, 576), dtype=np.int32)
+        z = lambda *s: np.zeros(s, dtype=np.int32)  # noqa: E731
+        arrs = {name: z(F, 2, 2) for name in
+                ("block_type", "mixed_block_flag", "window_switching",
+                 "global_gain", "scale_fac_scale", "pre_flag")}
+        p.sub_block_gain = z(F, 2, 2, 3)
+        p.scale_fac_l = z(F, 2, 2, 22)
+        p.scale_fac_s = z(F, 2, 2, 3, 13)
+        p.table_select = z(F, 2, 2, 3)
+        ms = np.zeros(F, dtype=np.uint8)
 
-    got = int(lib.mp3_parse(
-        data, n, offset,
-        l1, l2, book_row, linbits, maxval, quad_lut, bil,
-        F, header_out, p.frame_sizes, p.raw_samples.reshape(-1),
-        arrs["block_type"].reshape(-1), arrs["mixed_block_flag"].reshape(-1),
-        arrs["window_switching"].reshape(-1), arrs["global_gain"].reshape(-1),
-        arrs["scale_fac_scale"].reshape(-1), arrs["pre_flag"].reshape(-1),
-        p.sub_block_gain.reshape(-1), p.scale_fac_l.reshape(-1),
-        p.scale_fac_s.reshape(-1), p.table_select.reshape(-1), ms))
+    with span("parse.native"):
+        got = int(lib.mp3_parse(
+            data, n, offset,
+            l1, l2, book_row, linbits, maxval, quad_lut, bil,
+            F, header_out, p.frame_sizes, p.raw_samples.reshape(-1),
+            arrs["block_type"].reshape(-1),
+            arrs["mixed_block_flag"].reshape(-1),
+            arrs["window_switching"].reshape(-1),
+            arrs["global_gain"].reshape(-1),
+            arrs["scale_fac_scale"].reshape(-1), arrs["pre_flag"].reshape(-1),
+            p.sub_block_gain.reshape(-1), p.scale_fac_l.reshape(-1),
+            p.scale_fac_s.reshape(-1), p.table_select.reshape(-1), ms))
     if got != F:
         return None  # inconsistent walk; caller falls back to python
     for name, a in arrs.items():
@@ -837,10 +843,17 @@ def parse_mp3(file_data: bytes, offset: int = 0,
     fallback/oracle, "native" requires the native library.
     ``progress_cb(n_bytes)``: byte-progress hook (the reference's tqdm bar over
     bytes decoded, MP3_Parser.py:67); the native parser reports once at the end.
+
+    Recorded as the span ``parse_mp3`` (counts ``bytes``, ``frames``), with
+    the native path's children ``parse.walk`` (the frame count),
+    ``parse.planes`` (the output planes), ``parse.native`` (the fill) and
+    ``parse.tag`` (the VBR tag).
     """
-    return _attach_vbr_tag(
-        _parse_mp3_engine(file_data, offset, backend, progress_cb),
-        file_data, offset)
+    with span("parse_mp3", bytes=len(file_data)):
+        p = _parse_mp3_engine(file_data, offset, backend, progress_cb)
+        count("frames", p.num_frames)
+        with span("parse.tag"):
+            return _attach_vbr_tag(p, file_data, offset)
 
 
 def _attach_vbr_tag(p: "ParsedMP3", file_data: bytes, offset: int):

@@ -52,6 +52,7 @@ import functools as _ft
 import os
 import struct
 import sys
+import time
 
 import numpy as np
 import torch
@@ -64,7 +65,8 @@ from mp3stego_tpu_torch.ops import quant as Q
 from mp3stego_tpu_torch.ops import quant_batch as QB
 from mp3stego_tpu_torch.ops import search_plane as SP
 from mp3stego_tpu_torch.utils import calibrate
-from mp3stego_tpu_torch.utils.profiling import StageTimer, progress, trace
+from mp3stego_tpu_torch.utils.profiling import (StageTimer, count, progress,
+                                                span, trace)
 from mp3stego_tpu_torch.utils.transfer import fetch_pieces, put_pieces
 from mp3stego_tpu_torch.utils.wav import WavFile, read_wav
 
@@ -383,30 +385,31 @@ class MP3Encoder:
     def encode(self, quiet: bool = True):
         """Encode the full file (MP3_Encoder.py:596-618) with the engine the
         constructor chose (see the module docstring). ``quiet=False`` prints
-        a per-stage timing report."""
-        dev = self.device
-        sync = (lambda: torch.cuda.synchronize(dev)) \
-            if dev is not None and dev.type == "cuda" else None
-        timer = self.timer = StageTimer(sync=sync)
-        num_frames = self._num_frames()
-        if num_frames == 0:
-            return
-        with trace():
-            if not self.device_search:
-                self._encode_sequential(num_frames, timer, quiet)
-            elif os.environ.get("MP3STEGO_TPU_SEARCH_PLANE", "1") == "0":
-                self._encode_grid(num_frames, timer, quiet)
-            elif not (calibrate.entry_engine("single_encode") == "host"
-                      and self._encode_host(num_frames, timer)):
-                if self.hide_str:
-                    self._encode_hide(num_frames, timer)
-                else:
-                    self._encode_plane(num_frames, timer)
-        if self.vbr:
-            self.out_buffer = (bytearray(self._xing_frame(num_frames))
-                               + self.out_buffer)
-        if not quiet:
-            timer.print_report()
+        a per-stage timing report. Recorded as the span ``encode``."""
+        with span("encode"):
+            dev = self.device
+            sync = (lambda: torch.cuda.synchronize(dev)) \
+                if dev is not None and dev.type == "cuda" else None
+            timer = self.timer = StageTimer(sync=sync)
+            num_frames = self._num_frames()
+            if num_frames == 0:
+                return
+            with trace():
+                if not self.device_search:
+                    self._encode_sequential(num_frames, timer, quiet)
+                elif os.environ.get("MP3STEGO_TPU_SEARCH_PLANE", "1") == "0":
+                    self._encode_grid(num_frames, timer, quiet)
+                elif not (calibrate.entry_engine("single_encode") == "host"
+                          and self._encode_host(num_frames, timer)):
+                    if self.hide_str:
+                        self._encode_hide(num_frames, timer)
+                    else:
+                        self._encode_plane(num_frames, timer)
+            if self.vbr:
+                self.out_buffer = (bytearray(self._xing_frame(num_frames))
+                                   + self.out_buffer)
+            if not quiet:
+                timer.print_report()
 
     def _encode_sequential(self, num_frames: int, timer, quiet=True):
         """The host oracle: native (or torch-on-CPU) analysis, then the
@@ -870,7 +873,9 @@ class MP3Encoder:
         serialization from the plane's per-granule results. A skipped
         granule takes its slot's step before these frames from
         ``_slot_carry`` (zeros at the file's start); each slot's step and
-        stale addresses after them go back into it for the next window."""
+        stale addresses after them go back into it for the next window.
+        Its parts are the spans ``finish.scfsi``, ``finish.steps``,
+        ``finish.reservoir`` and ``finish.serialize``."""
         gpf = self.granules_per_frame
         nch = self.wav.num_of_channels
         searched = res["xrmax0"] == 0
@@ -882,22 +887,36 @@ class MP3Encoder:
 
         scfsi_f = None
         if self.version == 3:
-            scfsi_f = self._plane_scfsi(en_tot_raw, en_raw, searched, nf, tg)
+            with span("finish.scfsi"):
+                scfsi_f = self._plane_scfsi(en_tot_raw, en_raw, searched, nf,
+                                            tg)
 
         # global_gain: quantizerStepSize persists per (gr, ch) slot across
         # frames, so skipped (xrmax==0) granules reuse the last searched step
-        steps = res["step"].reshape(nch, nf, gpf)
-        smask = searched.reshape(nch, nf, gpf)
-        last = np.where(smask, np.arange(nf)[None, :, None], -1)
-        np.maximum.accumulate(last, axis=1, out=last)
-        seed = 0 if self._slot_carry is None else \
-            self._slot_carry["step"].reshape(nch, 1, gpf)
-        carried = np.where(
-            last >= 0,
-            np.take_along_axis(steps, np.maximum(last, 0), axis=1), seed)
-        gg = carried + 210
-        self._carry_slots(res, last[:, -1], carried[:, -1], nf)
+        with span("finish.steps"):
+            steps = res["step"].reshape(nch, nf, gpf)
+            smask = searched.reshape(nch, nf, gpf)
+            last = np.where(smask, np.arange(nf)[None, :, None], -1)
+            np.maximum.accumulate(last, axis=1, out=last)
+            seed = 0 if self._slot_carry is None else \
+                self._slot_carry["step"].reshape(nch, 1, gpf)
+            carried = np.where(
+                last >= 0,
+                np.take_along_axis(steps, np.maximum(last, 0), axis=1), seed)
+            gg = carried + 210
+            self._carry_slots(res, last[:, -1], carried[:, -1], nf)
 
+        with span("finish.reservoir", frames=nf):
+            p23 = self._plane_reservoir(res, nf, mean_bits_f, tg)
+        with span("finish.serialize", frames=nf):
+            self._plane_serialize(res, p23, gg, scfsi_f, paddings, nf, tg)
+
+    def _plane_reservoir(self, res: dict, nf: int, mean_bits_f,
+                         tg: int) -> np.ndarray:
+        """The reservoir chain and stuffing over ``nf`` frames; returns each
+        lane's part2_3_length as serialized (float64)."""
+        gpf = self.granules_per_frame
+        nch = self.wav.num_of_channels
         # reservoir chain + stuffing (exact float order, MP3_Encoder.py:812,
         # 1097-1145); stuffing mutates the serialized part2_3_length
         p23 = res["bits"].astype(np.float64)
@@ -932,7 +951,13 @@ class MP3Encoder:
                             p23[g] += bits_this
                             stuffing -= bits_this
                     self.resv_drain = stuffing  # never serialized (ref quirk)
+        return p23
 
+    def _plane_serialize(self, res: dict, p23, gg, scfsi_f, paddings,
+                         nf: int, tg: int):
+        """Serialize ``nf`` frames into ``out_buffer``."""
+        gpf = self.granules_per_frame
+        nch = self.wav.num_of_channels
         # serialize: one batched native call for the whole file when the C
         # library is available, else the per-frame python writers
         ix_l = res["ix"].reshape(nch, nf, gpf, 576)
@@ -1078,7 +1103,12 @@ class MP3Encoder:
         redoes on the host (``_redo_lane``) a granule whose window is
         flagged and each granule whose 3 bits run past the message's end.
         ``hide_stats`` records the lanes, window lanes, blocks, sensitive
-        lanes and host redos."""
+        lanes and host redos.
+
+        The span ``hide.setup`` holds the framing, the budgets' upload, the
+        clear pass and the cursor order; the redos a scan block runs add
+        their seconds and lanes to its ``hide scan (host)`` span as the
+        counts ``redo_s`` and ``redo_lanes``."""
         st = timer.stage
         gpf = self.granules_per_frame
         nch = self.wav.num_of_channels
@@ -1090,30 +1120,33 @@ class MP3Encoder:
         if xr is None:
             with st("analysis+mdct (device)"):
                 xr = self._analysis_device(num_frames)
-        paddings, mean_bits_f = self._plane_framing(num_frames)
-        max_bits_lanes = self._lane_budgets(mean_bits_f)
-        mb = torch.from_numpy(max_bits_lanes).to(self.device)
-        with st("hide clear pass (device)"):
-            clear = SP.search(xr, mb, self.band_row)
-        with st("d2h"):
-            rows = SP.rows_to_host(clear)
-        # the final rows, one (15, n) matrix the dict's rows are views of
-        res_mat = np.stack([rows[k] for k in SP.ROWS])
-        res = dict(zip(SP.ROWS, res_mat))
-        ix_d = clear["ix"]                # the final ix; windows gather in
-        del clear
+        with span("hide.setup"):
+            paddings, mean_bits_f = self._plane_framing(num_frames)
+            max_bits_lanes = self._lane_budgets(mean_bits_f)
+            mb = torch.from_numpy(max_bits_lanes).to(self.device)
+            with st("hide clear pass (device)"):
+                clear = SP.search(xr, mb, self.band_row)
+            with st("d2h"):
+                rows = SP.rows_to_host(clear)
+            # the final rows: one (15, n) matrix, the dict's rows its views
+            res_mat = np.stack([rows[k] for k in SP.ROWS])
+            res = dict(zip(SP.ROWS, res_mat))
+            ix_d = clear["ix"]            # the final ix; windows gather in
+            del clear
 
-        # lanes in the reference's cursor order (lane g = ch*tg + f*gpf + gr)
-        order = (np.arange(num_frames)[:, None, None] * gpf
-                 + np.arange(nch)[None, :, None] * tg
-                 + np.arange(gpf)[None, None, :]).reshape(-1)
-        clear_sum = np.concatenate(
-            [[0], np.cumsum(SP.region_counts(res)[order])])
-        prev = self._slot_prev(res["xrmax0"] == 0, tg)
+            # lanes in the reference's cursor order (lane g = ch * tg +
+            # f * gpf + gr)
+            order = (np.arange(num_frames)[:, None, None] * gpf
+                     + np.arange(nch)[None, :, None] * tg
+                     + np.arange(gpf)[None, None, :]).reshape(-1)
+            clear_sum = np.concatenate(
+                [[0], np.cumsum(SP.region_counts(res)[order])])
+            prev = self._slot_prev(res["xrmax0"] == 0, tg)
         redone = {}                       # lane -> host ix
         stats = dict(lanes=n, window_lanes=0, blocks=0, sensitive=0,
                      redone=0, edge=0)
         flagged = {name: 0 for name, _ in _FLAGS}
+        redo_s = [0.0]                    # the timed host redos' seconds
 
         def redo(g, row, c, flag):
             r = self._redo_lane(res, g, row, int(max_bits_lanes[g]), prev,
@@ -1123,6 +1156,12 @@ class MP3Encoder:
             for name, bit in _FLAGS:
                 flagged[name] += bool(flag & bit)
             return len([t for t in r["ch"] if t > 0])
+
+        def timed_redo(*args):            # while the scan's span records
+            t0 = time.perf_counter()
+            out = redo(*args)
+            redo_s[0] += time.perf_counter() - t0
+            return out
 
         c = self.hide_str_offset
         q = 0                             # position in cursor order
@@ -1146,9 +1185,13 @@ class MP3Encoder:
                                         self.band_row)
             with st("d2h"):
                 w_rows = SP.rows_to_host(win)
-            with st("hide scan (host)"):
+            with st("hide scan (host)") as scan:
+                s0, n0 = redo_s[0], stats["redone"]
                 c, k, wsel = self._scan_block(
-                    w_rows, lanes, c, res_mat, redo, xr, stats)
+                    w_rows, lanes, c, res_mat,
+                    redo if scan is None else timed_redo, xr, stats)
+                count("redo_s", redo_s[0] - s0)
+                count("redo_lanes", stats["redone"] - n0)
             with st("hide window pass (device)"):
                 i = np.flatnonzero(wsel >= 0)
                 ix_d[torch.from_numpy(lanes[i]).to(self.device)] = \

@@ -61,6 +61,7 @@ from mp3stego_tpu_torch import tables as T
 from mp3stego_tpu_torch.ops.synth import MAX_ROWS as MAX_SYNTH_ROWS
 from mp3stego_tpu_torch.ops.synth import (ascending_matmul, overlap_freqinv,
                                           synth_fused)
+from mp3stego_tpu_torch.utils.profiling import span
 from mp3stego_tpu_torch.utils.transfer import fetch_pieces, put_tree
 
 SQRT2 = math.sqrt(2)
@@ -515,7 +516,10 @@ def host_prepare(p, native_pack: bool = True, raw: bool = True) -> dict:
     (t-major vs ch-major) — downstream is a scatter, so order is free.
     ``raw=False`` leaves the sample plane out (``RAW_KEYS``): the device
     Huffman decode (``ops/huffman_device``) supplies it on the device as
-    ``raw_dense``."""
+    ``raw_dense``.
+
+    Its two passes are the spans ``prepare.pack`` (the sample plane) and
+    ``prepare.tables`` (the per-granule fields and the walk tables)."""
     F = p.num_frames
     sr = p.header.sr_idx
     G = F * 2  # time-ordered granules
@@ -527,77 +531,80 @@ def host_prepare(p, native_pack: bool = True, raw: bool = True) -> dict:
     # Huffman sample plane as int8 + sparse int16 escapes: almost all values
     # are |x| <= 15; only linbits samples exceed int8. This halves (vs int16)
     # the dominant host->device transfer.
-    packed = _pack_raw_native(p.raw_samples, F) \
-        if raw and native_pack else None
-    if packed is not None:
-        raw_i8, exc_t, exc_ch, exc_s, exc_val = packed
-    elif raw:
-        r = to_ct(p.raw_samples)                    # (2, T, 576) int32
-        exc_ch, exc_t, exc_s = np.nonzero((r > 127) | (r < -128))
-        exc_val = r[exc_ch, exc_t, exc_s].astype(np.int16)
-        raw_i8 = np.clip(r, -128, 127).astype(np.int8)
+    with span("prepare.pack"):
+        packed = _pack_raw_native(p.raw_samples, F) \
+            if raw and native_pack else None
+        if packed is not None:
+            raw_i8, exc_t, exc_ch, exc_s, exc_val = packed
+        elif raw:
+            r = to_ct(p.raw_samples)                # (2, T, 576) int32
+            exc_ch, exc_t, exc_s = np.nonzero((r > 127) | (r < -128))
+            exc_val = r[exc_ch, exc_t, exc_s].astype(np.int16)
+            raw_i8 = np.clip(r, -128, 127).astype(np.int8)
 
-    bt = to_ct(p.block_type)                        # (2, T)
-    mixed = to_ct(p.mixed_block_flag).astype(bool)
+    with span("prepare.tables"):
+        bt = to_ct(p.block_type)                    # (2, T)
+        mixed = to_ct(p.mixed_block_flag).astype(bool)
 
-    # per-granule walk mode: 0 long, 1 short (bt==2), 2 the reference's
-    # mixed walk (kept for REF_MIXED=1 and for mixed flags on non-short
-    # block types, where the reference's sfb>=8 branch is what executes),
-    # 3 ISO mixed (bt==2 + mixed_block_flag, the default decode)
-    mode = np.where(bt == 2, 1, np.where(mixed, 2, 0)).astype(np.int8)
-    if _iso_mixed_on(sr):
-        mode = np.where((bt == 2) & mixed, 3, mode).astype(np.int8)
-    walk_is_short, walk_sfb, walk_win, pre_ext = _walk_maps(sr, _iso_bands(sr))
-    slot_exp, slot_is = _slot_maps(walk_is_short, walk_sfb, walk_win)
-    is_pos, is_mask, is_tab = _intensity_positions(p, bt, mixed)
-    s_mix, k_mix = _mix_geometry(sr)
-    col = np.arange(576)
+        # per-granule walk mode: 0 long, 1 short (bt==2), 2 the reference's
+        # mixed walk (kept for REF_MIXED=1 and for mixed flags on non-short
+        # block types, where the reference's sfb>=8 branch is what executes),
+        # 3 ISO mixed (bt==2 + mixed_block_flag, the default decode)
+        mode = np.where(bt == 2, 1, np.where(mixed, 2, 0)).astype(np.int8)
+        if _iso_mixed_on(sr):
+            mode = np.where((bt == 2) & mixed, 3, mode).astype(np.int8)
+        walk_is_short, walk_sfb, walk_win, pre_ext = _walk_maps(
+            sr, _iso_bands(sr))
+        slot_exp, slot_is = _slot_maps(walk_is_short, walk_sfb, walk_win)
+        is_pos, is_mask, is_tab = _intensity_positions(p, bt, mixed)
+        s_mix, k_mix = _mix_geometry(sr)
+        col = np.arange(576)
 
-    planes = {} if not raw else dict(
-        raw_i8=raw_i8,
-        exc_t=exc_t.astype(np.int32),
-        exc_ch=exc_ch.astype(np.int8),
-        exc_s=exc_s.astype(np.int16),
-        exc_val=exc_val)
-    return dict(
-        is_pos=is_pos,                               # (T,4,22) int8
-        is_mask=is_mask,                             # (T,) bool
-        is_tab=is_tab,                               # (T,) int8 coef row
-        **planes,
-        mode=mode,
-        gg=to_ct(p.global_gain).astype(np.int16),
-        sfscale=to_ct(p.scale_fac_scale).astype(np.int8),
-        pre=to_ct(p.pre_flag).astype(np.int8),
-        sbg=to_ct(p.sub_block_gain).astype(np.int8),     # (2, T, 3)
-        sfl=to_ct(p.scale_fac_l).astype(np.int8),        # (2, T, 22)
-        sfs=np.ascontiguousarray(
-            to_ct(p.scale_fac_s).reshape(2, G, 39)).astype(np.int8),
-        reorder_mask=((bt == 2) | mixed),            # (2,T)
-        ms_mask=np.asarray(p.ms_stereo, bool),       # (T,) per granule
-        # sine_block row: block_type, except ISO-mixed granules whose long
-        # subbands window with block_type 0 (the long-path result is only
-        # consumed for those subbands; pure short granules never read it)
-        win_row=np.where(mode == 3, 0, bt).astype(np.int8),
-        is_short_blk=(bt == 2),
-        reorder_perm=_reorder_perm(sr, _iso_bands(sr)),
-        walk_is_short=walk_is_short,                 # (4,576)
-        walk_sfb=walk_sfb,
-        walk_win=walk_win,
-        pre_ext=pre_ext,
-        slot_exp=slot_exp,                           # (4,576) int16
-        slot_is=slot_is,                             # (4,576) int16
-        # ISO-mixed statics: the short/reordered region (col >= S); the
-        # columns whose full-alias result must revert to the raw spectrum
-        # (boundary K's lower butterfly half, 18K-8..18K-1 — only
-        # butterflies 1..K-1 apply to mixed blocks); the 8 kHz-only
-        # unreordered middle (cols 18K..S-1, strided short-window read —
-        # see granule_blocks); and the subbands decoded with long windows
-        # (band < K)
-        mix_short_cols=(col >= s_mix),               # (576,)
-        mix_raw_cols=((col >= 18 * k_mix - 8) & (col < 18 * k_mix)),
-        mix_lin_cols=((col >= 18 * k_mix) & (col < s_mix)),
-        mix_long_band=(np.arange(32) < k_mix),       # (32,)
-    )
+        planes = {} if not raw else dict(
+            raw_i8=raw_i8,
+            exc_t=exc_t.astype(np.int32),
+            exc_ch=exc_ch.astype(np.int8),
+            exc_s=exc_s.astype(np.int16),
+            exc_val=exc_val)
+        return dict(
+            is_pos=is_pos,                               # (T,4,22) int8
+            is_mask=is_mask,                             # (T,) bool
+            is_tab=is_tab,                               # (T,) int8 coef row
+            **planes,
+            mode=mode,
+            gg=to_ct(p.global_gain).astype(np.int16),
+            sfscale=to_ct(p.scale_fac_scale).astype(np.int8),
+            pre=to_ct(p.pre_flag).astype(np.int8),
+            sbg=to_ct(p.sub_block_gain).astype(np.int8),     # (2, T, 3)
+            sfl=to_ct(p.scale_fac_l).astype(np.int8),        # (2, T, 22)
+            sfs=np.ascontiguousarray(
+                to_ct(p.scale_fac_s).reshape(2, G, 39)).astype(np.int8),
+            reorder_mask=((bt == 2) | mixed),            # (2,T)
+            ms_mask=np.asarray(p.ms_stereo, bool),       # (T,) per granule
+            # sine_block row: block_type, except ISO-mixed granules whose long
+            # subbands window with block_type 0 (the long-path result is only
+            # consumed for those subbands; pure short granules never read it)
+            win_row=np.where(mode == 3, 0, bt).astype(np.int8),
+            is_short_blk=(bt == 2),
+            reorder_perm=_reorder_perm(sr, _iso_bands(sr)),
+            walk_is_short=walk_is_short,                 # (4,576)
+            walk_sfb=walk_sfb,
+            walk_win=walk_win,
+            pre_ext=pre_ext,
+            slot_exp=slot_exp,                           # (4,576) int16
+            slot_is=slot_is,                             # (4,576) int16
+            # ISO-mixed statics: the short/reordered region (col >= S); the
+            # columns whose full-alias result must revert to the raw spectrum
+            # (boundary K's lower butterfly half, 18K-8..18K-1 — only
+            # butterflies 1..K-1 apply to mixed blocks); the 8 kHz-only
+            # unreordered middle (cols 18K..S-1, strided short-window read —
+            # see granule_blocks); and the subbands decoded with long windows
+            # (band < K)
+            mix_short_cols=(col >= s_mix),               # (576,)
+            mix_raw_cols=((col >= 18 * k_mix - 8) & (col < 18 * k_mix)),
+            mix_lin_cols=((col >= 18 * k_mix) & (col < s_mix)),
+            mix_long_band=(np.arange(32) < k_mix),       # (32,)
+        )
 
 
 def exponent_indices(prep, xp=np):
@@ -1473,4 +1480,5 @@ def decode_pcm_i16(p, device, dtype: str = "float32",
         inter = decode_granules_i16(prep, DTYPES[dtype], channels=ch)[0]
     with timer.stage("d2h"):
         inter = fetch_pieces([inter])[0]
-    return _finish_inter(p, inter)
+    with span("finish_inter"):
+        return _finish_inter(p, inter)

@@ -49,6 +49,7 @@ from mp3stego_tpu_torch.bitstream.id3 import parse_id3
 from mp3stego_tpu_torch.ops import decode_plane as dp
 from mp3stego_tpu_torch.parallel.mesh import check_mesh
 from mp3stego_tpu_torch.utils import calibrate
+from mp3stego_tpu_torch.utils.profiling import bind, count, span
 
 # host threads for parsing and preparing files
 _WORKERS = min(8, os.cpu_count() or 1)
@@ -210,10 +211,11 @@ def prepare_batch_concat(preps: list) -> dict:
 
 
 def _read_parsed(path: str):
-    with open(path, "rb") as f:
-        data = f.read()
-    id3 = parse_id3(data)
-    parsed = dh.parse_mp3(data, id3.offset if id3.is_valid else 0)
+    with span("batch.file"):
+        with open(path, "rb") as f:
+            data = f.read()
+        id3 = parse_id3(data)
+        parsed = dh.parse_mp3(data, id3.offset if id3.is_valid else 0)
     if parsed.num_frames == 0:
         raise ValueError(f"{path}: no MP3 frames found")
     return parsed
@@ -244,7 +246,19 @@ def decode_files_batched(paths: list, mesh=None, dtype: str = "float32",
         missing card raises). Passing it with a mesh raises.
     :param chunk_files: files per chunk, one synthesis-kernel launch each;
         0 decodes each samplerate's files as one chunk.
+
+    Recorded as the span ``decode_files_batched``, the root of the call's
+    spans: ``batch.file`` a file on the pool (its read and ``parse_mp3``),
+    ``batch.parse_wait`` for the parses, and a chunk's ``batch.prep`` on
+    the prep thread and ``batch.prep_wait``, ``batch.dispatch``,
+    ``batch.fetch_wait`` and ``batch.unpack`` on the caller's.
     """
+    with span("decode_files_batched", files=len(paths)):
+        return _decode_files(paths, mesh, dtype, errors, out, device,
+                             chunk_files)
+
+
+def _decode_files(paths, mesh, dtype, errors, out, device, chunk_files):
     devs = None if mesh is None \
         else list(check_mesh(mesh, device).devices[:, 0])
     if out not in OUTS:
@@ -260,21 +274,22 @@ def decode_files_batched(paths: list, mesh=None, dtype: str = "float32",
     # the parse and host_prepare of many files run on a thread pool (the
     # native parser and the NumPy passes release the GIL)
     with ThreadPoolExecutor(max_workers=_WORKERS) as pool:
-        parsing = [pool.submit(_read_parsed, path) for path in paths]
-        for i, fut in enumerate(parsing):
-            try:
-                metas.append(fut.result())
-                kept.append(i)
-            except Exception as e:  # noqa: BLE001 - isolation mode reports it
-                if errors != "isolate":
-                    raise
-                results[i] = e
+        parsing = [pool.submit(bind(_read_parsed), path) for path in paths]
+        with span("batch.parse_wait"):
+            for i, fut in enumerate(parsing):
+                try:
+                    metas.append(fut.result())
+                    kept.append(i)
+                except Exception as e:  # noqa: BLE001 - isolation reports it
+                    if errors != "isolate":
+                        raise
+                    results[i] = e
         decoded = None
         if (out == "int16" and dtype == "float32" and metas
                 and calibrate.entry_engine(
                     "batch_decode",
                     sum(m.num_frames for m in metas) * 2) == "host"):
-            decoded = list(pool.map(dp.decode_pcm_i16_host, metas))
+            decoded = list(pool.map(bind(dp.decode_pcm_i16_host), metas))
             if any(pcm is None for pcm in decoded):   # no native library
                 decoded = None
         if metas and decoded is None:
@@ -325,12 +340,15 @@ def _decode_pipelined(metas: list, devs: list, dtype, to_i16: bool,
     results = [None] * len(metas)
 
     def prep(idxs):
-        batch = dp.index_escapes(prepare_batch_concat(list(workers.map(
-            dp.host_prepare, [metas[i] for i in idxs]))))
-        host = {k: torch.from_numpy(np.ascontiguousarray(batch[k]))
-                for k in dp.TORCH_KEYS}
-        if sides:
-            host = {k: v.pin_memory() for k, v in host.items()}
+        with span("batch.prep", files=len(idxs)):
+            batch = dp.index_escapes(prepare_batch_concat(list(workers.map(
+                bind(dp.host_prepare), [metas[i] for i in idxs]))))
+            host = {k: torch.from_numpy(np.ascontiguousarray(batch[k]))
+                    for k in dp.TORCH_KEYS}
+            if sides:
+                host = {k: v.pin_memory() for k, v in host.items()}
+                count("pinned_bytes", sum(v.nbytes for v in host.values()))
+            count("granules", int(batch["lengths"].sum()))
         return batch, host
 
     def dispatch(batch, host, idxs, dev):
@@ -355,24 +373,27 @@ def _decode_pipelined(metas: list, devs: list, dtype, to_i16: bool,
         return fetched, done
 
     def finish(fetched, done, batch, idxs):
-        if done is not None:
-            done.synchronize()
-        for i, pcm in zip(idxs, _unpack(fetched.numpy(), batch,
-                                        [metas[i] for i in idxs])):
-            results[i] = pcm
+        with span("batch.fetch_wait"):
+            if done is not None:
+                done.synchronize()
+        with span("batch.unpack", files=len(idxs)):
+            for i, pcm in zip(idxs, _unpack(fetched.numpy(), batch,
+                                            [metas[i] for i in idxs])):
+                results[i] = pcm
 
     with ThreadPoolExecutor(max_workers=1) as pool:
-        fut = pool.submit(prep, chunks[0])
+        fut = pool.submit(bind(prep), chunks[0])
         pending = None
         for k, idxs in enumerate(chunks):
-            batch, host = fut.result()
+            with span("batch.prep_wait"):
+                batch, host = fut.result()
             if k + 1 < len(chunks):
-                fut = pool.submit(prep, chunks[k + 1])
-            fetched, done = dispatch(batch, host, idxs,
-                                     devs[k % len(devs)])
+                fut = pool.submit(bind(prep), chunks[k + 1])
+            with span("batch.dispatch"):
+                fetched, done = dispatch(batch, host, idxs,
+                                         devs[k % len(devs)])
             if pending is not None:
                 finish(*pending)
             pending = (fetched, done, batch, idxs)
         finish(*pending)
     return results
-

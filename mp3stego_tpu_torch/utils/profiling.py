@@ -1,17 +1,27 @@
 """Tracing / profiling utilities.
 
+* ``span()`` / ``count()`` — the port's one span recorder. A span is a
+  named stretch of host work with its id, its parent and root span (the
+  enclosing span, carried by a ``contextvars`` variable, and across a
+  thread pool by ``bind()``), its thread, ``t0`` and ``t1`` on
+  ``time.perf_counter()`` and its counts (``count()`` adds to the
+  innermost open span). Spans are recorded while a ``torch.profiler``
+  runs, inside ``recording()`` and under ``trace()``; each is then also a
+  ``record_function`` range of the same name where the profiler sees its
+  thread, so it lands on the device trace's clock. Otherwise ``span`` is
+  one check and a shared null context. ``spans()`` returns the last ``SPAN_LIMIT`` spans.
 * ``StageTimer`` — per-stage wall-clock accounting for the decode pipeline
   (host parse, host_prepare, h2d, device plane, d2h, WAV write), printed
   when ``quiet=False`` or read programmatically. Given a ``sync`` callable
   (``torch.cuda.synchronize``) it waits for the device at each stage
   boundary, so asynchronous kernel launches are charged to the stage that
-  made them.
+  made them. Each stage is a span, the trailing wait inside it.
 * ``trace()`` — context manager around ``torch.profiler.profile``: writes a
   chrome/perfetto trace of the host and device work under a directory (set
   MP3STEGO_TPU_TRACE=<dir> to trace any pipeline without code changes). The
   decode plane's stages run under ``record_function`` scopes named like the
   JAX package's ``jax.named_scope``s, so the two packages' traces line up;
-  while a profiler runs, every ``StageTimer`` stage is such a scope too.
+  while a profiler runs, every span is such a scope too.
 * ``parse_device_trace()`` / ``stage_utilization()`` — the device records
   of that trace (kernels, memcpys, memsets) with the scopes that hold them,
   and their device time per stage: the JAX package's readers of its
@@ -24,15 +34,135 @@
 """
 
 import contextlib
+import contextvars
+import itertools
 import json
 import os
+import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
+
+from torch.autograd import profiler as _autograd_profiler
 
 # the chrome trace's categories of work on the device
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the category of a ``record_function`` range on the device's timeline
 ANNOTATION_CAT = "gpu_user_annotation"
+
+# the most spans kept; older ones are dropped (and counted) past it
+SPAN_LIMIT = 1 << 20
+
+
+class Span:
+    """One recorded span: ``name``, ``id``, ``parent`` (the id of the span
+    open around it, None at a root), ``root`` (the id of its outermost
+    ancestor, its own at a root), ``thread`` (``threading.get_ident()``),
+    ``t0`` and ``t1`` (``time.perf_counter()`` seconds) and ``counts``
+    (name → number)."""
+
+    __slots__ = ("name", "id", "parent", "root", "thread", "t0", "t1",
+                 "counts", "_token", "_range")
+
+    def __enter__(self):
+        up = _open.get()
+        self.id = next(_ids)
+        self.parent = None if up is None else up.id
+        self.root = self.id if up is None else up.root
+        self.thread = threading.get_ident()
+        self._token = _open.set(self)
+        self._range = _scope(self.name)
+        self._range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.perf_counter()
+        self._range.__exit__(*exc)
+        _open.reset(self._token)
+        self._token = self._range = None
+        global _dropped
+        with _keep_lock:
+            if len(_kept) == _kept.maxlen:
+                _dropped += 1
+            _kept.append(self)
+        return False
+
+
+_open = contextvars.ContextVar("mp3stego_tpu_torch_span", default=None)
+_ids = itertools.count(1)
+_kept = deque(maxlen=SPAN_LIMIT)
+_keep_lock = threading.Lock()
+_dropped = 0
+_forced = 0                       # open ``recording()`` blocks
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str, **counts):
+    """A context manager that records a span named ``name`` with the
+    starting ``counts`` (see ``Span``); ``with span(...) as s`` gives the
+    ``Span``, or None when nothing is recorded. Recording is on while a
+    ``torch.profiler`` runs, inside ``recording()`` and under ``trace()``;
+    otherwise this is one check and a shared null context. A span never
+    waits for the card."""
+    # torch's flag is global: a profiler started in any thread
+    if not (_forced or _autograd_profiler._is_profiler_enabled):
+        return _NULL
+    s = Span()
+    s.name, s.counts = name, counts
+    return s
+
+
+def count(name: str, n=1):
+    """Add ``n`` to the count ``name`` of the innermost open span (of this
+    thread, or the span ``bind`` carried into it); nothing when none is
+    open."""
+    s = _open.get()
+    if s is not None:
+        with _keep_lock:          # ``bind`` may share the span among threads
+            s.counts[name] = s.counts.get(name, 0) + n
+
+
+def bind(fn):
+    """``fn`` to run on another thread (a ``ThreadPoolExecutor`` task) as if
+    inside the span open here: spans it opens take that span as parent and
+    share its root. ``fn`` itself when no span is open."""
+    s = _open.get()
+    if s is None:
+        return fn
+
+    def bound(*args, **kwargs):
+        token = _open.set(s)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _open.reset(token)
+    return bound
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans inside this block whether a profiler runs or not (for
+    tests and operators; ``spans()`` reads them)."""
+    global _forced
+    with _keep_lock:
+        _forced += 1
+    try:
+        yield
+    finally:
+        with _keep_lock:
+            _forced -= 1
+
+
+def spans() -> list:
+    """The recorded spans, oldest first, each a ``Span``: the last
+    ``SPAN_LIMIT`` closed ones."""
+    with _keep_lock:
+        return list(_kept)
+
+
+def dropped_spans() -> int:
+    """How many spans the bound on kept spans has dropped."""
+    return _dropped
 
 
 class StageTimer:
@@ -52,19 +182,26 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
+        """A span named ``name`` (``with t.stage(...) as s`` gives the
+        ``Span``, or None when nothing is recorded); when enabled, also its
+        wall added to ``times[name]`` (from after the leading wait for the
+        card to after the trailing one, which the span holds too) and a
+        call to ``counts[name]``."""
         if not self.enabled:
-            yield
+            with span(name) as s:
+                yield s
             return
         if self.sync is not None:
             self.sync()
-        scope = _scope(name)
         t0 = time.perf_counter()
         try:
-            with scope:
-                yield
+            with span(name) as s:
+                try:
+                    yield s
+                finally:
+                    if self.sync is not None:
+                        self.sync()
         finally:
-            if self.sync is not None:
-                self.sync()
             dt = time.perf_counter() - t0
             self.times[name] = self.times.get(name, 0.0) + dt
             self.counts[name] = self.counts.get(name, 0) + 1
@@ -84,8 +221,8 @@ class StageTimer:
 
 
 def _scope(name: str):
-    """A ``record_function`` range named ``name`` while a profiler runs
-    (the range costs ~10 us on the host), else nothing."""
+    """A ``record_function`` range named ``name`` while a profiler runs in
+    this thread (the range costs ~10 us on the host), else nothing."""
     import torch
     if torch._C._autograd._profiler_enabled():
         return torch.profiler.record_function(name)
@@ -95,8 +232,9 @@ def _scope(name: str):
 @contextlib.contextmanager
 def trace(log_dir: str = None):
     """Wrap a block in a ``torch.profiler`` trace of CPU and (when a card is
-    present) CUDA activity, exported as ``<log_dir>/trace.json``. No-op when
-    no directory is given and MP3STEGO_TPU_TRACE is unset."""
+    present) CUDA activity, exported as ``<log_dir>/trace.json``, recording
+    spans inside it. No-op when no directory is given and
+    MP3STEGO_TPU_TRACE is unset."""
     log_dir = log_dir or os.environ.get("MP3STEGO_TPU_TRACE")
     if not log_dir:
         yield
@@ -107,7 +245,7 @@ def trace(log_dir: str = None):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with recording(), profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
