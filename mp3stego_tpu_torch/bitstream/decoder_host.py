@@ -16,6 +16,8 @@ Everything here is sequential/irregular and stays on host; the output is a
 ``ParsedMP3`` whose arrays are ready for the batched device numeric plane.
 """
 
+import functools
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -694,7 +696,8 @@ class ParsedMP3:
     num_frames: int = 0
     header: FrameHeader = None                    # first frame's header
     frame_sizes: np.ndarray = None                # (F,)
-    raw_samples: np.ndarray = None                # (F,2,2,576) int32
+    raw_samples: np.ndarray = None                # (F,2,2,576) int32; may
+    #   be deferred (``defer_samples``): filled at its first read
     # per-(frame,gr,ch) parameters for the numeric plane:
     block_type: np.ndarray = None                 # (F,2,2) int32
     mixed_block_flag: np.ndarray = None
@@ -729,9 +732,39 @@ class ParsedMP3:
     # reservoir and the synthesis carries exactly like any first frame.
     vbr_tag: object = None
     skip_first_pcm: bool = False
+    # the native light parse's input to the card's sample scan
+    # (``ops/huffman_device``'s layout): (words (W,) int32, fields (4F, 8)
+    # int32), or None
+    lanes: tuple = None
+
+    def defer_samples(self, fill) -> None:
+        """Leave ``raw_samples`` to ``fill()``, which returns the plane: it
+        runs at the first read, under the span ``parse.fill`` (count
+        ``frames``)."""
+        vars(self)["_raw"], vars(self)["_fill"] = None, fill
+
+    @property
+    def samples_pending(self) -> bool:
+        """Whether ``raw_samples`` is deferred and not yet filled."""
+        return vars(self).get("_fill") is not None
 
 
-import functools
+def _raw_samples(p: ParsedMP3):
+    fill = vars(p).get("_fill")
+    if fill is not None:
+        with span("parse.fill", frames=p.num_frames):
+            raw = fill()
+        vars(p)["_raw"], vars(p)["_fill"] = raw, None
+    return vars(p).get("_raw")
+
+
+def _set_raw_samples(p: ParsedMP3, raw) -> None:
+    vars(p)["_raw"], vars(p)["_fill"] = raw, None
+
+
+ParsedMP3.raw_samples = property(_raw_samples, _set_raw_samples,
+                                 doc="(F,2,2,576) int32 Huffman samples; a "
+                                     "deferred plane is filled here")
 
 
 @functools.lru_cache(maxsize=1)
@@ -770,10 +803,36 @@ def _native_luts():
             np.ascontiguousarray(T.BAND_INDEX_LONG.astype(np.int32).reshape(-1)))
 
 
-def parse_mp3_native(file_data: bytes, offset: int = 0):
-    """Native-parser path: same ParsedMP3 (without the per-frame ``side_infos``
-    list, which only golden tests consume). Returns None when the native
-    library is unavailable."""
+# the (F, 2, 2, ...) int32 side planes the native walks write, in their
+# C argument order, with each plane's trailing shape
+_SIDE_PLANES = (("block_type", ()), ("mixed_block_flag", ()),
+                ("window_switching", ()), ("global_gain", ()),
+                ("scale_fac_scale", ()), ("pre_flag", ()),
+                ("sub_block_gain", (3,)), ("scale_fac_l", (22,)),
+                ("scale_fac_s", (3, 13)), ("table_select", (3,)))
+
+
+def _side_planes(F: int) -> dict:
+    return {name: np.zeros((F, 2, 2) + tail, dtype=np.int32)
+            for name, tail in _SIDE_PLANES}
+
+
+def _mp3_parse(lib, data: np.ndarray, offset: int, F: int, planes: dict,
+               raw: np.ndarray, header_out: np.ndarray,
+               frame_sizes: np.ndarray, ms: np.ndarray) -> int:
+    """One ``mp3_parse`` call (the full fill) into the given arrays."""
+    l1, l2, book_row, linbits, maxval, quad_lut, bil = _native_luts()
+    return int(lib.mp3_parse(
+        data, len(data), offset,
+        l1, l2, book_row, linbits, maxval, quad_lut, bil,
+        F, header_out, frame_sizes, raw.reshape(-1),
+        *(planes[name].reshape(-1) for name, _ in _SIDE_PLANES), ms))
+
+
+def _native_walk(file_data: bytes, offset: int, light: bool):
+    """The native parse of ``parse_mp3_native`` (``light`` False) or
+    ``parse_mp3_light_native`` (True); None when the library is
+    unavailable or the walk is inconsistent."""
     from mp3stego_tpu_torch import native
     lib = native.get_lib()
     if lib is None:
@@ -792,37 +851,41 @@ def parse_mp3_native(file_data: bytes, offset: int = 0):
             p.header = parse_header(*file_data[offset:offset + 4])
         return p
 
-    l1, l2, book_row, linbits, maxval, quad_lut, bil = _native_luts()
     F = fcount
     with span("parse.planes"):
         header_out = np.zeros(8, dtype=np.int32)
         p.frame_sizes = np.zeros(F, dtype=np.int64)
-        p.raw_samples = np.zeros((F, 2, 2, 576), dtype=np.int32)
-        z = lambda *s: np.zeros(s, dtype=np.int32)  # noqa: E731
-        arrs = {name: z(F, 2, 2) for name in
-                ("block_type", "mixed_block_flag", "window_switching",
-                 "global_gain", "scale_fac_scale", "pre_flag")}
-        p.sub_block_gain = z(F, 2, 2, 3)
-        p.scale_fac_l = z(F, 2, 2, 22)
-        p.scale_fac_s = z(F, 2, 2, 3, 13)
-        p.table_select = z(F, 2, 2, 3)
+        planes = _side_planes(F)
         ms = np.zeros(F, dtype=np.uint8)
+        if light:
+            # a frame's main data is at most its bytes and a 511-byte
+            # reservoir; a stream that needs more is parsed again
+            cap = n // 4 + 129 * F + LIGHT_PAD_WORDS
+            words = np.empty(cap, dtype=np.int32)
+            fields = np.empty((4 * F, 8), dtype=np.int32)
+        else:
+            p.raw_samples = np.zeros((F, 2, 2, 576), dtype=np.int32)
 
     with span("parse.native"):
-        got = int(lib.mp3_parse(
-            data, n, offset,
-            l1, l2, book_row, linbits, maxval, quad_lut, bil,
-            F, header_out, p.frame_sizes, p.raw_samples.reshape(-1),
-            arrs["block_type"].reshape(-1),
-            arrs["mixed_block_flag"].reshape(-1),
-            arrs["window_switching"].reshape(-1),
-            arrs["global_gain"].reshape(-1),
-            arrs["scale_fac_scale"].reshape(-1), arrs["pre_flag"].reshape(-1),
-            p.sub_block_gain.reshape(-1), p.scale_fac_l.reshape(-1),
-            p.scale_fac_s.reshape(-1), p.table_select.reshape(-1), ms))
+        if light:
+            used = np.zeros(1, dtype=np.int64)
+            args = (data, n, offset, _native_luts()[6], F, header_out,
+                    p.frame_sizes,
+                    *(planes[name].reshape(-1) for name, _ in _SIDE_PLANES),
+                    ms)
+            got = int(lib.mp3_parse_light(*args, words, cap, LIGHT_PAD_WORDS,
+                                          fields, used))
+            if int(used[0]) > cap:
+                cap = int(used[0])
+                words = np.empty(cap, dtype=np.int32)
+                got = int(lib.mp3_parse_light(*args, words, cap,
+                                              LIGHT_PAD_WORDS, fields, used))
+        else:
+            got = _mp3_parse(lib, data, offset, F, planes, p.raw_samples,
+                             header_out, p.frame_sizes, ms)
     if got != F:
         return None  # inconsistent walk; caller falls back to python
-    for name, a in arrs.items():
+    for name, a in planes.items():
         setattr(p, name, a)
     p.num_frames = F
     p.header = parse_header(*file_data[offset:offset + 4])
@@ -831,11 +894,78 @@ def parse_mp3_native(file_data: bytes, offset: int = 0):
     # the fill loop exits on the frame-count cap before re-checking sync, so
     # the stale-PCM quirk flag comes from the counting pass
     p.duplicate_last_pcm = bool(dup[0])
+    if light:
+        p.lanes = (words[:int(used[0])], fields)
+        p.defer_samples(functools.partial(fill_samples, file_data, offset,
+                                          F))
     return p
 
 
+def parse_mp3_native(file_data: bytes, offset: int = 0):
+    """Native-parser path: same ParsedMP3 (without the per-frame ``side_infos``
+    list, which only golden tests consume). Returns None when the native
+    library is unavailable."""
+    return _native_walk(file_data, offset, light=False)
+
+
+# zero words after the last frame's in the light parse's ``lanes``
+# (``ops/huffman_device.PAD_WORDS``)
+LIGHT_PAD_WORDS = 4
+
+
+def parse_mp3_light_native(file_data: bytes, offset: int = 0):
+    """The native light parse (``native/src/mp3_light.cpp``): every plane
+    ``parse_mp3_native`` writes, and each equal to its, except the samples.
+    In their place ``lanes``, the card's scan input, equal to
+    ``ops/huffman_device.pack`` of ``parse_mp3_light``'s descriptors; and
+    ``raw_samples`` is deferred to ``fill_samples`` (the full fill) at
+    its first read. None for a stream the native walk does not read (an
+    LSF or free-format head: ``native_reads``), when the library is
+    unavailable or when the walk is inconsistent."""
+    if not native_reads(file_data, offset):
+        return None
+    return _native_walk(file_data, offset, light=True)
+
+
+def fill_samples(file_data: bytes, offset: int, frames: int) -> np.ndarray:
+    """The sample plane (F, 2, 2, 576) int32 of the full parse of the
+    stream, without spans of its own: the native fill (``mp3_parse``) where
+    it reads the stream, else the Python parse. Raises ValueError when its
+    frame count is not ``frames``, the light parse's."""
+    from mp3stego_tpu_torch import native
+    lib = native.get_lib()
+    raw = None
+    if lib is not None and native_reads(file_data, offset):
+        data = np.frombuffer(bytes(file_data), dtype=np.uint8)
+        raw = np.zeros((frames, 2, 2, 576), dtype=np.int32)
+        got = _mp3_parse(lib, data, offset, frames, _side_planes(frames),
+                         raw, np.zeros(8, np.int32),
+                         np.zeros(frames, np.int64),
+                         np.zeros(frames, np.uint8))
+        if got != frames:
+            raw = None
+    if raw is None:
+        raw = _parse_mp3_python(file_data, offset).raw_samples
+    if len(raw) != frames:
+        raise ValueError(f"the full parse read {len(raw)} frames where the "
+                         f"light parse read {frames}")
+    return raw
+
+
+def native_reads(file_data: bytes, offset: int) -> bool:
+    """Whether the native walk reads the stream from ``offset``: False for
+    an MPEG-2/2.5 (LSF) or free-format head, which the Python parser
+    reads."""
+    if (offset + HEADER_SIZE > len(file_data) or file_data[offset] != 0xFF
+            or file_data[offset + 1] < 0xE0):
+        return True
+    h = parse_header(*file_data[offset:offset + HEADER_SIZE])
+    return h.mpeg_version == 1 and not h.free_format
+
+
 def parse_mp3(file_data: bytes, offset: int = 0,
-              backend: str = "auto", progress_cb=None) -> ParsedMP3:
+              backend: str = "auto", progress_cb=None,
+              defer_samples: bool = True) -> ParsedMP3:
     """Full host pass: walk frames, parse side info, unpack scalefactors + samples.
 
     ``backend``: "auto" uses the native C++ parser when available (≈100x the
@@ -844,13 +974,25 @@ def parse_mp3(file_data: bytes, offset: int = 0,
     ``progress_cb(n_bytes)``: byte-progress hook (the reference's tqdm bar over
     bytes decoded, MP3_Parser.py:67); the native parser reports once at the end.
 
+    Under "auto", on a stream the native walk reads (MPEG-1, not
+    free-format), the parse is the native light parse
+    (``parse_mp3_light_native``): the samples are left to the card's scan,
+    which ``ops/decode_plane.decode_pcm_i16`` and ``decode_pcm`` run from
+    its ``lanes``, and ``raw_samples`` is filled by the full native fill only
+    when something reads it. ``defer_samples=False`` or
+    MP3STEGO_TPU_DEVICE_HUFFMAN=0 fills the samples here, as the other
+    backends do.
+
     Recorded as the span ``parse_mp3`` (counts ``bytes``, ``frames``), with
     the native path's children ``parse.walk`` (the frame count),
-    ``parse.planes`` (the output planes), ``parse.native`` (the fill) and
-    ``parse.tag`` (the VBR tag).
+    ``parse.planes`` (the output planes), ``parse.native`` (the fill, or
+    the light parse) and ``parse.tag`` (the VBR tag); a deferred fill is
+    the span ``parse.fill`` where it runs.
     """
     with span("parse_mp3", bytes=len(file_data)):
-        p = _parse_mp3_engine(file_data, offset, backend, progress_cb)
+        light = defer_samples and \
+            os.environ.get("MP3STEGO_TPU_DEVICE_HUFFMAN") != "0"
+        p = _parse_mp3_engine(file_data, offset, backend, progress_cb, light)
         count("frames", p.num_frames)
         with span("parse.tag"):
             return _attach_vbr_tag(p, file_data, offset)
@@ -869,18 +1011,18 @@ def _attach_vbr_tag(p: "ParsedMP3", file_data: bytes, offset: int):
     return p
 
 
-def _parse_mp3_engine(file_data: bytes, offset: int, backend,
-                      progress_cb) -> "ParsedMP3":
+def _parse_mp3_engine(file_data: bytes, offset: int, backend, progress_cb,
+                      light: bool) -> "ParsedMP3":
     if backend in ("auto", "native"):
         # LSF streams ride the python parser: the C++ twin is MPEG-1-layout
-        if (offset + HEADER_SIZE <= len(file_data)
-                and file_data[offset] == 0xFF
-                and file_data[offset + 1] >= 0xE0
-                and (lambda _h: _h.mpeg_version != 1 or _h.free_format)(
-                    parse_header(*file_data[offset:offset + 4]))):
+        if not native_reads(file_data, offset):
             return _parse_mp3_python(file_data, offset,
                                      progress_cb=progress_cb)
-        p = parse_mp3_native(file_data, offset)
+        p = None
+        if backend == "auto" and light:
+            p = parse_mp3_light_native(file_data, offset)
+        if p is None:
+            p = parse_mp3_native(file_data, offset)
         if p is not None:
             if progress_cb is not None:
                 progress_cb(int(p.frame_sizes.sum()) if p.num_frames else 0)

@@ -12,8 +12,9 @@ by default (a missing card raises). Under ``device="cpu"`` float64 runs the
 host C++ plane, whose bytes the card's float64 plane equals.
 
 A second engine unpacks the Huffman samples on the device
-(``ops/huffman_device``, after the light host parse); ``_huffman_backend``
-picks it, and its WAV bytes are the host parse's.
+(``ops/huffman_device``, after the native light host parse);
+``_huffman_backend`` picks it, on a card by default, and its WAV bytes are
+the host parse's.
 """
 
 import os
@@ -31,29 +32,19 @@ from mp3stego_tpu_torch.utils.wav import write_wav
 PRECISIONS = ("float64", "float32")
 
 
-def _device_scan_reads(data: bytes, offset: int) -> bool:
-    """Whether the device engine's light parse reads the stream that starts
-    at ``offset``: False for an MPEG-2/2.5 (LSF) or free-format head, which
-    only the host parse decodes (a stream with no sync word there decodes to
-    nothing on either engine)."""
-    if (offset + dh.HEADER_SIZE > len(data) or data[offset] != 0xFF
-            or data[offset + 1] < 0xE0):
-        return True
-    h = dh.parse_header(*data[offset:offset + dh.HEADER_SIZE])
-    return h.mpeg_version == 1 and not h.free_format
-
-
 def _huffman_backend(precision: str, device: torch.device, data: bytes = b"",
                      offset: int = 0) -> str:
     """Which engine unpacks the Huffman samples of ``data`` (the stream from
     ``offset``): "host" (the C++ parse, or its Python twin) or "device"
     (``ops/huffman_device``).
 
-    The JAX package's rule: "host" whenever the native library loads (it
-    beats the device scan end to end, whose host half is a Python parse),
-    "device" when it does not. The host float64 plane (float64 on the CPU),
-    which needs the parsed samples on the host, and the streams the light
-    parse does not read (LSF and free-format heads) always take "host".
+    "device" on a card: its host half is the native light parse, which
+    leaves the sample scan, nearly all of the host fill's work, to the
+    card's kernel (``csrc/huffman.cu``). Off the card "host" whenever the
+    native library loads, "device" (the plain scan after the Python light
+    parse) when it does not. The host float64 plane (float64 on the CPU),
+    which needs the parsed samples on the host, and the streams the native
+    walk does not read (LSF and free-format heads) always take "host".
     MP3STEGO_TPU_DEVICE_HUFFMAN=1/0 overrides."""
     env = os.environ.get("MP3STEGO_TPU_DEVICE_HUFFMAN")
     if env == "1":
@@ -62,8 +53,10 @@ def _huffman_backend(precision: str, device: torch.device, data: bytes = b"",
         return "host"
     if precision == "float64" and device.type == "cpu":
         return "host"
-    if not _device_scan_reads(data, offset):
+    if not dh.native_reads(data, offset):
         return "host"
+    if device.type == "cuda":
+        return "device"
     from mp3stego_tpu_torch import native
     return "host" if native.get_lib() is not None else "device"
 
@@ -161,7 +154,8 @@ class Decoder:
                     bar = byte_bar(len(self.__data) - self.__offset,
                                    enabled=not quiet)
                     parsed = dh.parse_mp3(self.__data, self.__offset,
-                                          progress_cb=bar.update)
+                                          progress_cb=bar.update,
+                                          defer_samples=False)
                     bar.close()
             self.__parsed = parsed
             self.output_bits = dh.stego_bits(parsed)

@@ -9,9 +9,10 @@ JAX package's host engine instead, the native Q31 analysis and the
 sequential ``rate_search_file`` chain. Their outputs are byte-identical to
 the whole-file paths (``Decoder`` with precision "float64", ``MP3Encoder``).
 
-The whole-file decode materializes the full parsed stream (``raw_samples``
-(F, 2, 2, 576) int32 plus side info) before its numeric plane runs. The
-format's carries are all short-range, so a windowed decode is exact:
+The whole-file decode holds the full parsed stream (its side info, and
+either its Huffman samples, ``raw_samples`` (F, 2, 2, 576) int32, or on the
+card the light parse's lanes) before its numeric plane runs. The format's
+carries are all short-range, so a windowed decode is exact:
 
 * bit reservoir: a granule's main data reaches back at most 9 frames
   (``NUM_PREV_FRAMES``, decoder/Frame.py:9,306-356);

@@ -4,7 +4,9 @@ The C++ sources are the port's copy of the JAX package's (``src/*.cpp`` beside
 this module, byte for byte equal, held so by tests/test_torch_import.py), so
 the port builds from its own directory: the bitstream parser
 (mp3_parse.cpp), the int8 sample-plane pack (raw_pack.cpp) and the float64
-parity decode plane (decode_plane_f64.cpp), among others. Built on first use
+parity decode plane (decode_plane_f64.cpp), among others. One source is the
+port's own: the light parse (mp3_light.cpp), the parser's walk without the
+Huffman sample scan, which it leaves to the card (ops/huffman_device.py). Built on first use
 with g++ into this package's git-ignored ``_build/`` directory (never into the
 JAX package) and loaded via ctypes; every caller has a pure-NumPy fallback,
 so the port stays functional without a toolchain.
@@ -114,6 +116,18 @@ def _bind(lib) -> None:
         p_i32, p_i64, p_i32,   # raw samples are integral (int32)
         p_i32, p_i32, p_i32, p_i32, p_i32, p_i32,
         p_i32, p_i32, p_i32, p_i32, p_u8,
+    ]
+
+    lib.mp3_parse_light.restype = i64
+    lib.mp3_parse_light.argtypes = [
+        p_u8, i64, i64,
+        p_i32,                 # the long band edges
+        i64,
+        p_i32, p_i64,
+        p_i32, p_i32, p_i32, p_i32, p_i32, p_i32,
+        p_i32, p_i32, p_i32, p_i32, p_u8,
+        p_i32, i64, i64, p_i32,   # words, their capacity, pad, fields
+        p_i64,                 # words needed
     ]
 
     i32 = ctypes.c_int32

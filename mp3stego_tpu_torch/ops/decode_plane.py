@@ -701,7 +701,7 @@ def index_escapes(prep: dict) -> dict:
     return out
 
 
-def prep_to_torch(prep: dict, device) -> dict:
+def prep_to_torch(prep: dict, device, lanes: tuple = None) -> dict:
     """``host_prepare``'s numpy dict -> tensors on ``device``, keyed by
     ``TORCH_KEYS``.
 
@@ -709,9 +709,37 @@ def prep_to_torch(prep: dict, device) -> dict:
     by ``ALL_KEYS`` (less ``RAW_KEYS`` for ``raw=False``), and indexes its
     escapes by granule (``index_escapes``); the narrow int8/int16 planes and
     bool masks cross as they are, on the card in one staged copy
-    (``utils.transfer.put_tree``)."""
+    (``utils.transfer.put_tree``). ``lanes``, a parse's (words, fields) for
+    the card's sample scan, cross in the same copy as ``"words"`` and
+    ``"fields"`` (``scan_samples`` takes them)."""
     prep = index_escapes(prep)
-    return put_tree({k: prep[k] for k in TORCH_KEYS if k in prep}, device)
+    tree = {k: prep[k] for k in TORCH_KEYS if k in prep}
+    if lanes is not None:
+        tree["words"], tree["fields"] = lanes
+    return put_tree(tree, device)
+
+
+def scan_lanes(p, device) -> tuple:
+    """The parse's ``lanes`` where its samples are to be scanned on
+    ``device``: a CUDA device and a parse whose samples the native light
+    parse left to the card (``ParsedMP3.samples_pending``); else None, and
+    the host's sample plane is read."""
+    if (torch.device(device).type == "cuda" and p.lanes is not None
+            and p.samples_pending):
+        return p.lanes
+    return None
+
+
+def scan_samples(prep: dict, frames: int) -> dict:
+    """``prep`` (``prep_to_torch`` with lanes) with its ``words`` and
+    ``fields`` replaced by the sample plane they scan to, ``raw_dense``
+    (``ops/huffman_device.decode_samples``: ``csrc/huffman.cu`` on the
+    card). Recorded as the span ``samples.device`` (count ``frames``)."""
+    from mp3stego_tpu_torch.ops import huffman_device as hd
+    with span("samples.device", frames=frames):
+        prep["raw_dense"] = hd.decode_samples(prep.pop("words"),
+                                              prep.pop("fields"))
+    return prep
 
 
 def imdct_symmetric(c_long_t: torch.Tensor, c_short_t: torch.Tensor) -> bool:
@@ -1431,7 +1459,8 @@ def decode_pcm(p, dtype: str = "float64", device=None) -> np.ndarray:
     The torch plane on ``device`` (CUDA when None) in ``dtype``; "float64"
     on the CPU is the host plane (fused C++ when available, the
     float-for-float NumPy twin otherwise), whose PCM the torch float64
-    plane equals bit for bit."""
+    plane equals bit for bit. On CUDA a parse that left its samples to the
+    card (``scan_lanes``) has them scanned there."""
     if p.num_frames == 0:
         return np.zeros((0, 2))
     dev = resolve_device(device)
@@ -1439,9 +1468,22 @@ def decode_pcm(p, dtype: str = "float64", device=None) -> np.ndarray:
         pcm = decode_granules_f64_native(p)
         if pcm is None:
             pcm = decode_granules_np(host_prepare(p))
-    else:
-        prep = prep_to_torch(host_prepare(p), dev)
-        pcm = fetch_pieces([decode_granules(prep, DTYPES[dtype])])[0]
+        return _interleave(p, pcm)
+    return _torch_pcm(p, dtype, dev, scan_lanes(p, dev))
+
+
+def _torch_pcm(p, dtype: str, dev: torch.device, lanes) -> np.ndarray:
+    """``decode_pcm``'s torch plane; the samples scanned on ``dev`` from
+    ``lanes`` where given, else the host's plane."""
+    prep = prep_to_torch(host_prepare(p, raw=lanes is None), dev, lanes)
+    if lanes is not None:
+        prep = scan_samples(prep, p.num_frames)
+    return _interleave(p, fetch_pieces([decode_granules(prep,
+                                                        DTYPES[dtype])])[0])
+
+
+def _interleave(p, pcm: np.ndarray) -> np.ndarray:
+    """(2, T, 576) PCM -> the finished interleaved (samples, channels)."""
     ch = p.header.channels
     t = pcm.shape[1]
     inter = pcm[:ch].transpose(1, 2, 0).reshape(t * 576, ch)
@@ -1465,18 +1507,31 @@ def decode_pcm_i16(p, device, dtype: str = "float32",
     (a quarter of the bytes of float64 PCM). In float64 the bytes equal the
     host plane's (``decode_pcm_i16_host``).
 
+    On CUDA a parse that left its samples to the card (``scan_lanes``) has
+    them scanned there: its lanes cross with the prep, and
+    ``csrc/huffman.cu`` writes the int32 plane K2 reads (``raw_dense``).
+
     ``timer`` (a ``utils.profiling.StageTimer``) splits the time into
-    host_prepare, h2d, device plane and d2h."""
-    from mp3stego_tpu_torch.utils.profiling import StageTimer
+    host_prepare, h2d, device plane (the scan, span ``samples.device``, and
+    K2 and K1) and d2h."""
     if p.num_frames == 0:
         return np.zeros((0, 2), np.int16)
+    return _torch_pcm_i16(p, device, dtype, timer, scan_lanes(p, device))
+
+
+def _torch_pcm_i16(p, device, dtype: str, timer, lanes) -> np.ndarray:
+    """``decode_pcm_i16``'s body; the samples scanned on ``device`` from
+    ``lanes`` where given, else the host's plane."""
+    from mp3stego_tpu_torch.utils.profiling import StageTimer
     timer = timer or StageTimer(enabled=False)
     ch = p.header.channels
     with timer.stage("host_prepare"):
-        prep = host_prepare(p)
+        prep = host_prepare(p, raw=lanes is None)
     with timer.stage("h2d"):
-        prep = prep_to_torch(prep, device)
+        prep = prep_to_torch(prep, device, lanes)
     with timer.stage("device plane"):
+        if lanes is not None:
+            prep = scan_samples(prep, p.num_frames)
         inter = decode_granules_i16(prep, DTYPES[dtype], channels=ch)[0]
     with timer.stage("d2h"):
         inter = fetch_pieces([inter])[0]

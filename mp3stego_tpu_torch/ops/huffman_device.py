@@ -2,12 +2,16 @@
 as a hand-written CUDA kernel, and its plain PyTorch version.
 
 The host keeps the sync walk, the side info, the bit-reservoir splice and
-the scalefactors (``bitstream.decoder_host.parse_mp3_light``); the device
-walks each granule's Huffman code and writes the (2, T, 576) int32 sample
-plane that the decode plane reads as ``raw_dense``
-(``ops/decode_plane.granule_blocks``). It is the port of the JAX
-package's ``ops/huffman_device.decode_samples_device``, an XLA
-``fori_loop`` that decodes 8 symbols of every granule per step in lockstep.
+the scalefactors (the native light parse,
+``bitstream.decoder_host.parse_mp3_light_native``, which ``parse_mp3``
+runs by default; its Python twin ``parse_mp3_light`` with ``pack`` where
+the library does not load); the device walks each granule's Huffman code
+and writes the (2, T, 576) int32 sample plane that the decode plane reads
+as ``raw_dense`` (``ops/decode_plane.granule_blocks``). A single-file
+decode on the card takes this route (``decode_plane.scan_lanes``). It is
+the port of the JAX package's ``ops/huffman_device.decode_samples_device``,
+an XLA ``fori_loop`` that decodes 8 symbols of every granule per step in
+lockstep.
 
 Layout (``pack``, the counterpart of the JAX package's ``pack_descriptors``,
 which pads every lane's words to one row of the longest frame's length
@@ -49,8 +53,9 @@ decoder/Frame.py:443-559):
   LUT (``T.dec_lut``). It runs on the host whatever its inputs' device, so
   the flat LUTs (30 MiB) never go to the card. The kernel equals it bit for
   bit.
+* ``parse_lanes`` — the light parse with its lanes on the ``ParsedMP3``.
 * ``decode_pcm_device`` / ``decode_pcm_i16_device`` — a whole decode
-  through the scan: float32 PCM, as the JAX package's
+  through the scan on any device: float32 PCM, as the JAX package's
   ``decode_pcm_device``, or the int16 WAV samples in either precision.
 * ``scan_chain`` — the kernel's walk without the plane's stores (each lane's
   weighted sum of its samples), a measurement of the chain alone.
@@ -65,7 +70,7 @@ import numpy as np
 import torch
 
 from mp3stego_tpu_torch import tables as T
-from mp3stego_tpu_torch.utils.transfer import fetch_pieces, put_tree
+from mp3stego_tpu_torch.utils.transfer import put_tree
 
 launches = 0
 LUT_BITS = T.LUT_BITS            # 19: the longest big-values codeword
@@ -177,18 +182,18 @@ def pack(descriptors: list) -> tuple:
     """``parse_mp3_light`` descriptors -> (words (W,) int32 holding the
     big-endian uint32 words of each frame's main data once, fields (G, 8)
     int32 in ``FIELDS`` order). Lanes of one frame share its ``md`` object;
-    an empty ``md`` (a mono stream's second channel) gets no words."""
+    an empty ``md`` (a mono stream's second channel) gets no words. The
+    native light parse writes the same arrays."""
     chunks, fields = [], np.zeros((len(descriptors), 8), np.int64)
-    base, prev_md, nwords, wbase = 0, None, 0, 0
+    base, prev_md, wbase = 0, None, 0
     for i, d in enumerate(descriptors):
         md = d["md"]
-        if md is not prev_md:
-            nwords = (len(md) + 3) // 4
+        if md and md is not prev_md:
             wbase = base
-            if nwords:
-                chunks.append(md + b"\0" * (4 * nwords - len(md)))
-                base += nwords
+            chunks.append(md + b"\0" * (-len(md) % 4))
+            base += (len(md) + 3) // 4
             prev_md = md
+        nwords = (len(md) + 3) // 4
         ts = d["ts"]
         fields[i] = (wbase if nwords else 0, nwords, d["start_bit"],
                      d["max_bit"], d["region0"], d["region1"], d["big2"],
@@ -374,64 +379,60 @@ def decode_raw_device(descriptors: list, device) -> torch.Tensor:
     return decode_samples(up["words"], up["fields"])
 
 
+def parse_lanes(data: bytes, offset: int = 0):
+    """The light host parse of the stream from ``offset``, with the scan's
+    input on the ParsedMP3 as ``lanes`` (words, fields): the native one
+    (``decoder_host.parse_mp3_light_native``) where it reads the stream,
+    else ``parse_mp3_light`` and ``pack``. Either way ``raw_samples`` is
+    deferred to the full parse (``decoder_host.fill_samples``), which runs
+    only if something reads it on the host (an intensity-stereo granule's
+    positions do). A Xing/Info/VBRI tag frame is marked as ``parse_mp3``
+    marks it. An LSF stream raises ``ValueError``."""
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    parsed = dh.parse_mp3_light_native(data, offset)
+    if parsed is not None:
+        dh._attach_vbr_tag(parsed, data, offset)
+    else:
+        parsed, descriptors = dh.parse_mp3_light(data, offset)
+        if parsed.num_frames:
+            parsed.lanes = pack(descriptors)
+            parsed.defer_samples(functools.partial(
+                dh.fill_samples, data, offset, parsed.num_frames))
+    return parsed
+
+
 def decode_pcm_device(data: bytes, offset: int, device):
     """A whole float32 decode with the Huffman bit-scan on ``device``: the
-    light host parse, ``pack``, the scan, then the float32 decode plane from
-    the resident sample plane. Returns (interleaved float32 PCM (samples,
-    channels), the ParsedMP3, whose ``raw_samples`` stay zero): bit for
-    bit ``decode_plane.decode_pcm(parse_mp3(data, offset), "float32",
+    light host parse (``parse_lanes``), the scan, then the float32 decode
+    plane from the resident sample plane. Returns (interleaved float32 PCM
+    (samples, channels), the ParsedMP3): bit for bit
+    ``decode_plane.decode_pcm(parse_mp3(data, offset), "float32",
     device)``. It raises where :func:`decode_pcm_i16_device` raises (an
     LSF stream: ``ValueError``)."""
-    from mp3stego_tpu_torch.bitstream import decoder_host as dh
     from mp3stego_tpu_torch.ops import decode_plane as dp
-    parsed, descriptors = dh.parse_mp3_light(data, offset)
+    parsed = parse_lanes(data, offset)
     if parsed.num_frames == 0:
         return np.zeros((0, 2), np.float32), parsed
-    dev = torch.device(device)
-    raw = decode_raw_device(descriptors, dev)
-    prep = dp.prep_to_torch(dp.host_prepare(parsed, raw=False), dev)
-    prep["raw_dense"] = raw
-    pcm = fetch_pieces([dp.decode_granules(prep, dp.DTYPES["float32"])])[0]
-    ch, t = parsed.header.channels, pcm.shape[1]
-    inter = pcm[:ch].transpose(1, 2, 0).reshape(t * 576, ch)
-    return dp._finish_inter(parsed, inter), parsed
+    return dp._torch_pcm(parsed, "float32", torch.device(device),
+                         parsed.lanes), parsed
 
 
 def decode_pcm_i16_device(data: bytes, offset: int, device,
                           precision: str = "float32", timer=None):
     """A whole decode with the Huffman bit-scan on ``device``: the light host
-    parse, the scan, then the decode plane in ``precision`` from the
-    resident sample plane, the int16 conversion in its synthesis kernel.
-    Returns (interleaved int16 PCM (samples, channels), the ParsedMP3, whose
-    ``raw_samples`` stay zero). MPEG-1 only: an LSF stream raises
-    ``ValueError``. ``timer`` (``utils.profiling.StageTimer``) splits the
-    time into light parse, pack (host), h2d (lanes), huffman scan (the
-    kernel), host_prepare, h2d, device plane and d2h."""
-    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    parse (``parse_lanes``), then ``decode_plane.decode_pcm_i16``'s route
+    with the scan, the int16 conversion in its synthesis kernel. Returns
+    (interleaved int16 PCM (samples, channels), the ParsedMP3). MPEG-1
+    only: an LSF stream raises ``ValueError``. ``timer``
+    (``utils.profiling.StageTimer``) splits the time into light parse
+    (host), host_prepare, h2d (the prep and the lanes), device plane (the
+    scan, K2 and K1) and d2h."""
     from mp3stego_tpu_torch.ops import decode_plane as dp
     from mp3stego_tpu_torch.utils.profiling import StageTimer
     timer = timer or StageTimer(enabled=False)
     with timer.stage("light parse (host)"):
-        parsed, descriptors = dh.parse_mp3_light(data, offset)
+        parsed = parse_lanes(data, offset)
     if parsed.num_frames == 0:
         return np.zeros((0, 2), np.int16), parsed
-    dev = torch.device(device)
-    with timer.stage("pack (host)"):
-        words, fields = pack(descriptors)
-    with timer.stage("h2d (lanes)"):
-        up = put_tree({"words": words, "fields": fields}, dev)
-        words, fields = up["words"], up["fields"]
-    with timer.stage("huffman scan (device)"):
-        raw = decode_samples(words, fields)
-    with timer.stage("host_prepare"):
-        prep = dp.host_prepare(parsed, raw=False)
-    with timer.stage("h2d"):
-        prep = dp.prep_to_torch(prep, dev)
-        prep["raw_dense"] = raw
-    ch = parsed.header.channels
-    with timer.stage("device plane"):
-        inter = dp.decode_granules_i16(prep, dp.DTYPES[precision],
-                                       channels=ch)[0]
-    with timer.stage("d2h"):
-        inter = fetch_pieces([inter])[0]
-    return dp._finish_inter(parsed, inter), parsed
+    return dp._torch_pcm_i16(parsed, torch.device(device), precision, timer,
+                             parsed.lanes), parsed

@@ -215,7 +215,10 @@ def _read_parsed(path: str):
         with open(path, "rb") as f:
             data = f.read()
         id3 = parse_id3(data)
-        parsed = dh.parse_mp3(data, id3.offset if id3.is_valid else 0)
+        # the samples filled here, on the pool: this path packs them to
+        # int8 for its chunks' K2 launches and scans nothing on the card
+        parsed = dh.parse_mp3(data, id3.offset if id3.is_valid else 0,
+                              defer_samples=False)
     if parsed.num_frames == 0:
         raise ValueError(f"{path}: no MP3 frames found")
     return parsed

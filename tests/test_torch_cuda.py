@@ -1152,3 +1152,76 @@ def test_card_probe_without_the_golden_stream(card, tmp_path, monkeypatch):
         C._DEFAULTS["device_gps"], C._DEFAULTS["h2d_bpg"],
         C._DEFAULTS["host_plane_gps"])
     assert p.link_out_mbps > 0 and p.device_search_gps > 0
+
+
+def _host_fill_parse(data: bytes, monkeypatch):
+    """``parse_mp3`` as MP3STEGO_TPU_DEVICE_HUFFMAN=0 runs it: the samples
+    filled on the host."""
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", "0")
+    p = dh.parse_mp3(data, 0)
+    monkeypatch.delenv("MP3STEGO_TPU_DEVICE_HUFFMAN")
+    assert p.lanes is None and not p.samples_pending
+    return p
+
+
+@pytest.mark.parametrize("precision", ["float32", "float64"])
+@pytest.mark.parametrize("name", ["fixture", "48000_320", "mixed_44k",
+                                  "linbits", "flipped"])
+def test_single_file_decode_scans_on_the_card(card, precision, name,
+                                              monkeypatch):
+    """``decode_pcm_i16`` and ``decode_pcm`` of a default parse scan its
+    samples on the card, one scan launch each, and write the bytes of the
+    host fill's route (MP3STEGO_TPU_DEVICE_HUFFMAN=0); the host fill never
+    runs."""
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    from mp3stego_tpu_torch.ops import huffman_device as hd
+    data = _huffman_streams()[name]
+    host = _host_fill_parse(data, monkeypatch)
+    want = dp.decode_pcm_i16(host, card, precision)
+    want_f = dp.decode_pcm(host, precision, card)
+    monkeypatch.delenv("MP3STEGO_TPU_DEVICE_HUFFMAN", raising=False)
+    p = dh.parse_mp3(data, 0)
+    assert p.lanes is not None and p.samples_pending
+    before = hd.launches
+    got = dp.decode_pcm_i16(p, card, precision)
+    got_f = dp.decode_pcm(p, precision, card)
+    assert hd.launches == before + 2
+    assert p.samples_pending
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    assert got_f.dtype == want_f.dtype and got_f.tobytes() == want_f.tobytes()
+
+
+def test_intensity_stereo_decode_on_the_card_reads_the_host_fill(
+        card, monkeypatch):
+    """An intensity-stereo stream: its positions need the right channel's
+    samples on the host, so the deferred fill runs once beside the scan,
+    and the bytes are the host fill's route's."""
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    data = _huffman_streams()["is_long"]
+    want = dp.decode_pcm_i16(_host_fill_parse(data, monkeypatch), card,
+                             "float64")
+    p = dh.parse_mp3(data, 0)
+    got = dp.decode_pcm_i16(p, card, "float64")
+    assert not p.samples_pending and got.tobytes() == want.tobytes()
+
+
+def test_batched_decode_launches_no_scan(card, tmp_path):
+    """``decode_files_batched`` fills its files' samples on the host and
+    packs them for K2: no Huffman scan runs on the card."""
+    import os
+    from mp3stego_tpu_torch.ops import huffman_device as hd
+    from mp3stego_tpu_torch.parallel import batch_decode as BD
+    paths = []
+    for name in ("fixture", "44100_128", "48000_96"):
+        paths.append(os.path.join(str(tmp_path), f"{name}.mp3"))
+        with open(paths[-1], "wb") as f:
+            f.write(_huffman_streams()[name])
+    before = hd.launches
+    for dtype, out in (("float32", "float"), ("float64", "int16")):
+        outs = BD.decode_files_batched(paths, dtype=dtype, out=out,
+                                       device=card)
+        assert len(outs) == 3 and all(len(o) for o in outs)
+    assert hd.launches == before

@@ -284,16 +284,18 @@ def test_device_engine_refuses_lsf(streams, tmp_path, monkeypatch):
 
 
 def test_huffman_backend_selection(monkeypatch):
-    """tests/test_backend_select.py's rule; the float64 plane runs on the
-    card, so only float64 on the CPU (the host plane) keeps "host"."""
+    """On a card the scan runs there behind the native light parse; off it,
+    tests/test_backend_select.py's rule (the C++ parse when it loads), and
+    float64 on the CPU (the host plane) keeps "host"."""
     from mp3stego_tpu_torch import native
     sel = pdec._huffman_backend
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     monkeypatch.delenv("MP3STEGO_TPU_DEVICE_HUFFMAN", raising=False)
     monkeypatch.setattr(native, "get_lib", lambda: object())
-    for dev in (cpu, cuda):
-        assert sel("float32", dev) == "host"       # C++ wins when loadable
-        assert sel("float64", dev) == "host"
+    assert sel("float32", cpu) == "host"           # C++ wins when loadable
+    assert sel("float64", cpu) == "host"
+    assert sel("float32", cuda) == "device"        # the card's scan
+    assert sel("float64", cuda) == "device"
     monkeypatch.setattr(native, "get_lib", lambda: None)
     assert sel("float32", cpu) == "device"         # beats the python parse
     assert sel("float32", cuda) == "device"

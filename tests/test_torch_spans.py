@@ -308,11 +308,42 @@ def test_parse_prepare_and_decode_record_their_parts(fixture_mp3):
     for name in ("prepare.pack", "prepare.tables"):
         s, = by[name]
         assert s.parent == prep.id, name
+    # the parse deferred its samples; on the CPU the pack fills them
+    fill, = by["parse.fill"]
+    assert fill.parent == by["prepare.pack"][0].id
+    assert fill.counts == {"frames": p.num_frames}
+    assert "samples.device" not in by
     for name in ("host_prepare", "h2d", "device plane", "d2h",
                  "finish_inter"):
         assert len(by[name]) == 1, name
     assert list(timer.times) == ["host_prepare", "h2d", "device plane",
                                  "d2h"]
+
+
+def test_the_scan_route_records_its_scan_and_no_fill(fixture_mp3):
+    """The device route through the light parse (here its plain scan on
+    the CPU): the scan is the span ``samples.device`` inside ``device
+    plane``, and no host fill runs."""
+    from mp3stego_tpu_torch.ops import huffman_device as hd
+    with open(fixture_mp3, "rb") as f:
+        data = f.read()
+    timer = P.StageTimer()
+    m = _mark()
+    with P.recording():
+        pcm, p = hd.decode_pcm_i16_device(data, 0, CPU, "float64",
+                                          timer=timer)
+    assert p.samples_pending
+    assert np.array_equal(pcm, dp.decode_pcm_i16(
+        dh.parse_mp3(data, defer_samples=False), CPU, "float64"))
+    by = _by_name(_since(m))
+    scan, = by["samples.device"]
+    assert scan.parent == by["device plane"][0].id
+    assert scan.counts == {"frames": p.num_frames}
+    assert "parse.fill" not in by
+    native, = by["parse.native"]
+    assert native.parent == by["light parse (host)"][0].id
+    assert list(timer.times) == ["light parse (host)", "host_prepare", "h2d",
+                                 "device plane", "d2h"]
 
 
 @pytest.mark.parametrize("chunk_files", (1, 0))
