@@ -983,19 +983,50 @@ def parse_mp3(file_data: bytes, offset: int = 0,
     MP3STEGO_TPU_DEVICE_HUFFMAN=0 fills the samples here, as the other
     backends do.
 
-    Recorded as the span ``parse_mp3`` (counts ``bytes``, ``frames``), with
-    the native path's children ``parse.walk`` (the frame count),
-    ``parse.planes`` (the output planes), ``parse.native`` (the fill, or
-    the light parse) and ``parse.tag`` (the VBR tag); a deferred fill is
-    the span ``parse.fill`` where it runs.
+    Recorded as the span ``parse_mp3`` (counts ``bytes``, ``frames`` and
+    those of ``stream_counts``), with the native path's children
+    ``parse.walk`` (the frame count), ``parse.planes`` (the output planes),
+    ``parse.native`` (the fill, or the light parse) and ``parse.tag`` (the
+    VBR tag); a deferred fill is the span ``parse.fill`` where it runs.
     """
-    with span("parse_mp3", bytes=len(file_data)):
+    with span("parse_mp3", bytes=len(file_data)) as s:
         light = defer_samples and \
             os.environ.get("MP3STEGO_TPU_DEVICE_HUFFMAN") != "0"
         p = _parse_mp3_engine(file_data, offset, backend, progress_cb, light)
         count("frames", p.num_frames)
         with span("parse.tag"):
-            return _attach_vbr_tag(p, file_data, offset)
+            p = _attach_vbr_tag(p, file_data, offset)
+        if s is not None:
+            for name, n in stream_counts(p, file_data, offset).items():
+                count(name, n)
+        return p
+
+
+def stream_counts(p: "ParsedMP3", file_data: bytes, offset: int = 0) -> dict:
+    """What a parse met, from its planes: ``short_granules`` (the (channel,
+    granule)s of block type 2), ``ms_frames`` (frames with the mid/side
+    bit), ``reservoir_frames`` (frames whose ``main_data_begin``, read at
+    each frame's side information, is above 0) and ``tag_frames`` (a
+    Xing/Info/VBRI frame at the head)."""
+    F = p.num_frames
+    if not F:
+        return dict(short_granules=0, ms_frames=0, reservoir_frames=0,
+                    tag_frames=0)
+    data = np.frombuffer(bytes(file_data), dtype=np.uint8)
+    sizes = np.asarray(p.frame_sizes, dtype=np.int64)
+    at = offset + np.concatenate([[0], np.cumsum(sizes)[:-1]]) + HEADER_SIZE \
+        + (2 if p.header.crc == 0 else 0)
+    at = at[at + 1 < len(data)]
+    if p.header.mpeg_version == 1:     # 9 bits; 8 in an LSF frame
+        mdb = (data[at].astype(np.int32) << 1) | (data[at + 1] >> 7)
+    else:
+        mdb = data[at]
+    return dict(
+        short_granules=int(np.count_nonzero(p.block_type == 2)),
+        ms_frames=int(np.count_nonzero(
+            np.asarray(p.ms_stereo).reshape(F, -1)[:, 0])),
+        reservoir_frames=int(np.count_nonzero(mdb)),
+        tag_frames=int(p.vbr_tag is not None))
 
 
 def _attach_vbr_tag(p: "ParsedMP3", file_data: bytes, offset: int):

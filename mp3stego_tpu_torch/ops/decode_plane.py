@@ -61,7 +61,7 @@ from mp3stego_tpu_torch import tables as T
 from mp3stego_tpu_torch.ops.synth import MAX_ROWS as MAX_SYNTH_ROWS
 from mp3stego_tpu_torch.ops.synth import (ascending_matmul, overlap_freqinv,
                                           synth_fused)
-from mp3stego_tpu_torch.utils.profiling import span
+from mp3stego_tpu_torch.utils.profiling import count, span
 from mp3stego_tpu_torch.utils.transfer import fetch_pieces, put_tree
 
 SQRT2 = math.sqrt(2)
@@ -519,7 +519,9 @@ def host_prepare(p, native_pack: bool = True, raw: bool = True) -> dict:
     ``raw_dense``.
 
     Its two passes are the spans ``prepare.pack`` (the sample plane) and
-    ``prepare.tables`` (the per-granule fields and the walk tables)."""
+    ``prepare.tables`` (the per-granule fields and the walk tables; counts
+    ``short_granules``, the (channel, granule)s of block type 2, and
+    ``ms_granules``, the mid/side granules)."""
     F = p.num_frames
     sr = p.header.sr_idx
     G = F * 2  # time-ordered granules
@@ -542,7 +544,7 @@ def host_prepare(p, native_pack: bool = True, raw: bool = True) -> dict:
             exc_val = r[exc_ch, exc_t, exc_s].astype(np.int16)
             raw_i8 = np.clip(r, -128, 127).astype(np.int8)
 
-    with span("prepare.tables"):
+    with span("prepare.tables") as sp:
         bt = to_ct(p.block_type)                    # (2, T)
         mixed = to_ct(p.mixed_block_flag).astype(bool)
 
@@ -559,6 +561,9 @@ def host_prepare(p, native_pack: bool = True, raw: bool = True) -> dict:
         is_pos, is_mask, is_tab = _intensity_positions(p, bt, mixed)
         s_mix, k_mix = _mix_geometry(sr)
         col = np.arange(576)
+        if sp is not None:
+            count("short_granules", int(np.count_nonzero(bt == 2)))
+            count("ms_granules", int(np.count_nonzero(p.ms_stereo)))
 
         planes = {} if not raw else dict(
             raw_i8=raw_i8,

@@ -8,8 +8,8 @@ buffers and blocks the host, one from or to pinned memory is a DMA that
 runs at the link's rate, on a stream.
 
 * ``put_pieces(arr, device)`` — a NumPy array -> a tensor on ``device``:
-  copied into a pinned staging buffer, then ``copy_(non_blocking=True)``
-  on the current stream. The host may change ``arr`` as soon as the call
+  copied into a pinned staging buffer (by NumPy, on the calling thread),
+  then ``copy_(non_blocking=True)`` on the current stream. The host may change ``arr`` as soon as the call
   returns; the staging buffer is reused once the copy has run.
 * ``put_tree(prep, device)`` — a dict of arrays -> a dict of tensors, all
   staged in one buffer and moved in one copy; each tensor is a view of one
@@ -199,7 +199,11 @@ def _put_staged(arrays: list, device: torch.device,
     slab = staging.take(max(end, 1))
     for h, off in zip(hosts, offs):
         if h.numel():
-            _view(slab, h.dtype, h.shape, off).copy_(h)
+            # NumPy's copy, a memcpy on this thread: ``Tensor.copy_`` would
+            # spread it over torch's intra-op threads and wait for the
+            # slowest, which on a host whose cores are shared sets the
+            # upload's tail
+            _view(slab, h.dtype, h.shape, off).numpy()[...] = h.numpy()
     whole = torch.empty(end, dtype=torch.uint8, device=device)
     with torch.cuda.device(device) if device.type == "cuda" \
             else contextlib.nullcontext():

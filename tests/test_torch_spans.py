@@ -299,7 +299,11 @@ def test_parse_prepare_and_decode_record_their_parts(fixture_mp3):
     assert np.array_equal(pcm, dp.decode_pcm_i16(p, CPU, "float64"))
     by = _by_name(_since(m))
     parse, = by["parse_mp3"]
-    assert parse.counts == {"bytes": len(data), "frames": p.num_frames}
+    # the fixture as the upstream encoder writes it: long blocks, stereo
+    # mode 0, no reservoir, no tag frame
+    assert parse.counts == {"bytes": len(data), "frames": p.num_frames,
+                            "short_granules": 0, "ms_frames": 0,
+                            "reservoir_frames": 0, "tag_frames": 0}
     assert parse.parent is None
     for name in ("parse.walk", "parse.planes", "parse.native", "parse.tag"):
         s, = by[name]
@@ -308,6 +312,8 @@ def test_parse_prepare_and_decode_record_their_parts(fixture_mp3):
     for name in ("prepare.pack", "prepare.tables"):
         s, = by[name]
         assert s.parent == prep.id, name
+    assert by["prepare.tables"][0].counts == {"short_granules": 0,
+                                              "ms_granules": 0}
     # the parse deferred its samples; on the CPU the pack fills them
     fill, = by["parse.fill"]
     assert fill.parent == by["prepare.pack"][0].id

@@ -142,3 +142,25 @@ def test_the_pool_keeps_at_most_keep_bytes_free(staging, monkeypatch):
     del keep
     staging.trim()
     assert staging.nbytes() == 0
+
+
+def test_staging_is_filled_without_torchs_thread_pool(staging, monkeypatch):
+    """The host's copy into a staging buffer is NumPy's, a memcpy on the
+    calling thread, and not ``Tensor.copy_``, which spreads a large copy
+    over torch's intra-op threads and waits for the slowest of them."""
+    real = torch.Tensor.copy_
+    into = []
+
+    def copy_(dst, src, *a, **k):
+        into.append(dst.data_ptr())
+        return real(dst, src, *a, **k)
+    monkeypatch.setattr(torch.Tensor, "copy_", copy_)
+    arrays = [_array(np.int32, (1 << 16,), 3), _array(np.int8, (7, 33), 4),
+              _array(np.int8, (9, 2), 5) > 0, _array(np.float64, (), 6)]
+    got = X._put_staged(arrays, CPU, staging)
+    (slab,) = staging._slabs
+    lo = slab.buf.data_ptr()
+    assert into and not [p for p in into if lo <= p < lo + slab.buf.numel()]
+    for a, t in zip(arrays, got):
+        assert t.numpy().dtype == a.dtype
+        np.testing.assert_array_equal(t.numpy(), a)
