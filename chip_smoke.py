@@ -9,8 +9,9 @@ paths from the sources in the checkout (the decode granule plane K2,
 ``csrc/granule.cu``, and the fused synthesis kernel K1, ``csrc/synth.cu``,
 each in float32 and float64, the Huffman bit-scan, ``csrc/huffman.cu``, the
 Q31 encode analysis K3, ``csrc/analysis.cu``, the rate-control search
-K4, ``csrc/search.cu``, and the cost grid K5, ``csrc/cost_grid.cu``),
-holds each against its plain PyTorch version bit for bit (and times a
+K4, ``csrc/search.cu``, the cost grid K5, ``csrc/cost_grid.cu``, and the
+frame serializer, ``csrc/serialize.cu``, which every encode on the card
+runs), holds each against its plain PyTorch version bit for bit (and times a
 library pair that computes K1's function), drives every
 entry point at a size users send (one 240.7-second 320 kbps stereo song
 through the façade: decode it with the defaults, which run float64 on the
@@ -60,6 +61,7 @@ import torch
 from mp3stego_tpu_torch import Steganography, native
 from mp3stego_tpu_torch.bitstream import decoder_host as dh
 from mp3stego_tpu_torch.bitstream.decoder_host import ParsedMP3
+from mp3stego_tpu_torch.models import encoder as E
 from mp3stego_tpu_torch.models.encoder import Encoder, MP3Encoder
 from mp3stego_tpu_torch.ops import _cuda
 from mp3stego_tpu_torch.ops import decode_plane as dp
@@ -67,9 +69,11 @@ from mp3stego_tpu_torch.ops import encode_plane as EP
 from mp3stego_tpu_torch.ops import huffman_device as hd
 from mp3stego_tpu_torch.ops import quant_batch as QB
 from mp3stego_tpu_torch.ops import search_plane as SP
+from mp3stego_tpu_torch.ops import serialize as SZ
 from mp3stego_tpu_torch.ops import synth as sf
 from mp3stego_tpu_torch.steganography import _frame_message
 from mp3stego_tpu_torch.utils.profiling import StageTimer
+from mp3stego_tpu_torch.utils.transfer import put_tree
 from mp3stego_tpu_torch.utils.wav import WavFile, read_wav, write_wav
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -186,9 +190,9 @@ K5_NEED_QUAD = 6 + 1 + 2 + 4
 GRID_SECONDS = 30                            # the grid engine's song slice
 # the hand kernels, each module with its wrapper's launch count
 KERNELS = {"granule": dp, "synth_fused": sf, "huffman_scan": hd,
-           "search": SP, "analysis": EP, "cost_grid": QB}
+           "search": SP, "analysis": EP, "cost_grid": QB, "serialize": SZ}
 DECODE = ("granule", "synth_fused")          # the kernels a decode runs
-ENCODE = ("search", "analysis")              # the kernels an encode runs
+ENCODE = ("search", "analysis", "serialize")  # the kernels an encode runs
 # the bit-scan kernel's plane instantiation, as -Xptxas -v names it
 SCAN_KERNEL = "huffman_scan_kernelINS_3Row"
 
@@ -2107,6 +2111,140 @@ def grid_phase(dev, card: str, tmp: str, wav64: str, seeded_wav: str,
                 bound_by=by, library_ms=None, bound_pr15_ms=pr15[0])
 
 
+def serialize_bound(side: np.ndarray, frames: np.ndarray,
+                    stream_bytes: int) -> tuple:
+    """The frame serializer's bound by bytes on its inputs: (ms, bytes,
+    coded ix bytes). It reads each lane's coded samples (big_values pairs
+    and count1 quads, 4 B each), the side fields, the frame ints and its
+    tables once, and writes the stream once, over HBM's rate; the zeroed
+    output buffer and the lengths' scan are not counted."""
+    fld = dict(zip(SZ.FIELDS, side.astype(np.int64)))
+    pairs = np.clip(fld["big_values"], 0, 288)
+    quads = np.minimum(np.maximum(fld["count1"], 0), (576 - 2 * pairs) // 4)
+    coded = int((2 * pairs + 4 * quads).sum()) * 4
+    need = (coded + side.nbytes + frames.nbytes + SZ._host_tables().nbytes
+            + stream_bytes)
+    return need / HBM_BYTES_S * 1e3, need, coded
+
+
+def serialize_phase(dev, card: str, wav64: str, enc_out: dict,
+                    runs: Paths) -> dict:
+    """Phase 22: the frame serializer (``csrc/serialize.cu``) on the song's
+    hide (phase 10's message): its inputs as the encoder holds them (``ix``
+    resident, the side fields put up), the kernel's bytes, length and
+    returned cache equal to the plain version's (``pack_frames_torch``, on
+    the card) and to the C route's (``mp3_format_frames`` on the fetched
+    arrays), fresh and after a carried cache of 13 pending bits; then the
+    kernel (its four launches with their buffers) by CUDA events beside
+    its bound by bytes (``serialize_bound``), the plain version, the C
+    route on the host and the encoder's whole card serialize. Returns the
+    kernels line's row."""
+    seen = []
+    orig = MP3Encoder._plane_serialize_card
+
+    def spy(self, res, p23, gg, scfsi_f, paddings, nf):
+        n0 = len(self.out_buffer)
+        orig(self, res, p23, gg, scfsi_f, paddings, nf)
+        seen.append((self, res, p23, gg, scfsi_f, paddings, nf,
+                     bytes(self.out_buffer[n0:])))
+    MP3Encoder._plane_serialize_card = spy
+    try:
+        runs.run("hide encode, the serializer's inputs", None,
+                 lambda: _encode_bytes(wav64, dev, enc_out["hide_bits"]),
+                 kernels=ENCODE)
+    finally:
+        MP3Encoder._plane_serialize_card = orig
+    if len(seen) != 1:
+        raise AssertionError(f"the hide serialized {len(seen)} times on the "
+                             f"card, not once")
+    enc, res, p23, gg, scfsi_f, paddings, nf, appended = seen[0]
+    ix = res["ix"]
+    if ix.device.type != "cuda":
+        raise AssertionError("the hide's ix left the card before its "
+                             "serialize")
+    side, frames = enc._serialize_fields(res, p23, gg, scfsi_f, paddings, nf)
+    cfg = enc._serialize_config()
+    up = put_tree({"side": side, "frames": frames}, dev)
+    host_ix = ix.cpu().numpy()
+    lib = native.get_lib()
+    for cache, cache_bits in ((0, 32), (0x5A5A5A5A & ~0x7FFFF, 32 - 13)):
+        got = SZ.pack_frames(ix, up["side"], up["frames"], cfg, cache,
+                             cache_bits)
+        plain = SZ.pack_frames_torch(ix, up["side"], up["frames"], cfg,
+                                     cache, cache_bits)
+        ca = np.array([cache], np.uint32)
+        cb = np.array([cache_bits], np.int32)
+        c_bytes = E._format_frames_native(lib, host_ix, side, frames, cfg,
+                                          ca, cb)
+        name = f"serializer, {32 - cache_bits} carried bits"
+        _expect_equal(f"{name}: kernel vs plain version", bytes(got[0]),
+                      bytes(plain[0]))
+        _expect_equal(f"{name}: kernel vs C route", bytes(got[0]), c_bytes)
+        if got[1:] != plain[1:] or got[1:] != (int(ca[0]), int(cb[0])):
+            raise AssertionError(f"{name}: cache, cache_bits {got[1:]}, "
+                                 f"plain {plain[1:]}, C route "
+                                 f"{(int(ca[0]), int(cb[0]))}")
+        if cache_bits == 32:
+            _expect_equal("serializer vs the hide's own bytes",
+                          bytes(got[0]), appended)
+            stream = len(c_bytes)
+    _say("22 serialize", f"[{card}] the song's hide, {nf} frames, "
+                         f"{ix.shape[0]} lanes: kernel bytes ({stream}), "
+                         f"length and cache equal the plain version's and "
+                         f"the C route's, fresh and after 13 carried bits")
+
+    def kernel():
+        SZ._launch(ix, up["side"], up["frames"], cfg, 0, 32)
+
+    def plain():
+        SZ.pack_frames_torch(ix, up["side"], up["frames"], cfg)
+
+    def c_route():
+        E._format_frames_native(lib, host_ix, side, frames, cfg,
+                                np.zeros(1, np.uint32),
+                                np.full(1, 32, np.int32))
+
+    def route():
+        enc.out_buffer = bytearray()
+        enc._plane_serialize_card(res, p23, gg, scfsi_f, paddings, nf)
+    kernel()
+    plain()
+    k_ms = sorted(_card_ms(kernel) for _ in range(3))
+    p_ms = sorted(_time_ms(plain, 1) for _ in range(3))
+    walls = {}
+    for name, fn in (("C route (host)", c_route), ("encoder's card "
+                                                  "serialize", route)):
+        walls[name] = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    if bytes(enc.out_buffer) != appended:
+        raise AssertionError("the encoder's card serialize wrote other "
+                             "bytes when run again")
+    bound, need, coded = serialize_bound(side, frames, stream)
+    _say("22 serialize", f"[{card}] kernel (4 launches with their buffers) "
+                         f"{[round(x, 4) for x in k_ms]} ms, bound "
+                         f"{bound:.4f} ms by bytes ({need / 1e6:.2f} MB: "
+                         f"coded ix {coded / 1e6:.2f} of "
+                         f"{ix.numel() * 4 / 1e6:.2f} MB, side fields, "
+                         f"tables, stream), at {bound / k_ms[1]:.1%} of it; "
+                         f"plain version on the card "
+                         f"{[round(x, 1) for x in p_ms]} ms (plain/kernel "
+                         f"{p_ms[1] / k_ms[1]:.0f}x); " + "; ".join(
+                             f"{k} {[round(x, 2) for x in v]} ms"
+                             for k, v in walls.items()))
+    return dict(name="serialize_frames", route="cuda",
+                source="mp3stego_tpu_torch/csrc/serialize.cu", replaces=None,
+                launches=runs.launches("serialize"), max_abs_err=0,
+                ms=k_ms[1], plain_ms=p_ms[1], bound_ms=bound,
+                bound_by="bytes", library_ms=None,
+                c_route_ms=sorted(walls["C route (host)"])[2],
+                route_ms=sorted(walls["encoder's card serialize"])[2])
+
+
 def library_pair(blk: torch.Tensor):
     """K1's function as one ``bmm`` (V) and one grouped ``conv1d`` (the
     FIR), TF32 off, in ``blk``'s dtype: the library yardstick, used nowhere
@@ -2385,7 +2523,7 @@ OVERRIDES = ("MP3STEGO_TPU_BATCH_HOST_G", "MP3STEGO_TPU_BATCH_ENC_HOST",
 TRACE_NAMES = {"granule": "granule_kernel", "synth_fused": "synth_fused_kernel",
                "analysis": "analysis_kernel", "search": "rate_search_kernel",
                "huffman_scan": "huffman_scan_kernel",
-               "cost_grid": "cost_grid_kernel"}
+               "cost_grid": "cost_grid_kernel", "serialize": "pack_kernel"}
 
 
 @contextlib.contextmanager
@@ -2620,19 +2758,20 @@ def main() -> int:
     # ---- phase 1: build the kernels (one nvcc per source, sm_90a) and the
     # host library (g++), all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=6) as pool:
+    with ThreadPoolExecutor(max_workers=7) as pool:
         host_lib = pool.submit(native.get_lib)
         built = [pool.submit(_cuda.load, name, mod._SIGNATURES)
                  for name, mod in (("granule", dp), ("synth", sf),
                                    ("huffman", hd), ("search", SP),
-                                   ("analysis", EP), ("cost_grid", QB))]
+                                   ("analysis", EP), ("cost_grid", QB),
+                                   ("serialize", SZ))]
         for b in built:
             b.result()
         if host_lib.result() is None:
             raise RuntimeError("the native host library did not build or "
                                "load")
     for name in ("granule", "synth", "huffman", "search", "analysis",
-                 "cost_grid"):
+                 "cost_grid", "serialize"):
         info = _cuda.builds[name]
         _say("1 build", f"csrc/{name}.cu -> "
                         f"{os.path.relpath(info['path'], REPO)} in "
@@ -2861,6 +3000,10 @@ def main() -> int:
         grid_row = grid_phase(dev, card, tmp, wav64,
                               enc_out["seeded_wav"], runs)
 
+        # ---- phase 22: the frame serializer bit for bit its plain version
+        # and the C route on the song's hide, timed with its bound
+        serialize_row = serialize_phase(dev, card, wav64, enc_out, runs)
+
         # ---- phase 21: the engine choice, the pinned transfers, the
         # device-trace readers and decode_pcm_device
         engine_phase(dev, card, tmp, song, wav64, enc_out, inputs, runs)
@@ -2931,7 +3074,7 @@ def main() -> int:
         replaces="mp3stego_tpu/ops/pallas_kernels.py:42",
         launches=runs.launches("synth_fused", dtype),
         max_abs_err=errs[dtype], **timing[dtype]) for dtype in (F64, F32)]
-        + [huffman_row, search_row, grid_row, dict(
+        + [huffman_row, search_row, grid_row, serialize_row, dict(
             name="analysis_mdct", route="cuda",
             source="mp3stego_tpu_torch/csrc/analysis.cu",
             replaces="mp3stego_tpu/ops/encode_plane.py:35",

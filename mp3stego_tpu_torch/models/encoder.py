@@ -1,5 +1,6 @@
 """WAV -> MP3 encoder: the torch analysis and search planes on the device,
-exact host rate-control carries, serialization on the host.
+exact host rate-control carries, frame serialization where the quantized
+spectra are (the card's kernel, ``ops/serialize``, or the host's C call).
 
 Behavioural reference (bit-for-bit): the reference's mp3stego/encoder/
   MP3_Encoder.py (frame loop 596-650, iteration loop 760-815, scfsi 817-892,
@@ -12,7 +13,8 @@ The engines, all byte-identical (``MP3Encoder.encode``):
   (``ops/encode_plane``) and the rate-control search of every granule
   (``ops/search_plane``, exact float64) run in torch on ``device``; the host
   redoes the few flagged granules with the exact oracle, then runs the
-  reservoir chain, scfsi and serialization.
+  reservoir chain and scfsi; the frames are serialized from the resident
+  spectra (``_plane_serialize``).
 * hide (default with ``hide_str``): the device searches every granule
   without the stego transform and under each of the eight 3-bit windows of
   message bits a granule can read; one host scan in cursor order picks each
@@ -48,6 +50,7 @@ exactly like the reference (tables.TRANSFORM_HUF == IDX_TO_TRANSFORM_HUF,
 MP3_Encoder.py:419-449).
 """
 
+import contextlib
 import functools as _ft
 import os
 import struct
@@ -64,10 +67,12 @@ from mp3stego_tpu_torch.ops import fixedpoint as fx
 from mp3stego_tpu_torch.ops import quant as Q
 from mp3stego_tpu_torch.ops import quant_batch as QB
 from mp3stego_tpu_torch.ops import search_plane as SP
+from mp3stego_tpu_torch.ops import serialize as SZ
 from mp3stego_tpu_torch.utils import calibrate
 from mp3stego_tpu_torch.utils.profiling import (StageTimer, count, progress,
                                                 span, trace)
-from mp3stego_tpu_torch.utils.transfer import fetch_pieces, put_pieces
+from mp3stego_tpu_torch.utils.transfer import (fetch_pieces, put_pieces,
+                                               put_tree)
 from mp3stego_tpu_torch.utils.wav import WavFile, read_wav
 
 _LN2 = 0.69314718  # the reference's constant (encoder/util.py:13), not log(2)
@@ -126,6 +131,69 @@ def _native_rate_lib():
     if lib is None or not hasattr(lib, "rate_bin_search"):
         return None
     return lib if _init_rate_tables(lib) else None
+
+
+def _ix_home(ix: torch.Tensor):
+    """A search's ``ix`` where the serializer reads it: resident on a card
+    (``ops/serialize.pack_frames``), as NumPy on the host
+    (``mp3_format_frames``)."""
+    return ix if ix.device.type == "cuda" else ix.numpy()
+
+
+def _put_rows(ix, rows: dict, stage):
+    """Write host rows ``{lane: (576,) int32}`` into ``ix``: in place on
+    the host; on the card, the rows and their lanes in one staged put (in
+    the stage ``h2d`` of ``stage``), then one scatter."""
+    if not rows:
+        return
+    lanes = np.fromiter(rows, np.int64, len(rows))
+    block = np.stack([rows[g] for g in lanes]).astype(np.int32)
+    if isinstance(ix, np.ndarray):
+        ix[lanes] = block
+        return
+    with stage("h2d"):
+        up = put_tree({"lanes": lanes, "rows": block}, ix.device)
+    ix.index_copy_(0, up["lanes"], up["rows"])
+
+
+def _format_frames_native(lib, ix: np.ndarray, side: np.ndarray,
+                          frames: np.ndarray, cfg: np.ndarray, cache,
+                          cache_bits) -> bytes:
+    """``mp3_format_frames`` in ONE C call on the serializer's inputs
+    (``ops/serialize``: ``ix``, ``side``, ``frames``, ``cfg``), laid out
+    as the C call reads them: the whole file's frames as bytes. ``cache``
+    ((1,) uint32) and ``cache_bits`` ((1,) int32) carry the 32-bit bit
+    cache in place; raises on a stream past the buffer."""
+    c = dict(zip(SZ.CONFIG, (int(v) for v in cfg[:len(SZ.CONFIG)])))
+    nch, gpf, nf = c["nch"], c["gpf"], frames.shape[0]
+
+    def fgc(a):
+        # (nch*tg,) lane layout -> (nf, gpf, nch)
+        return np.moveaxis(a.reshape(nch, nf, gpf), 0, 2)
+
+    fld = dict(zip(SZ.FIELDS, side))
+    gi = np.zeros((nf, 2, 2, 11), np.int64)
+    for k, name in enumerate(SZ.FIELDS[:11]):
+        gi[:, :gpf, :nch, k] = fgc(fld[name])
+    ts = np.zeros((nf, 2, 2, 3), np.int32)
+    for r in range(3):
+        ts[:, :gpf, :nch, r] = fgc(fld[f"table_select{r}"])
+    l3 = np.zeros((nf, 2, 2, 576), np.int32)
+    l3[:, :nch, :gpf] = np.moveaxis(ix.reshape(nch, nf, gpf, 576), 0, 1)
+    out = np.zeros(SZ.capacity(nf), np.uint8)
+    i32 = np.ascontiguousarray
+    written = lib.mp3_format_frames(
+        cache, cache_bits, out, len(out), nf, c["version"], c["layer"],
+        c["crc"], i32(frames[:, 0]), c["sr_mod3"], i32(frames[:, 1]),
+        c["ext"], c["mode"], c["mode_ext"], c["copyright"], c["original"],
+        c["emphasis"], c["private_bits"], nch, gpf,
+        i32(frames[:, 2:].reshape(-1)), gi.reshape(-1), ts.reshape(-1),
+        np.zeros(nf * 2 * 2 * 22, np.int32), _slen1_i32(), _slen2_i32(),
+        l3.reshape(-1), _huff_code_u32(), _huff_len_u8(), _linbits_i32(),
+        i32(cfg[len(SZ.CONFIG):]))
+    if written < 0:
+        raise RuntimeError("native serializer buffer overflow")
+    return out[:written].tobytes()
 
 
 _EMPTY_HIDE = np.zeros(1, np.uint8)
@@ -515,7 +583,8 @@ class MP3Encoder:
             res_d = SP.search(xr, torch.from_numpy(max_bits_lanes)
                               .to(self.device), self.band_row)
         with timer.stage("d2h"):
-            res = SP.to_host(res_d)
+            res = SP.rows_to_host(res_d)
+            res["ix"] = _ix_home(res_d["ix"])
             del res_d
         with timer.stage("scfsi sums (device)"):
             en_tot_raw, en_raw = self._scfsi_host(xr)
@@ -787,28 +856,31 @@ class MP3Encoder:
         return r
 
     def _plane_redo(self, res: dict, xr, max_bits_lanes, tg: int,
-                    hide_ctx=None) -> int:
+                    hide_ctx=None, redone=None) -> int:
         """Redo the flagged lanes (``SP.FLAG_*``) with the sequential oracle,
         carrying the true cross-granule address state per (gr, ch) slot
         (``_redo_lane``), in lane order, so a redone lane's successors in its
         slot read its addresses. ``hide_ctx`` = (bits_u8, per-lane cursors)
         threads the stego transform through the oracle. Patches ``res`` in
-        place; returns the number of lanes redone."""
+        place, its ``ix`` rows with those of ``redone`` ({lane: row}, the
+        hide scan's) in one put (``_put_rows``); returns the number of lanes
+        redone here."""
+        redone = {} if redone is None else redone
         flags = res["flags"]
         lanes = np.flatnonzero(flags != 0)
         self.redo_stats = {
             "lanes": int(len(lanes)),
             **{name: int(((flags & bit) != 0).sum()) for name, bit in _FLAGS}}
-        if len(lanes) == 0:
-            return 0
-        rows = xr[torch.from_numpy(lanes).to(xr.device)].cpu().numpy()
-        prev = self._slot_prev(res["xrmax0"] == 0, tg)
+        if len(lanes):
+            rows = xr[torch.from_numpy(lanes).to(xr.device)].cpu().numpy()
+            prev = self._slot_prev(res["xrmax0"] == 0, tg)
         for i, g in enumerate(lanes):
             hide = None if hide_ctx is None else \
                 (hide_ctx[0], int(hide_ctx[1][g]))
             r = self._redo_lane(res, g, rows[i], int(max_bits_lanes[g]), prev,
                                 hide, int(flags[g]))
-            res["ix"][g] = r["ix"]
+            redone[g] = r["ix"]
+        _put_rows(res["ix"], redone, self._stage)
         return len(lanes)
 
     def _oracle_native(self, lib, row, max_bits: int, addr, hide) -> dict:
@@ -867,6 +939,11 @@ class MP3Encoder:
         scfsi = np.where((cond == 6)[..., None], scfsi, 0)
         return scfsi.transpose(1, 0, 2)
 
+    def _stage(self, name: str):
+        """The stage ``name`` of this encode's timer, where it has one."""
+        return contextlib.nullcontext() if self.timer is None \
+            else self.timer.stage(name)
+
     def _plane_finish(self, res: dict, en_tot_raw, en_raw, nf: int, paddings,
                       mean_bits_f, tg: int):
         """Reservoir chain, stuffing, scfsi, global-gain slot chain and frame
@@ -908,7 +985,7 @@ class MP3Encoder:
 
         with span("finish.reservoir", frames=nf):
             p23 = self._plane_reservoir(res, nf, mean_bits_f, tg)
-        with span("finish.serialize", frames=nf):
+        with span("finish.serialize", frames=nf, card_frames=0):
             self._plane_serialize(res, p23, gg, scfsi_f, paddings, nf, tg)
 
     def _plane_reservoir(self, res: dict, nf: int, mean_bits_f,
@@ -955,21 +1032,31 @@ class MP3Encoder:
 
     def _plane_serialize(self, res: dict, p23, gg, scfsi_f, paddings,
                          nf: int, tg: int):
-        """Serialize ``nf`` frames into ``out_buffer``."""
+        """Serialize ``nf`` frames into ``out_buffer``, where ``ix`` lives:
+        on the card, resident (``_plane_serialize_card``); on the host, in
+        one native call for the whole file when the C library is available
+        (``_plane_serialize_native``), else with the per-frame python
+        writers, which compliant LSF always takes."""
         gpf = self.granules_per_frame
         nch = self.wav.num_of_channels
-        # serialize: one batched native call for the whole file when the C
-        # library is available, else the per-frame python writers
-        ix_l = res["ix"].reshape(nch, nf, gpf, 576)
+        compliant = self.version != 3 and self.lsf_compliant
+        if isinstance(res["ix"], torch.Tensor):
+            if not compliant:
+                self._plane_serialize_card(res, p23, gg, scfsi_f, paddings,
+                                           nf)
+                return
+            with self._stage("d2h"):
+                res["ix"] = fetch_pieces([res["ix"]])[0]
         from mp3stego_tpu_torch import native
         lib = native.get_lib()
         if (lib is not None and hasattr(lib, "mp3_format_frames")
-                and not (self.version != 3 and self.lsf_compliant)):
+                and not compliant):
             # (the C serializer writes the reference's LSF layout; compliant
             # LSF mode uses the python writers)
             self._plane_serialize_native(lib, res, p23, gg, scfsi_f, paddings,
-                                         ix_l, nf, tg)
+                                         nf)
             return
+        ix_l = res["ix"].reshape(nch, nf, gpf, 576)
 
         zeros_mdct = np.zeros((nch, gpf, 576), np.int32)
         for f in range(nf):
@@ -1024,37 +1111,13 @@ class MP3Encoder:
         self._slot_carry = dict(step=step.copy(), addr=addr)
 
     def _plane_serialize_native(self, lib, res, p23, gg, scfsi_f, paddings,
-                                ix_l, nf, tg):
-        """Whole-file serialization in ONE C call (mp3_format_frames): all
-        per-frame side info is assembled as vectorized arrays, so no Python
-        per-frame loop remains on the encode path."""
-        gpf = self.granules_per_frame
-        nch = self.wav.num_of_channels
-
-        def lanes_to_fgc(a):
-            # (nch*tg,) lane layout -> (nf, gpf, nch)
-            return np.moveaxis(a.reshape(nch, nf, gpf), 0, 2)
-
-        gi = np.zeros((nf, 2, 2, 11), np.int64)
-        gi[:, :gpf, :nch, 0] = lanes_to_fgc(p23).astype(np.int64)
-        gi[:, :gpf, :nch, 1] = lanes_to_fgc(res["bv"])
-        gi[:, :gpf, :nch, 2] = np.moveaxis(gg, 0, 2)
-        gi[:, :gpf, :nch, 4] = lanes_to_fgc(res["r0c"])
-        gi[:, :gpf, :nch, 5] = lanes_to_fgc(res["r1c"])
-        gi[:, :gpf, :nch, 8] = lanes_to_fgc(res["cts"])
-        gi[:, :gpf, :nch, 9] = lanes_to_fgc(res["c1"])
-
-        ts = np.zeros((nf, 2, 2, 3), np.int32)
-        for r, key in enumerate(("ch0", "ch1", "ch2")):
-            ts[:, :gpf, :nch, r] = lanes_to_fgc(res[key])
-        sfl = np.zeros((nf, 2, 2, 22), np.int32)
-        scfsi = np.zeros((nf, 2, 4), np.int32)
-        if self.version == 3 and scfsi_f is not None:
-            scfsi[:, :nch] = scfsi_f[:, :nch]
-        l3 = np.zeros((nf, 2, 2, 576), np.int32)
-        l3[:, :nch, :gpf] = np.moveaxis(ix_l, 0, 1)
-
-        out = np.zeros(nf * 2016 + 4096, np.uint8)
+                                nf):
+        """Whole-file serialization in ONE C call (``mp3_format_frames``,
+        ``_format_frames_native``) from the fields the card route uploads
+        (``_serialize_fields``): no Python per-frame loop remains on the
+        encode path."""
+        side, frames = self._serialize_fields(res, p23, gg, scfsi_f,
+                                              paddings, nf)
         # residual bits at EOF are dropped, as the reference's __flush does
         # (MP3_Encoder.py:1549-1552); a chunked encode (models/streaming)
         # continues one bitstream through the instance's 32-bit cache
@@ -1063,25 +1126,68 @@ class MP3Encoder:
         else:
             cache = np.zeros(1, dtype=np.uint32)
             cache_bits = np.full(1, 32, dtype=np.int32)
-        written = lib.mp3_format_frames(
-            cache, cache_bits, out, len(out), nf,
-            self.version, self.layer, self.crc,
-            self._frame_rate_indices(nf),
-            self.samplerate_index % 3,
-            np.ascontiguousarray(np.asarray(paddings, np.int32)),
-            self.ext, self.mode, self.mode_ext, self.copyright,
-            self.original, self.emphasis, self.private_bits, nch, gpf,
-            np.ascontiguousarray(scfsi.reshape(-1)),
-            np.ascontiguousarray(gi.reshape(-1)),
-            np.ascontiguousarray(ts.reshape(-1)),
-            np.ascontiguousarray(sfl.reshape(-1)),
-            _slen1_i32(), _slen2_i32(),
-            np.ascontiguousarray(l3.reshape(-1)),
-            _huff_code_u32(), _huff_len_u8(), _linbits_i32(),
-            _band_row_i32(self.band_row))
-        if written < 0:
-            raise RuntimeError("native serializer buffer overflow")
-        self.out_buffer += out[:written].tobytes()
+        self.out_buffer += _format_frames_native(
+            lib, res["ix"], side, frames, self._serialize_config(), cache,
+            cache_bits)
+
+    def _serialize_fields(self, res, p23, gg, scfsi_f, paddings,
+                          nf: int) -> tuple:
+        """The serializer's per-lane side fields (14, lanes) and per-frame
+        ints (nf, 10) (``ops/serialize.FIELDS``, ``FRAME_INTS``): the
+        values both routes serialize, in lane order."""
+        nch = self.wav.num_of_channels
+        side = np.zeros((len(SZ.FIELDS), len(p23)), np.int32)
+        for k, v in (("part2_3_length", np.asarray(p23).astype(np.int64)),
+                     ("big_values", res["bv"]),
+                     ("global_gain", np.asarray(gg).reshape(-1)),
+                     ("region0_count", res["r0c"]),
+                     ("region1_count", res["r1c"]),
+                     ("count1table_select", res["cts"]),
+                     ("count1", res["c1"]), ("table_select0", res["ch0"]),
+                     ("table_select1", res["ch1"]),
+                     ("table_select2", res["ch2"])):
+            side[SZ.FIELDS.index(k)] = v
+        frames = np.zeros((nf, SZ.FRAME_INTS), np.int32)
+        frames[:, 0] = self._frame_rate_indices(nf)
+        frames[:, 1] = paddings
+        if self.version == 3 and scfsi_f is not None:
+            frames[:, 2:2 + 4 * nch] = scfsi_f[:, :nch].reshape(nf, -1)
+        return side, frames
+
+    def _serialize_config(self) -> np.ndarray:
+        """The serializer's constant fields (``ops/serialize.config``)."""
+        return SZ.config(
+            _band_row_i32(self.band_row), version=self.version,
+            layer=self.layer, crc=self.crc,
+            sr_mod3=self.samplerate_index % 3, ext=self.ext, mode=self.mode,
+            mode_ext=self.mode_ext, copyright=self.copyright,
+            original=self.original, emphasis=self.emphasis,
+            private_bits=self.private_bits, nch=self.wav.num_of_channels,
+            gpf=self.granules_per_frame)
+
+    def _plane_serialize_card(self, res, p23, gg, scfsi_f, paddings, nf):
+        """The frames packed on the card from the resident ``ix``
+        (``ops/serialize.pack_frames``, ``csrc/serialize.cu``): the side
+        fields go up in one put (the stage ``h2d``) and only the finished
+        bytes come back (``d2h``). A windowed encode's bit cache carries on
+        as the native route's does (``_nat_cache``); the frames count as
+        ``card_frames`` of the span ``finish.serialize``."""
+        ix = res["ix"]
+        side, frames = self._serialize_fields(res, p23, gg, scfsi_f,
+                                              paddings, nf)
+        with self._stage("h2d"):
+            up = put_tree({"side": side, "frames": frames}, ix.device)
+        cache, cache_bits = (int(self._nat_cache[0]),
+                             int(self._nat_cache_bits[0])) \
+            if self._nat_ser else (0, 32)
+        data, cache, cache_bits = SZ.pack_frames(
+            ix, up["side"], up["frames"], self._serialize_config(), cache,
+            cache_bits, stage=self._stage)
+        if self._nat_ser:
+            self._nat_cache[0] = cache
+            self._nat_cache_bits[0] = cache_bits
+        self.out_buffer += memoryview(data)
+        count("card_frames", nf)
 
     def _encode_hide(self, num_frames: int, timer, xr=None):
         """Hide on the device planes, exact in one pass over the file (or,
@@ -1201,14 +1307,12 @@ class MP3Encoder:
             stats["window_lanes"] += len(lanes)
             stats["blocks"] += 1
             q += k
-        with st("d2h"):
-            res["ix"] = fetch_pieces([ix_d])[0]
-            del ix_d
-        for g, ix in redone.items():
-            res["ix"][g] = ix
-        # past the message's end every lane keeps its transform-free search
+        res["ix"] = _ix_home(ix_d)
+        del ix_d
+        # past the message's end every lane keeps its transform-free search;
+        # its redone rows and the scan's go into ix in one put
         with st("redo (host)"):
-            self._plane_redo(res, xr, max_bits_lanes, tg)
+            self._plane_redo(res, xr, max_bits_lanes, tg, redone=redone)
         self.redo_stats["lanes"] += stats["redone"] + stats["edge"]
         for name, v in flagged.items():
             self.redo_stats[name] += v

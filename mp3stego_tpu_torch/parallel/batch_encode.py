@@ -6,8 +6,9 @@ each group the card runs the Q31 analysis of every file
 (``ops/search_plane.search``) over the lanes of all its files, concatenated,
 and one ``scfsi_sums`` pass for MPEG-1. The search treats every lane on its
 own (fresh addresses, its own budget), so concatenating files changes no
-lane's result. Each file's rows then come back to the host, and a thread
-pool runs that file's host redo and reservoir/serialization chain
+lane's result. Each file's rows then come back to the host, its ``ix``
+staying on the card for the frame serializer (``ops/serialize``), and a
+thread pool runs that file's host redo and reservoir/serialization chain
 (``MP3Encoder._plane_redo`` and ``_plane_finish``) on its own rows: a
 redone lane's address chain never reaches into another file. The bytes
 equal each file's own ``MP3Encoder`` run.
@@ -33,7 +34,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from mp3stego_tpu_torch.models.encoder import (MP3Encoder, _native_rate_lib,
+from mp3stego_tpu_torch.models.encoder import (MP3Encoder, _ix_home,
+                                               _native_rate_lib,
                                                resolve_device)
 from mp3stego_tpu_torch.ops import search_plane as SP
 from mp3stego_tpu_torch.parallel.mesh import check_mesh
@@ -197,7 +199,8 @@ def _run_sub_batch(sub: list, dev: torch.device, pool) -> list:
     for (i, mp3_path, enc, nf), xr, fr, maxb in zip(sub, xrs, framing,
                                                     budgets):
         b = a + xr.shape[0]
-        res = SP.to_host({k: v[a:b] for k, v in res_d.items()})
+        res = SP.rows_to_host({k: v[a:b] for k, v in res_d.items()})
+        res["ix"] = _ix_home(res_d["ix"][a:b])
         en = (None, None) if scfsi is None else \
             tuple(fetch_pieces([s[a:b] for s in scfsi]))
         futures.append((i, pool.submit(_finish_file, enc, nf, res, xr, maxb,

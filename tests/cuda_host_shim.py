@@ -11,8 +11,9 @@ rewritten by text.
 Used by ``tests/test_torch_search_kernel.py`` (K4),
 ``tests/test_torch_analysis_kernel.py`` (K3),
 ``tests/test_torch_granule_kernel.py`` (K2),
-``tests/test_torch_huffman_kernel.py`` (the Huffman bit-scan) and
-``tests/test_torch_cost_grid_kernel.py`` (K5, the cost grid).
+``tests/test_torch_huffman_kernel.py`` (the Huffman bit-scan),
+``tests/test_torch_cost_grid_kernel.py`` (K5, the cost grid) and
+``tests/test_torch_serialize_kernel.py`` (the frame serializer).
 """
 
 import ctypes
@@ -152,6 +153,9 @@ inline int atomicAdd(int* p, int v) {
 }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_or(v);
 }
 
 template <class A, class B> inline auto min(A a, B b) {

@@ -18,7 +18,9 @@ frame-sharded decode and the mesh batches on entries of cuda:0, and the
 encode planes (Q31
 analysis K3 at its launch shapes, on tile edges and from the WAV's
 interleaved buffer, with no channel stream built on the host by a
-whole-file encode; exact search, the VBR lane cost, golden hide bytes),
+whole-file encode; exact search, the VBR lane cost, golden hide bytes;
+the frame serializer kernel on a seeded song's clear encode and hide, from
+the resident ``ix``, with the C route's bytes),
 each equal to the plain version, the CPU torch result or the native host twin;
 and the pinned staging of ``utils/transfer`` (held results and views
 through later fetches, uploads queued behind a long kernel, a producer on
@@ -593,8 +595,10 @@ def test_sharded_decode_on_one_card(card, dtype):
 def test_batched_decode_and_encode_on_a_card_mesh(card, tmp_path):
     """Five goldens, one a chunk, round-robin over 4 entries of cuda:0:
     bit for bit the batch without a mesh; two encodes likewise, the
-    goldens' bytes."""
+    goldens' bytes, each file's frames serialized by the kernel from its
+    resident ``ix``."""
     import os
+    from mp3stego_tpu_torch.ops import serialize as SZ
     from mp3stego_tpu_torch.parallel import (decode_files_batched,
                                              encode_files_batched, make_mesh)
     gold = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -620,7 +624,9 @@ def test_batched_decode_and_encode_on_a_card_mesh(card, tmp_path):
         f.write(np.load(os.path.join(gold, "stego_golden.npz"))[
             "wav_bytes"].tobytes())
     jobs = [(wav, str(tmp_path / f"e{i}.mp3")) for i in range(2)]
+    before = SZ.launches
     encode_files_batched(jobs, 320, mesh)
+    assert SZ.launches == before + 2
     for _, out in jobs:
         with open(out, "rb") as f:
             assert f.read() == eg.tobytes()
@@ -1225,3 +1231,63 @@ def test_batched_decode_launches_no_scan(card, tmp_path):
                                        device=card)
         assert len(outs) == 3 and all(len(o) for o in outs)
     assert hd.launches == before
+
+
+def _seeded_song_wav(seconds: float, seed: int):
+    """A seeded 44.1 kHz stereo song (a drifting tone, its overtone, noise
+    under a slow envelope) as a 320 kbps ``WavFile``."""
+    from mp3stego_tpu_torch.utils.wav import WavFile
+    sr = 44100
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    phase = 2 * np.pi * np.cumsum(220 * 2 ** (2 * np.sin(t / 6.0))) / sr
+    sig = (0.35 * np.sin(phase) + 0.15 * np.sin(3.01 * phase)
+           + 0.2 * np.sin(2 * np.pi * t / 11.0) ** 2
+           * rng.standard_normal(t.size))
+    right = 0.8 * np.roll(sig, 999) + 0.05 * rng.standard_normal(t.size)
+    pcm = np.clip(np.stack([sig, right], axis=1) * 30000, -32768, 32767)
+    pcm = pcm.astype(np.int16).reshape(-1)
+    return WavFile(file_path="song.wav", bitrate=320, num_of_channels=2,
+                   samplerate=sr, bits_per_sample=16,
+                   num_of_samples=pcm.size // 2, mpeg_mode=0, buffer=pcm)
+
+
+@pytest.mark.parametrize("hide", [False, True])
+def test_card_serializer_writes_the_c_routes_bytes(card, hide, monkeypatch):
+    """A seeded 60 s song's encode on the card, clear and hiding 6,000
+    bits: the frames go through the serializer kernel once (its launch
+    count), from the resident ``ix``; its bytes equal
+    ``_plane_serialize_native``'s on the same arrays fetched to the host,
+    and the whole encode's equal those of the C route (``ix`` fetched)."""
+    from mp3stego_tpu_torch.models import encoder as E
+    from mp3stego_tpu_torch.models.encoder import MP3Encoder
+    from mp3stego_tpu_torch import native
+    from mp3stego_tpu_torch.ops import serialize as SZ
+    msg = "".join(np.random.default_rng(5).choice(["0", "1"], 6000)) \
+        if hide else ""
+    seen = []
+    orig = MP3Encoder._plane_serialize_card
+
+    def spy(self, res, p23, gg, scfsi_f, paddings, nf):
+        n0 = len(self.out_buffer)
+        orig(self, res, p23, gg, scfsi_f, paddings, nf)
+        seen.append((dict(res), p23.copy(), gg.copy(), scfsi_f, paddings, nf,
+                     bytes(self.out_buffer[n0:])))
+    monkeypatch.setattr(MP3Encoder, "_plane_serialize_card", spy)
+    before = SZ.launches
+    enc = MP3Encoder(_seeded_song_wav(60.0, 7), hide_str=msg, device=card)
+    enc.encode()
+    assert SZ.launches == before + 1 and len(seen) == 1
+    res, p23, gg, scfsi_f, paddings, nf, got = seen[0]
+    assert res["ix"].device.type == "cuda"
+    host = dict(res, ix=res["ix"].cpu().numpy())
+    kept, enc.out_buffer = enc.out_buffer, bytearray()
+    enc._plane_serialize_native(native.get_lib(), host, p23, gg, scfsi_f,
+                                paddings, nf)
+    assert got == bytes(enc.out_buffer)
+    monkeypatch.setattr(E, "_ix_home", lambda ix: ix.cpu().numpy())
+    c_route = MP3Encoder(_seeded_song_wav(60.0, 7), hide_str=msg,
+                         device=card)
+    c_route.encode()
+    assert SZ.launches == before + 1 and len(seen) == 1
+    assert bytes(c_route.out_buffer) == bytes(kept)
