@@ -20,8 +20,9 @@ reveal it, clear it; a batched decode of 32 files in both precisions and a
 batched encode of 9; a VBR encode and the streaming decode and encode of the
 song, the encode's windows on the card, clear and hidden; hide, reveal and a
 streaming decode through the CLI; the song's decode and reveal with the
-device Huffman engine; the mesh: the song's frame-sharded decode over 2, 4
-and 8 shards, K1 after a halo, and the batches on a 4-entry ``files``
+default route (the Huffman samples scanned on the card); the mesh: the
+song's frame-sharded decode over 2, 4 and 8 shards, K1 after a halo, and
+the batches on a 4-entry ``files``
 mesh, on the visible cards in turn or on repeated entries of one card;
 the cost-grid encode engine on a 30 s slice of the song, clear, hidden and
 VBR; then the engine choice, measured: the probe of ``utils/calibrate.py``,
@@ -31,7 +32,7 @@ engines its override pins,
 the song's ``ix`` and 8-shard PCM fetched through pinned staging and
 through ``.cpu()``, a traced clear encode and hide read back by the
 device-trace readers (idle share, device ms per stage), and
-``decode_pcm_device`` on the song),
+``decode_pcm`` through the scan on the song),
 checks every output against the bit-exact host
 planes, the single-file paths and the goldens, and times it. Each main path
 runs with every kernel's launch count set to 0 just before it and read just
@@ -1381,16 +1382,6 @@ def streaming_encode_phase(dev, card: str, tmp: str, wav64: str,
                          f"{base / 2**20:.1f} MiB held before")
 
 
-@contextlib.contextmanager
-def _huffman_engine(flag: str):
-    """MP3STEGO_TPU_DEVICE_HUFFMAN set to ``flag`` inside the block."""
-    os.environ["MP3STEGO_TPU_DEVICE_HUFFMAN"] = flag
-    try:
-        yield
-    finally:
-        del os.environ["MP3STEGO_TPU_DEVICE_HUFFMAN"]
-
-
 def huffman_bound(fields: torch.Tensor, words: torch.Tensor,
                   out: torch.Tensor):
     """The least time for the bit-scan's work on the card: (bytes that must
@@ -1445,13 +1436,15 @@ def huffman_phase(dev, card: str, tmp: str, song: str, enc_out: dict,
     copy of the song, a mono stream and the seeded synthetic lane set, and
     equal to the host parse's samples where the stream is intact; its
     registers, spills (a spill fails the phase), resident warps and the
-    bytes its tables hold on the card; ``Decoder`` with
-    MP3STEGO_TPU_DEVICE_HUFFMAN=1 on the song in float64 and float32 writes
-    the host parse's WAV bytes of the same precision, and reveal through it
-    reads the hidden song's message back, each a counted main path. Times
-    the kernel, its chain alone, its plain version (on the host), the light
-    parse and the decode walls of both engines, and the device-Huffman
-    decode by stage. Returns the kernel's row of the kernels line."""
+    bytes its tables hold on the card; the default ``Decoder`` on the song
+    in float64 and float32 (``parse_mp3``, then ``decode_pcm_i16`` with
+    the scan) writes the WAV bytes and stego bits of the host fill's route
+    (``parse_mp3(defer_samples=False)``) of the same precision, and the
+    façade's reveal reads the hidden song's message back, each a counted
+    main path. Times the kernel, its chain alone, its plain version (on the
+    host), the light parse, the decode walls of both routes, and the
+    default decode by stage. Returns the kernel's row of the kernels
+    line."""
     from mp3stego_tpu_torch.models.decoder import Decoder
     with open(song, "rb") as f:
         song_b = f.read()
@@ -1542,54 +1535,58 @@ def huffman_phase(dev, card: str, tmp: str, song: str, enc_out: dict,
                        f"parse_mp3 {native_s * 1e3:.1f} ms")
     del words, fields, out
 
-    # Decoder on the song with each engine, in both precisions
+    # the default Decoder on the song beside the host fill's route, in both
+    # precisions
     both = DECODE + ("huffman_scan",)
     for precision, dtype in (("float64", F64), ("float32", F32)):
         wavs = {e: os.path.join(tmp, f"song_{e}_{precision}.wav")
-                for e in ("host", "device")}
+                for e in ("fill", "scan")}
 
-        def decode(engine):
-            with _huffman_engine("1" if engine == "device" else "0"):
-                d = Decoder(song, wavs[engine], precision=precision)
-                d.decode()
+        def fill():
+            p = dh.parse_mp3(song_b, defer_samples=False)
+            write_wav(wavs["fill"], p.header.sampling_rate,
+                      dp.decode_pcm_i16(p, dev, precision))
+            return dh.stego_bits(p)
+
+        def scan():
+            d = Decoder(song, wavs["scan"], precision=precision)
+            d.decode()
             return d
 
-        host_wall, host_walls, host_d = _median3(lambda: decode("host"))
+        fill_wall, fill_walls, bits = _median3(fill)
         dev_wall, dev_walls, dev_d = runs.run(
-            f"Decoder, device Huffman, {precision}", dtype,
-            lambda: _median3(lambda: decode("device")), kernels=both)
-        with open(wavs["device"], "rb") as a, open(wavs["host"], "rb") as b:
-            _expect_equal(f"song {precision}: device-Huffman WAV vs host "
-                          f"parse WAV", a.read(), b.read())
-        if dev_d[-1].output_bits != host_d[-1].output_bits:
-            raise AssertionError(f"{precision}: the engines' stego bits "
+            f"Decoder, {precision}", dtype, lambda: _median3(scan),
+            kernels=both)
+        with open(wavs["scan"], "rb") as a, open(wavs["fill"], "rb") as b:
+            _expect_equal(f"song {precision}: Decoder WAV vs host fill "
+                          f"WAV", a.read(), b.read())
+        if dev_d[-1].output_bits != bits[-1]:
+            raise AssertionError(f"{precision}: the routes' stego bits "
                                  f"differ")
-        _say("16 huffman", f"[{card}] song {precision}: the device-Huffman "
-                           f"decode ({runs.last('huffman_scan')} scan and "
+        _say("16 huffman", f"[{card}] song {precision}: the default Decoder "
+                           f"({runs.last('huffman_scan')} scan and "
                            f"{runs.last('granule')} K2 and {runs.last()} K1 "
-                           f"launches in 4 decodes) writes "
-                           f"the host parse's WAV bytes and stego bits; wall "
-                           f"median {dev_wall * 1e3:.1f} ms of "
+                           f"launches in 4 decodes) writes the host fill "
+                           f"route's WAV bytes and stego bits; wall median "
+                           f"{dev_wall * 1e3:.1f} ms of "
                            f"{[round(w * 1e3, 1) for w in dev_walls]}, host "
-                           f"parse {host_wall * 1e3:.1f} ms of "
-                           f"{[round(w * 1e3, 1) for w in host_walls]}")
-    timer = StageTimer(sync=torch.cuda.synchronize)
-    hd.decode_pcm_i16_device(song_b, 0, dev, "float32", timer=timer)
-    _say("16 huffman", f"[{card}] device-Huffman float32 decode by stage: "
+                           f"fill {fill_wall * 1e3:.1f} ms of "
+                           f"{[round(w * 1e3, 1) for w in fill_walls]}")
+    _say("16 huffman", f"[{card}] default Decoder float32 by stage: "
                        + ", ".join(f"{k} {v * 1e3:.1f} ms"
-                                   for k, v in timer.times.items()))
+                                   for k, v in dev_d[-1].timer.times.items()))
 
     txt = os.path.join(tmp, "song_dh.txt")
-    with _huffman_engine("1"):
-        runs.run("façade reveal, device Huffman", F64,
-                 lambda: Steganography(quiet=True).reveal_massage(
-                     enc_out["hidden"], txt), kernels=both)
+    runs.run("façade reveal", F64,
+             lambda: Steganography(quiet=True).reveal_massage(
+                 enc_out["hidden"], txt), kernels=both)
     with open(txt) as f:
         if f.read() != enc_out["msg"]:
-            raise AssertionError("reveal through the device Huffman engine "
-                                 "did not give the message back")
-    _say("16 huffman", f"reveal through the device Huffman engine gives the "
-                       f"{len(enc_out['msg'])}-char message back")
+            raise AssertionError("reveal through the façade did not give "
+                                 "the message back")
+    _say("16 huffman", f"the façade's reveal (its samples scanned on the "
+                       f"card) gives the {len(enc_out['msg'])}-char message "
+                       f"back")
     return dict(name="huffman_scan", route="cuda",
                 source="mp3stego_tpu_torch/csrc/huffman.cu",
                 replaces="mp3stego_tpu/ops/huffman_device.py:121",
@@ -2565,8 +2562,8 @@ def engine_phase(dev, card: str, tmp: str, song: str, wav64: str,
                  enc_out: dict, inputs: dict, runs: Paths) -> None:
     """Phase 21: the engine choice (``utils/calibrate.py``), the pinned
     transfers (``utils/transfer.py``), the device-trace readers
-    (``utils/profiling.py``) and ``decode_pcm_device``, on the song and
-    phase 12's and 13's batches."""
+    (``utils/profiling.py``) and ``decode_pcm`` through the scan, on the
+    song and phase 12's and 13's batches."""
     from mp3stego_tpu_torch.parallel import (decode_files_batched,
                                              frame_shard as FS, make_mesh)
     from mp3stego_tpu_torch.utils import calibrate as C
@@ -2720,19 +2717,21 @@ def engine_phase(dev, card: str, tmp: str, song: str, wav64: str,
                              f"{t['ms']:.3f} ms"
                              for t in busy["top_kernels"][:5]))
 
-    # decode_pcm_device: the song through the scan, bit for bit the float32
-    # decode through the host parse
-    got, _ = runs.run("decode_pcm_device (float32)", F32,
-                      lambda: hd.decode_pcm_device(song_b, 0, dev),
-                      kernels=("huffman_scan",) + DECODE)
-    want = dp.decode_pcm(parsed, "float32", dev)
+    # decode_pcm of the default parse: the song through the scan, bit for
+    # bit the float32 decode of the host fill
+    got = runs.run("decode_pcm, scan (float32)", F32,
+                   lambda: dp.decode_pcm(dh.parse_mp3(song_b), "float32",
+                                         dev),
+                   kernels=("huffman_scan",) + DECODE)
+    want = dp.decode_pcm(dh.parse_mp3(song_b, defer_samples=False),
+                         "float32", dev)
     if got.dtype != np.float32 or got.tobytes() != want.tobytes():
-        raise AssertionError("decode_pcm_device != the float32 decode "
-                             "through the host parse")
-    _say("21 huffman", f"decode_pcm_device on the song: {got.shape} float32 "
-                       f"PCM bit for bit the host-parse float32 decode "
-                       f"({runs.last('huffman_scan')} scan, "
-                       f"{runs.last('granule')} K2, {runs.last()} K1 "
+        raise AssertionError("decode_pcm through the scan != the float32 "
+                             "decode of the host fill")
+    _say("21 huffman", f"decode_pcm of the default parse on the song: "
+                       f"{got.shape} float32 PCM bit for bit the host "
+                       f"fill's float32 decode ({runs.last('huffman_scan')} "
+                       f"scan, {runs.last('granule')} K2, {runs.last()} K1 "
                        f"launches)")
 
 
@@ -3005,7 +3004,7 @@ def main() -> int:
         serialize_row = serialize_phase(dev, card, wav64, enc_out, runs)
 
         # ---- phase 21: the engine choice, the pinned transfers, the
-        # device-trace readers and decode_pcm_device
+        # device-trace readers and decode_pcm through the scan
         engine_phase(dev, card, tmp, song, wav64, enc_out, inputs, runs)
 
         # ---- phase 7: K1's time on the song's own blocks in both dtypes,

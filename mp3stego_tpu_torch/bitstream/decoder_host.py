@@ -17,7 +17,6 @@ Everything here is sequential/irregular and stays on host; the output is a
 """
 
 import functools
-import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -978,10 +977,11 @@ def parse_mp3(file_data: bytes, offset: int = 0,
     free-format), the parse is the native light parse
     (``parse_mp3_light_native``): the samples are left to the card's scan,
     which ``ops/decode_plane.decode_pcm_i16`` and ``decode_pcm`` run from
-    its ``lanes``, and ``raw_samples`` is filled by the full native fill only
-    when something reads it. ``defer_samples=False`` or
-    MP3STEGO_TPU_DEVICE_HUFFMAN=0 fills the samples here, as the other
-    backends do.
+    its ``lanes`` (``decode_plane.scan_lanes`` decides), and ``raw_samples``
+    is filled by the full native fill only when something reads it.
+    ``defer_samples=False`` fills the samples here, as the other backends
+    do; so does a stream the light parse does not read, and a process
+    without the native library (the Python full parse).
 
     Recorded as the span ``parse_mp3`` (counts ``bytes``, ``frames`` and
     those of ``stream_counts``), with the native path's children
@@ -990,9 +990,8 @@ def parse_mp3(file_data: bytes, offset: int = 0,
     VBR tag); a deferred fill is the span ``parse.fill`` where it runs.
     """
     with span("parse_mp3", bytes=len(file_data)) as s:
-        light = defer_samples and \
-            os.environ.get("MP3STEGO_TPU_DEVICE_HUFFMAN") != "0"
-        p = _parse_mp3_engine(file_data, offset, backend, progress_cb, light)
+        p = _parse_mp3_engine(file_data, offset, backend, progress_cb,
+                              defer_samples)
         count("frames", p.num_frames)
         with span("parse.tag"):
             p = _attach_vbr_tag(p, file_data, offset)
@@ -1223,8 +1222,10 @@ def _parse_frames_lsf(p: ParsedMP3, file_data: bytes, frames: list,
 
 
 def parse_mp3_light(file_data: bytes, offset: int = 0):
-    """Host pass of the device Huffman decode (``ops/huffman_device``):
-    everything _parse_mp3_python does EXCEPT the per-sample symbol scan.
+    """Host pass of the device Huffman decode (``ops/huffman_device``) in
+    Python, the oracle the tests hold the native light parse to (with
+    ``huffman_device.pack``): everything _parse_mp3_python does EXCEPT the
+    per-sample symbol scan.
     MPEG-1 only (LSF raises ValueError). Returns
     (ParsedMP3 with raw_samples zeroed, per-granule bit-scan descriptors):
 

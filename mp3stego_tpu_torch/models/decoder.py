@@ -5,16 +5,14 @@ constructor, ``decode(quiet, reveal, txt_file_path)`` returning bitrate//1000,
 ``delete_wav_file()``, METADATA.txt side-file when not quiet, and the exact
 ``len#message`` reveal framing (decoder/decoder.py:86-108).
 
-The pipeline: host parse (sync walk, side info, reservoir, Huffman) -> numeric
-plane (ops/decode_plane) -> int16 WAV. ``precision`` selects "float64" (the
-bit-exact plane) or "float32"; both run the torch plane on ``device``, CUDA
-by default (a missing card raises). Under ``device="cpu"`` float64 runs the
-host C++ plane, whose bytes the card's float64 plane equals.
-
-A second engine unpacks the Huffman samples on the device
-(``ops/huffman_device``, after the native light host parse);
-``_huffman_backend`` picks it, on a card by default, and its WAV bytes are
-the host parse's.
+The pipeline is the one the benchmark's decode times: the host parse
+(``bitstream.decoder_host.parse_mp3``: sync walk, side info, reservoir,
+scalefactors; on an MPEG-1 stream the Huffman samples are left to the card's
+scan) -> numeric plane (``ops.decode_plane.decode_pcm_i16``) -> int16 WAV.
+``precision`` selects "float64" (the bit-exact plane) or "float32"; both run
+the torch plane on ``device``, CUDA by default (a missing card raises).
+Under ``device="cpu"`` float64 runs the host C++ plane, whose bytes the
+card's float64 plane equals.
 """
 
 import os
@@ -27,38 +25,10 @@ from mp3stego_tpu_torch.bitstream import decoder_host as dh
 from mp3stego_tpu_torch.bitstream.id3 import parse_id3
 from mp3stego_tpu_torch.ops import decode_plane as dp
 from mp3stego_tpu_torch.utils.profiling import StageTimer, byte_bar, trace
+from mp3stego_tpu_torch.utils.transfer import resolve_device
 from mp3stego_tpu_torch.utils.wav import write_wav
 
 PRECISIONS = ("float64", "float32")
-
-
-def _huffman_backend(precision: str, device: torch.device, data: bytes = b"",
-                     offset: int = 0) -> str:
-    """Which engine unpacks the Huffman samples of ``data`` (the stream from
-    ``offset``): "host" (the C++ parse, or its Python twin) or "device"
-    (``ops/huffman_device``).
-
-    "device" on a card: its host half is the native light parse, which
-    leaves the sample scan, nearly all of the host fill's work, to the
-    card's kernel (``csrc/huffman.cu``). Off the card "host" whenever the
-    native library loads, "device" (the plain scan after the Python light
-    parse) when it does not. The host float64 plane (float64 on the CPU),
-    which needs the parsed samples on the host, and the streams the native
-    walk does not read (LSF and free-format heads) always take "host".
-    MP3STEGO_TPU_DEVICE_HUFFMAN=1/0 overrides."""
-    env = os.environ.get("MP3STEGO_TPU_DEVICE_HUFFMAN")
-    if env == "1":
-        return "device"
-    if env == "0":
-        return "host"
-    if precision == "float64" and device.type == "cpu":
-        return "host"
-    if not dh.native_reads(data, offset):
-        return "host"
-    if device.type == "cuda":
-        return "device"
-    from mp3stego_tpu_torch import native
-    return "host" if native.get_lib() is not None else "device"
 
 
 def check_precision(precision: str, device=None) -> torch.device:
@@ -67,7 +37,7 @@ def check_precision(precision: str, device=None) -> torch.device:
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, "
                          f"got {precision!r}")
-    return dp.resolve_device(device)
+    return resolve_device(device)
 
 
 class Decoder:
@@ -98,7 +68,6 @@ class Decoder:
 
         self.__id3 = parse_id3(self.__data)
         self.__offset = self.__id3.offset if self.__id3.is_valid else 0
-        self.__parsed = None
         self.output_bits = ""
         self.timer = None
 
@@ -139,34 +108,20 @@ class Decoder:
             if dev.type == "cuda" else None
         timer = self.timer = StageTimer(sync=sync)
         start = time.time()
-        backend = _huffman_backend(self.__precision, dev, self.__data,
-                                   self.__offset)
         with trace():
-            if backend == "device":
-                # the host does the sync walk, side info, reservoir and
-                # scalefactors; the Huffman scan and the plane run on dev
-                from mp3stego_tpu_torch.ops import huffman_device as hd
-                with timer.stage("decode (device huffman)"):
-                    pcm_i16, parsed = hd.decode_pcm_i16_device(
-                        self.__data, self.__offset, dev, self.__precision)
-            else:
-                with timer.stage("bitstream parse (host)"):
-                    bar = byte_bar(len(self.__data) - self.__offset,
-                                   enabled=not quiet)
-                    parsed = dh.parse_mp3(self.__data, self.__offset,
-                                          progress_cb=bar.update,
-                                          defer_samples=False)
-                    bar.close()
-            self.__parsed = parsed
+            with timer.stage("bitstream parse (host)"):
+                bar = byte_bar(len(self.__data) - self.__offset,
+                               enabled=not quiet)
+                parsed = dh.parse_mp3(self.__data, self.__offset,
+                                      progress_cb=bar.update)
+                bar.close()
             self.output_bits = dh.stego_bits(parsed)
             if parsed.header is None:
                 # no sync word at all (the reference IndexErrors here)
                 sys.exit(f"File {self.__file_path} is not a valid "
                          f"MP3 file.")
 
-            if backend == "device":     # the PCM came with the scan
-                pass
-            elif self.__precision == "float64" and dev.type == "cpu":
+            if self.__precision == "float64" and dev.type == "cpu":
                 with timer.stage("numeric plane (float64)"):
                     # fused native plane -> interleaved int16 (one pass);
                     # NumPy parity oracle when the toolchain is absent

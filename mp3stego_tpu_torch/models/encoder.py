@@ -72,7 +72,7 @@ from mp3stego_tpu_torch.utils import calibrate
 from mp3stego_tpu_torch.utils.profiling import (StageTimer, count, progress,
                                                 span, trace)
 from mp3stego_tpu_torch.utils.transfer import (fetch_pieces, put_pieces,
-                                               put_tree)
+                                               put_tree, resolve_device)
 from mp3stego_tpu_torch.utils.wav import WavFile, read_wav
 
 _LN2 = 0.69314718  # the reference's constant (encoder/util.py:13), not log(2)
@@ -260,19 +260,6 @@ def _find_mpeg_version(sr_idx: int) -> int:
     if sr_idx < 6:
         return 2  # MPEG-II
     return 0      # MPEG-2.5
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device the search plane runs on: ``device``, or CUDA when None.
-
-    A CUDA device without a card raises: the plane never moves to the CPU
-    on its own (the CPU is reached only by asking for it)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "the encoder runs its search plane on a CUDA device and torch "
-            "sees none; pass device='cpu' to run it on the CPU")
-    return dev
 
 
 class MP3Encoder:

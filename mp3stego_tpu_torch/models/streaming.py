@@ -51,6 +51,7 @@ from mp3stego_tpu_torch.models import encoder as enc_mod
 from mp3stego_tpu_torch.ops import decode_plane as dp
 from mp3stego_tpu_torch.ops import encode_plane as EP
 from mp3stego_tpu_torch.utils.profiling import StageTimer
+from mp3stego_tpu_torch.utils.transfer import resolve_device
 from mp3stego_tpu_torch.utils.wav import read_wav, wav_header
 
 # 9 reservoir frames + 1 frame (2 granules) for the plane's overlap/V carries
@@ -71,7 +72,7 @@ def decode_file_streaming(file_path: str, wav_path: str,
         ``stego_bits`` (the hidden-bit string, so a reveal needs no second
         pass).
     """
-    dev = dp.resolve_device(device)
+    dev = resolve_device(device)
     with open(file_path, "rb") as f:
         try:
             data = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)

@@ -62,7 +62,8 @@ from mp3stego_tpu_torch.ops.synth import MAX_ROWS as MAX_SYNTH_ROWS
 from mp3stego_tpu_torch.ops.synth import (ascending_matmul, overlap_freqinv,
                                           synth_fused)
 from mp3stego_tpu_torch.utils.profiling import count, span
-from mp3stego_tpu_torch.utils.transfer import fetch_pieces, put_tree
+from mp3stego_tpu_torch.utils.transfer import (fetch_pieces, put_tree,
+                                               resolve_device)
 
 SQRT2 = math.sqrt(2)
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -671,19 +672,6 @@ def dense_raw(prep) -> np.ndarray:
 
 
 # ------------------------------------------------------------------ torch plane
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device the decode plane runs on: ``device``, or CUDA when None.
-
-    A CUDA device without a card raises: the plane never moves to the CPU
-    on its own (the CPU is reached only by asking for it)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "the decode plane runs on a CUDA device unless asked for the CPU, "
-            "and torch sees none; pass device='cpu' to run it on the CPU")
-    return dev
 
 
 def index_escapes(prep: dict) -> dict:
@@ -1474,12 +1462,7 @@ def decode_pcm(p, dtype: str = "float64", device=None) -> np.ndarray:
         if pcm is None:
             pcm = decode_granules_np(host_prepare(p))
         return _interleave(p, pcm)
-    return _torch_pcm(p, dtype, dev, scan_lanes(p, dev))
-
-
-def _torch_pcm(p, dtype: str, dev: torch.device, lanes) -> np.ndarray:
-    """``decode_pcm``'s torch plane; the samples scanned on ``dev`` from
-    ``lanes`` where given, else the host's plane."""
+    lanes = scan_lanes(p, dev)
     prep = prep_to_torch(host_prepare(p, raw=lanes is None), dev, lanes)
     if lanes is not None:
         prep = scan_samples(prep, p.num_frames)

@@ -4,8 +4,8 @@ as a hand-written CUDA kernel, and its plain PyTorch version.
 The host keeps the sync walk, the side info, the bit-reservoir splice and
 the scalefactors (the native light parse,
 ``bitstream.decoder_host.parse_mp3_light_native``, which ``parse_mp3``
-runs by default; its Python twin ``parse_mp3_light`` with ``pack`` where
-the library does not load); the device walks each granule's Huffman code
+runs by default; its Python twin ``parse_mp3_light`` with ``pack`` is the
+oracle the tests hold it to); the device walks each granule's Huffman code
 and writes the (2, T, 576) int32 sample plane that the decode plane reads
 as ``raw_dense`` (``ops/decode_plane.granule_blocks``). A single-file
 decode on the card takes this route (``decode_plane.scan_lanes``). It is
@@ -53,10 +53,6 @@ decoder/Frame.py:443-559):
   LUT (``T.dec_lut``). It runs on the host whatever its inputs' device, so
   the flat LUTs (30 MiB) never go to the card. The kernel equals it bit for
   bit.
-* ``parse_lanes`` — the light parse with its lanes on the ``ParsedMP3``.
-* ``decode_pcm_device`` / ``decode_pcm_i16_device`` — a whole decode
-  through the scan on any device: float32 PCM, as the JAX package's
-  ``decode_pcm_device``, or the int16 WAV samples in either precision.
 * ``scan_chain`` — the kernel's walk without the plane's stores (each lane's
   weighted sum of its samples), a measurement of the chain alone.
 * ``occupancy`` — the runtime's CTAs an SM for the kernel.
@@ -377,62 +373,3 @@ def decode_raw_device(descriptors: list, device) -> torch.Tensor:
     words, fields = pack(descriptors)
     up = put_tree({"words": words, "fields": fields}, device)
     return decode_samples(up["words"], up["fields"])
-
-
-def parse_lanes(data: bytes, offset: int = 0):
-    """The light host parse of the stream from ``offset``, with the scan's
-    input on the ParsedMP3 as ``lanes`` (words, fields): the native one
-    (``decoder_host.parse_mp3_light_native``) where it reads the stream,
-    else ``parse_mp3_light`` and ``pack``. Either way ``raw_samples`` is
-    deferred to the full parse (``decoder_host.fill_samples``), which runs
-    only if something reads it on the host (an intensity-stereo granule's
-    positions do). A Xing/Info/VBRI tag frame is marked as ``parse_mp3``
-    marks it. An LSF stream raises ``ValueError``."""
-    from mp3stego_tpu_torch.bitstream import decoder_host as dh
-    parsed = dh.parse_mp3_light_native(data, offset)
-    if parsed is not None:
-        dh._attach_vbr_tag(parsed, data, offset)
-    else:
-        parsed, descriptors = dh.parse_mp3_light(data, offset)
-        if parsed.num_frames:
-            parsed.lanes = pack(descriptors)
-            parsed.defer_samples(functools.partial(
-                dh.fill_samples, data, offset, parsed.num_frames))
-    return parsed
-
-
-def decode_pcm_device(data: bytes, offset: int, device):
-    """A whole float32 decode with the Huffman bit-scan on ``device``: the
-    light host parse (``parse_lanes``), the scan, then the float32 decode
-    plane from the resident sample plane. Returns (interleaved float32 PCM
-    (samples, channels), the ParsedMP3): bit for bit
-    ``decode_plane.decode_pcm(parse_mp3(data, offset), "float32",
-    device)``. It raises where :func:`decode_pcm_i16_device` raises (an
-    LSF stream: ``ValueError``)."""
-    from mp3stego_tpu_torch.ops import decode_plane as dp
-    parsed = parse_lanes(data, offset)
-    if parsed.num_frames == 0:
-        return np.zeros((0, 2), np.float32), parsed
-    return dp._torch_pcm(parsed, "float32", torch.device(device),
-                         parsed.lanes), parsed
-
-
-def decode_pcm_i16_device(data: bytes, offset: int, device,
-                          precision: str = "float32", timer=None):
-    """A whole decode with the Huffman bit-scan on ``device``: the light host
-    parse (``parse_lanes``), then ``decode_plane.decode_pcm_i16``'s route
-    with the scan, the int16 conversion in its synthesis kernel. Returns
-    (interleaved int16 PCM (samples, channels), the ParsedMP3). MPEG-1
-    only: an LSF stream raises ``ValueError``. ``timer``
-    (``utils.profiling.StageTimer``) splits the time into light parse
-    (host), host_prepare, h2d (the prep and the lanes), device plane (the
-    scan, K2 and K1) and d2h."""
-    from mp3stego_tpu_torch.ops import decode_plane as dp
-    from mp3stego_tpu_torch.utils.profiling import StageTimer
-    timer = timer or StageTimer(enabled=False)
-    with timer.stage("light parse (host)"):
-        parsed = parse_lanes(data, offset)
-    if parsed.num_frames == 0:
-        return np.zeros((0, 2), np.int16), parsed
-    return dp._torch_pcm_i16(parsed, torch.device(device), precision, timer,
-                             parsed.lanes), parsed

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from mp3stego_tpu_torch import tables as T
-from mp3stego_tpu_torch.utils.transfer import fetch_pieces
+from mp3stego_tpu_torch.utils.transfer import fetch_pieces, resolve_device
 
 S_STEPS = 128          # step_size + 127 in [0, 127]
 _BAIL = 165140         # 8192**(4/3), quantize's quick-reject threshold
@@ -422,7 +422,6 @@ def cost_all_steps(xr, sr_idx: int, with_hide: bool = False,
     fetch (no launch for N = 0); a build or launch fault raises. CPU
     tensors take :func:`cost_all_steps_torch`."""
     if not isinstance(xr, torch.Tensor):
-        from mp3stego_tpu_torch.models.encoder import resolve_device
         xr = torch.from_numpy(np.ascontiguousarray(xr, np.int32)) \
             .to(resolve_device(device))
     _check(xr)

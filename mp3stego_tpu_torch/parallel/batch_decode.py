@@ -50,6 +50,7 @@ from mp3stego_tpu_torch.ops import decode_plane as dp
 from mp3stego_tpu_torch.parallel.mesh import check_mesh
 from mp3stego_tpu_torch.utils import calibrate
 from mp3stego_tpu_torch.utils.profiling import bind, count, span
+from mp3stego_tpu_torch.utils.transfer import resolve_device
 
 # host threads for parsing and preparing files
 _WORKERS = min(8, os.cpu_count() or 1)
@@ -145,7 +146,7 @@ def decode_batch_device(batch: dict, mesh=None, dtype: str = "float32",
     decoded: they come back nowhere). Each group runs on its device as one
     concat batch, one K2 and one K1 launch (one each per run of files of one
     samplerate). ``mesh`` None runs one group on ``device`` (None: CUDA)."""
-    devs = [dp.resolve_device(device)] if mesh is None \
+    devs = [resolve_device(device)] if mesh is None \
         else list(check_mesh(mesh, device).devices[:, 0])
     if dtype not in dp.DTYPES:
         raise ValueError(f"dtype must be one of {tuple(dp.DTYPES)}, got "
@@ -272,7 +273,7 @@ def _decode_files(paths, mesh, dtype, errors, out, device, chunk_files):
     if errors not in ("raise", "isolate"):
         raise ValueError(f"errors must be 'raise' or 'isolate', got "
                          f"{errors!r}")
-    devs = devs or [dp.resolve_device(device)]
+    devs = devs or [resolve_device(device)]
     metas, kept, results = [], [], [None] * len(paths)
     # the parse and host_prepare of many files run on a thread pool (the
     # native parser and the NumPy passes release the GIL)

@@ -35,13 +35,12 @@ import numpy as np
 import torch
 
 from mp3stego_tpu_torch.models.encoder import (MP3Encoder, _ix_home,
-                                               _native_rate_lib,
-                                               resolve_device)
+                                               _native_rate_lib)
 from mp3stego_tpu_torch.ops import search_plane as SP
 from mp3stego_tpu_torch.parallel.mesh import check_mesh
 from mp3stego_tpu_torch.utils import calibrate
 from mp3stego_tpu_torch.utils.profiling import StageTimer
-from mp3stego_tpu_torch.utils.transfer import fetch_pieces
+from mp3stego_tpu_torch.utils.transfer import fetch_pieces, resolve_device
 from mp3stego_tpu_torch.utils.wav import read_wav
 
 # lanes (files x channels x granules) per search pass. The 240.7 s stereo

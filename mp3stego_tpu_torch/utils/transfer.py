@@ -31,6 +31,10 @@ the buffers nobody holds, the pool keeps at most ``KEEP_BYTES``: each
 allocator, which reuses them), and ``trim`` drops them on demand.
 
 Every copy is split into pieces of ``PIECE_BYTES`` (None: whole buffers).
+``resolve_device(device)`` is the port's one device rule: ``device``, or
+CUDA when None, and a CUDA device without a card raises, so no entry point
+moves to the CPU on its own.
+
 On a CPU device, which only a caller asks for, the functions are plain
 ``torch.from_numpy`` / ``Tensor.numpy()``: no staging, no pinning.
 """
@@ -57,6 +61,19 @@ _GRAIN = 1 << 21
 # bytes of free staging a pool keeps for reuse: a fetch of a 240 s song's
 # int32 ix is 85 MB
 KEEP_BYTES = 256 << 20
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a plane runs on: ``device``, or CUDA when None.
+
+    A CUDA device without a card raises: nothing moves to the CPU on its
+    own (the CPU is reached only by asking for it)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the port runs on a CUDA device unless asked for the CPU, and "
+            "torch sees none; pass device='cpu' to run it on the CPU")
+    return dev
 
 
 def _held() -> bool:

@@ -233,25 +233,28 @@ def test_huffman_kernel_on_synthetic_lanes_and_its_chain(card):
 
 
 @pytest.mark.parametrize("precision", ["float32", "float64"])
-def test_device_huffman_decode_writes_host_bytes(card, precision, tmp_path,
-                                                 monkeypatch):
-    """``Decoder`` with MP3STEGO_TPU_DEVICE_HUFFMAN=1 on the card: one scan
-    launch, the host parse's WAV bytes and stego bits."""
+def test_device_huffman_decode_writes_host_bytes(card, precision, tmp_path):
+    """The default ``Decoder`` on the card: one scan launch, and the WAV
+    bytes and stego bits of the host fill's route
+    (``parse_mp3(defer_samples=False)``, then ``decode_pcm_i16``)."""
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
     from mp3stego_tpu_torch.models.decoder import Decoder
+    from mp3stego_tpu_torch.ops import decode_plane as dp
     from mp3stego_tpu_torch.ops import huffman_device as hd
+    from mp3stego_tpu_torch.utils.wav import write_wav
+    data = _huffman_streams()["fixture"]
     mp3 = tmp_path / "f.mp3"
-    mp3.write_bytes(_huffman_streams()["fixture"])
-    monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", "0")
-    host = Decoder(str(mp3), str(tmp_path / "h.wav"), precision=precision)
-    host.decode()
-    monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", "1")
+    mp3.write_bytes(data)
+    host = _host_fill_parse(data)
+    write_wav(str(tmp_path / "h.wav"), host.header.sampling_rate,
+              dp.decode_pcm_i16(host, card, precision))
     before = hd.launches
     dev = Decoder(str(mp3), str(tmp_path / "d.wav"), precision=precision)
     dev.decode()
     assert hd.launches == before + 1
     assert (tmp_path / "d.wav").read_bytes() == \
         (tmp_path / "h.wav").read_bytes()
-    assert dev.output_bits == host.output_bits
+    assert dev.output_bits == dh.stego_bits(host)
 
 
 @pytest.mark.parametrize("hide", [False, True])
@@ -1160,13 +1163,11 @@ def test_card_probe_without_the_golden_stream(card, tmp_path, monkeypatch):
     assert p.link_out_mbps > 0 and p.device_search_gps > 0
 
 
-def _host_fill_parse(data: bytes, monkeypatch):
-    """``parse_mp3`` as MP3STEGO_TPU_DEVICE_HUFFMAN=0 runs it: the samples
-    filled on the host."""
+def _host_fill_parse(data: bytes):
+    """``parse_mp3(defer_samples=False)``: the samples filled on the
+    host."""
     from mp3stego_tpu_torch.bitstream import decoder_host as dh
-    monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", "0")
-    p = dh.parse_mp3(data, 0)
-    monkeypatch.delenv("MP3STEGO_TPU_DEVICE_HUFFMAN")
+    p = dh.parse_mp3(data, 0, defer_samples=False)
     assert p.lanes is None and not p.samples_pending
     return p
 
@@ -1174,20 +1175,18 @@ def _host_fill_parse(data: bytes, monkeypatch):
 @pytest.mark.parametrize("precision", ["float32", "float64"])
 @pytest.mark.parametrize("name", ["fixture", "48000_320", "mixed_44k",
                                   "linbits", "flipped"])
-def test_single_file_decode_scans_on_the_card(card, precision, name,
-                                              monkeypatch):
+def test_single_file_decode_scans_on_the_card(card, precision, name):
     """``decode_pcm_i16`` and ``decode_pcm`` of a default parse scan its
     samples on the card, one scan launch each, and write the bytes of the
-    host fill's route (MP3STEGO_TPU_DEVICE_HUFFMAN=0); the host fill never
+    host fill's route (``defer_samples=False``); the host fill never
     runs."""
     from mp3stego_tpu_torch.bitstream import decoder_host as dh
     from mp3stego_tpu_torch.ops import decode_plane as dp
     from mp3stego_tpu_torch.ops import huffman_device as hd
     data = _huffman_streams()[name]
-    host = _host_fill_parse(data, monkeypatch)
+    host = _host_fill_parse(data)
     want = dp.decode_pcm_i16(host, card, precision)
     want_f = dp.decode_pcm(host, precision, card)
-    monkeypatch.delenv("MP3STEGO_TPU_DEVICE_HUFFMAN", raising=False)
     p = dh.parse_mp3(data, 0)
     assert p.lanes is not None and p.samples_pending
     before = hd.launches
@@ -1199,16 +1198,14 @@ def test_single_file_decode_scans_on_the_card(card, precision, name,
     assert got_f.dtype == want_f.dtype and got_f.tobytes() == want_f.tobytes()
 
 
-def test_intensity_stereo_decode_on_the_card_reads_the_host_fill(
-        card, monkeypatch):
+def test_intensity_stereo_decode_on_the_card_reads_the_host_fill(card):
     """An intensity-stereo stream: its positions need the right channel's
     samples on the host, so the deferred fill runs once beside the scan,
     and the bytes are the host fill's route's."""
     from mp3stego_tpu_torch.bitstream import decoder_host as dh
     from mp3stego_tpu_torch.ops import decode_plane as dp
     data = _huffman_streams()["is_long"]
-    want = dp.decode_pcm_i16(_host_fill_parse(data, monkeypatch), card,
-                             "float64")
+    want = dp.decode_pcm_i16(_host_fill_parse(data), card, "float64")
     p = dh.parse_mp3(data, 0)
     got = dp.decode_pcm_i16(p, card, "float64")
     assert not p.samples_pending and got.tobytes() == want.tobytes()

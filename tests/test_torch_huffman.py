@@ -10,13 +10,18 @@ and tests/test_backend_select.py:
   and a mono stream;
 * ``parse_mp3_light``: its descriptors and parsed fields equal the JAX
   package's, field by field; LSF raises the same ``ValueError``;
-* ``Decoder`` with the device engine (``device="cpu"``) writes the host
-  parse's WAV bytes in float32 and float64 and reveals the same bits;
-* ``_huffman_backend`` picks the engine by the JAX package's rule, and
-  "host" for the streams the light parse does not read (LSF and
-  free-format heads) unless MP3STEGO_TPU_DEVICE_HUFFMAN=1 forces "device";
-  with the native library patched away, an LSF or free-format decode
-  writes the host parse's bytes, and the forced device engine reads a
+* the façade's ``Decoder`` (``device="cpu"``) runs the benchmark's route,
+  ``parse_mp3`` then ``decode_pcm_i16``, on every stream of
+  ``test_torch_light_parse.STREAMS``: in float32 with the samples scanned
+  (``scan_on_the_cpu`` lets the scan route run on the CPU), in float64 the
+  host plane reading the deferred fill; either way the WAV bytes and stego
+  bits of the host fill's route (``parse_mp3(defer_samples=False)``), and
+  reveal reads the message back;
+* where the choice lives: ``parse_mp3`` leaves lanes on MPEG-1 streams and
+  none on the streams the light parse does not read (LSF and free-format
+  heads), and ``decode_plane.scan_lanes`` hands them to the scan on a card
+  only; with the native library patched away, an LSF or free-format decode
+  writes the host parse's bytes, and the Python light parse reads a
   free-format stream at its measured stride.
 
 Every parse here uses the JAX package's Python engine (``backend="python"``)
@@ -32,14 +37,18 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import test_torch_light_parse as tlp  # noqa: E402
 from craft_mp3 import Granule, build_stream  # noqa: E402
 
 from mp3stego_tpu.bitstream import decoder_host as jdh  # noqa: E402
 from mp3stego_tpu.ops import huffman_device as jhd  # noqa: E402
+from mp3stego_tpu_torch import native  # noqa: E402
 from mp3stego_tpu_torch.bitstream import decoder_host as pdh  # noqa: E402
 from mp3stego_tpu_torch.models import decoder as pdec  # noqa: E402
 from mp3stego_tpu_torch.ops import decode_plane as pdp  # noqa: E402
 from mp3stego_tpu_torch.ops import huffman_device as hd  # noqa: E402
+from mp3stego_tpu_torch.utils import profiling as P  # noqa: E402
+from mp3stego_tpu_torch.utils.wav import write_wav  # noqa: E402
 
 GOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 MULTIRATE = ("32000_64", "32000_192", "44100_128", "48000_96", "48000_320")
@@ -236,8 +245,29 @@ def test_dense_plane_equals_int8_plane(name, dtype, streams):
     assert torch.equal(got, want)
 
 
-def _decode(path, out, precision, engine, monkeypatch):
-    monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", engine)
+@pytest.fixture
+def scan_on_the_cpu(monkeypatch):
+    monkeypatch.setattr(pdp, "scan_lanes", tlp.scan_here)
+
+
+@pytest.fixture(scope="module")
+def light_streams(fixture_mp3):
+    with open(fixture_mp3, "rb") as f:
+        return tlp.make_streams(f.read())
+
+
+def _host_wav(data: bytes, precision: str, out) -> tuple:
+    """The host fill's route to a WAV at ``out``: ``parse_mp3`` with the
+    samples filled at parse time, then ``decode_pcm_i16`` on the CPU.
+    Returns (the WAV's bytes, the stego bits)."""
+    full = pdh.parse_mp3(data, 0, defer_samples=False)
+    assert full.lanes is None and not full.samples_pending
+    write_wav(str(out), full.header.sampling_rate,
+              pdp.decode_pcm_i16(full, "cpu", precision))
+    return out.read_bytes(), pdh.stego_bits(full)
+
+
+def _decode(path, out, precision):
     d = pdec.Decoder(path, out, precision=precision, device="cpu")
     d.decode(quiet=True)
     with open(out, "rb") as f:
@@ -245,66 +275,66 @@ def _decode(path, out, precision, engine, monkeypatch):
 
 
 @pytest.mark.parametrize("precision", ["float32", "float64"])
-@pytest.mark.parametrize("name", ["fixture", "mono", "crafted_is_ms_short",
-                                  "flipped_2"])
-def test_decoder_device_engine_writes_host_bytes(name, precision, streams,
-                                                 tmp_path, monkeypatch):
+@pytest.mark.parametrize("name", tlp.STREAMS)
+def test_decoder_device_engine_writes_host_bytes(name, precision,
+                                                 light_streams, tmp_path,
+                                                 scan_on_the_cpu):
+    """The façade's ``Decoder`` writes the host fill's route's WAV bytes
+    and stego bits: in float32 through the scan, in float64 on the CPU
+    through the host plane, which reads the deferred fill."""
+    data = light_streams[name]
     path = tmp_path / "in.mp3"
-    path.write_bytes(streams[name])
-    host, dh_ = _decode(str(path), str(tmp_path / "h.wav"), precision, "0",
-                        monkeypatch)
-    dev, dd = _decode(str(path), str(tmp_path / "d.wav"), precision, "1",
-                      monkeypatch)
-    assert dev == host and len(dev) > 44
-    assert "decode (device huffman)" in dd.timer.times
-    assert "decode (device huffman)" not in dh_.timer.times
-    assert dd.output_bits == dh_.output_bits
+    path.write_bytes(data)
+    host, bits = _host_wav(data, precision, tmp_path / "h.wav")
+    n0 = len(P.spans())
+    with P.recording():
+        got, d = _decode(str(path), str(tmp_path / "d.wav"), precision)
+    assert got == host and len(got) > 44
+    assert d.output_bits == bits
+    names = [s.name for s in P.spans()[n0:]]
+    assert names.count("parse_mp3") == 1
+    assert list(d.timer.times) == ["bitstream parse (host)"] + (
+        ["host_prepare", "h2d", "device plane", "d2h"]
+        if precision == "float32" else ["numeric plane (float64)"]) + [
+        "wav write"]
+    if native.get_lib() is not None:    # the light parse deferred them
+        assert names.count("samples.device") == (precision == "float32")
+        assert names.count("parse.fill") == (
+            precision == "float64" or name.startswith("crafted_is"))
 
 
-def test_device_engine_reveals(stego_golden, tmp_path, monkeypatch):
-    """Reveal reads ``table_select`` from the light parse."""
+def test_device_engine_reveals(stego_golden, tmp_path, scan_on_the_cpu):
+    """Reveal through the default façade reads ``table_select`` from the
+    light parse."""
+    from mp3stego_tpu_torch import Steganography
     path = tmp_path / "h.mp3"
     path.write_bytes(stego_golden["hidden_long"].tobytes())
-    monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", "1")
-    d = pdec.Decoder(str(path), str(tmp_path / "h.wav"), precision="float32",
-                     device="cpu")
-    d.decode(quiet=True, reveal=True, txt_file_path=str(tmp_path / "r.txt"))
+    s = Steganography(quiet=True, precision="float32", device="cpu")
+    s.reveal_massage(str(path), str(tmp_path / "r.txt"))
     assert (tmp_path / "r.txt").read_text() == \
         stego_golden["msg_long"].tobytes().decode()
 
 
-def test_device_engine_refuses_lsf(streams, tmp_path, monkeypatch):
-    """No fallback: the forced device engine raises on an LSF stream."""
-    path = tmp_path / "lsf.mp3"
-    path.write_bytes(streams["torch_lsf_mpeg2_24k_64"])
-    monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", "1")
-    with pytest.raises(ValueError, match="MPEG-1-only"):
-        pdec.Decoder(str(path), str(tmp_path / "o.wav"),
-                     precision="float32", device="cpu").decode(quiet=True)
-
-
-def test_huffman_backend_selection(monkeypatch):
-    """On a card the scan runs there behind the native light parse; off it,
-    tests/test_backend_select.py's rule (the C++ parse when it loads), and
-    float64 on the CPU (the host plane) keeps "host"."""
-    from mp3stego_tpu_torch import native
-    sel = pdec._huffman_backend
+def test_huffman_backend_selection(streams):
+    """Where the scan runs is decided by ``decode_plane.scan_lanes``: a
+    default parse of an MPEG-1 stream leaves its lanes with its samples
+    pending, and they go to the scan on a card, not on the CPU; a parse
+    whose samples were filled, or filled at parse time, scans nowhere."""
+    data = streams["multirate_44100_128"]
+    full = pdh.parse_mp3(data, 0, defer_samples=False)
+    assert full.lanes is None and not full.samples_pending
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    monkeypatch.delenv("MP3STEGO_TPU_DEVICE_HUFFMAN", raising=False)
-    monkeypatch.setattr(native, "get_lib", lambda: object())
-    assert sel("float32", cpu) == "host"           # C++ wins when loadable
-    assert sel("float64", cpu) == "host"
-    assert sel("float32", cuda) == "device"        # the card's scan
-    assert sel("float64", cuda) == "device"
-    monkeypatch.setattr(native, "get_lib", lambda: None)
-    assert sel("float32", cpu) == "device"         # beats the python parse
-    assert sel("float32", cuda) == "device"
-    assert sel("float64", cuda) == "device"        # the card's float64 plane
-    assert sel("float64", cpu) == "host"           # the host float64 plane
-    monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", "1")
-    assert sel("float64", cpu) == "device"         # explicit override
-    monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", "0")
-    assert sel("float32", cuda) == "host"
+    p = pdh.parse_mp3(data, 0)
+    if native.get_lib() is None:        # the Python full parse
+        assert p.lanes is None and not p.samples_pending
+        return
+    assert p.lanes is not None and p.samples_pending
+    assert pdp.scan_lanes(p, cuda) is p.lanes
+    assert pdp.scan_lanes(p, "cuda:0") is p.lanes
+    assert pdp.scan_lanes(p, cpu) is None
+    for q in (full, p):
+        q.raw_samples
+        assert pdp.scan_lanes(q, cuda) is None
 
 
 def _free_format(data: bytes) -> bytes:
@@ -335,24 +365,22 @@ def free_format_mp3(stego_golden):
 
 def test_huffman_backend_keeps_lsf_and_free_format_on_the_host(
         streams, free_format_mp3, monkeypatch):
-    """Without the native library the device engine is the default, but
-    not for a stream whose head the light parse does not read."""
-    from mp3stego_tpu_torch import native
-    sel = pdec._huffman_backend
-    monkeypatch.delenv("MP3STEGO_TPU_DEVICE_HUFFMAN", raising=False)
-    monkeypatch.setattr(native, "get_lib", lambda: None)
+    """A stream whose head the light parse does not read gets its samples
+    at parse time, and no lanes, so nothing scans it, on a card or not;
+    without the native library no stream is light-parsed."""
     heads = {name: streams[name] for name in LSF}
     heads["free_format"] = free_format_mp3
     assert pdh.parse_header(*free_format_mp3[:4]).free_format
-    for dev in (torch.device("cpu"), torch.device("cuda")):
-        for precision in ("float32", "float64"):
-            for name, data in heads.items():
-                assert sel(precision, dev, data, 0) == "host", (name, dev)
-            assert sel(precision, dev, streams["fixture"], 0) == (
-                "host" if (precision, dev.type) == ("float64", "cpu")
-                else "device")
-    monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", "1")
-    assert sel("float32", torch.device("cpu"), free_format_mp3, 0) == "device"
+    for name, data in heads.items():
+        p = pdh.parse_mp3(data, 0)
+        assert p.lanes is None and not p.samples_pending, name
+        assert p.num_frames > 0, name
+        for dev in ("cpu", "cuda"):
+            assert pdp.scan_lanes(p, dev) is None, (name, dev)
+    monkeypatch.setattr(native, "get_lib", lambda: None)
+    p = pdh.parse_mp3(streams["fixture"], 0)
+    assert p.lanes is None and not p.samples_pending
+    assert pdp.scan_lanes(p, "cuda") is None
 
 
 @pytest.mark.parametrize("name", ["torch_lsf_mpeg2_24k_64",
@@ -360,77 +388,64 @@ def test_huffman_backend_keeps_lsf_and_free_format_on_the_host(
                                   "torch_lsf_mpeg25_8k_32"])
 def test_lsf_decode_without_native_library_writes_host_bytes(
         name, streams, tmp_path, monkeypatch):
-    from mp3stego_tpu_torch import native
     monkeypatch.setattr(native, "get_lib", lambda: None)
     path = tmp_path / "lsf.mp3"
     path.write_bytes(streams[name])
-    host, _ = _decode(str(path), str(tmp_path / "h.wav"), "float32", "0",
-                      monkeypatch)
-    monkeypatch.delenv("MP3STEGO_TPU_DEVICE_HUFFMAN")
-    d = pdec.Decoder(str(path), str(tmp_path / "d.wav"), precision="float32",
-                     device="cpu")
-    d.decode(quiet=True)
-    assert "decode (device huffman)" not in d.timer.times
-    assert (tmp_path / "d.wav").read_bytes() == host and len(host) > 44
+    host, bits = _host_wav(streams[name], "float32", tmp_path / "h.wav")
+    got, d = _decode(str(path), str(tmp_path / "d.wav"), "float32")
+    assert got == host and len(host) > 44
+    assert d.output_bits == bits
 
 
 def test_free_format_decode_writes_host_bytes(free_format_mp3, tmp_path,
                                               monkeypatch):
-    """The default engine takes the host parse; the forced device engine
-    reads every frame at the measured stride, so neither writes a short
-    WAV."""
-    from mp3stego_tpu_torch import native
+    """The façade decodes every frame of a free-format stream, as the host
+    parse does, and the Python light parse, the native one's oracle,
+    reads every frame at the measured stride."""
     monkeypatch.setattr(native, "get_lib", lambda: None)
     path = tmp_path / "free.mp3"
     path.write_bytes(free_format_mp3)
-    host, dh_ = _decode(str(path), str(tmp_path / "h.wav"), "float32", "0",
-                        monkeypatch)
+    host, bits = _host_wav(free_format_mp3, "float32", tmp_path / "h.wav")
     frames = pdh.parse_mp3(free_format_mp3, 0, backend="python").num_frames
     assert frames > 30 and len(host) == 44 + 2 * 2 * 1152 * frames
-    monkeypatch.delenv("MP3STEGO_TPU_DEVICE_HUFFMAN")
-    d = pdec.Decoder(str(path), str(tmp_path / "a.wav"), precision="float32",
-                     device="cpu")
-    d.decode(quiet=True)
-    assert "decode (device huffman)" not in d.timer.times
-    assert (tmp_path / "a.wav").read_bytes() == host
-    dev, dd = _decode(str(path), str(tmp_path / "d.wav"), "float32", "1",
-                      monkeypatch)
-    assert "decode (device huffman)" in dd.timer.times
-    assert dev == host and dd.output_bits == dh_.output_bits
+    got, d = _decode(str(path), str(tmp_path / "a.wav"), "float32")
+    assert got == host and d.output_bits == bits
+    light, desc = pdh.parse_mp3_light(free_format_mp3, 0)
+    assert light.num_frames == frames and len(desc) == 4 * frames
 
 
 @pytest.mark.parametrize("name", ("fixture", "multirate_32000_64",
                                   "crafted_is_ms_short", "linbits",
                                   "flipped_1", "mono"))
-def test_decode_pcm_device_equals_the_host_parse_decode(name, streams):
-    """``decode_pcm_device`` (light parse, scan, float32 plane) is bit for
-    bit the port's float32 decode through the host parse."""
+def test_decode_pcm_device_equals_the_host_parse_decode(name, streams,
+                                                        scan_on_the_cpu):
+    """``decode_pcm`` of a default parse through the scan (light parse,
+    scan, float32 plane) is bit for bit the port's float32 decode of the
+    host fill."""
     data = streams[name]
-    got, parsed = hd.decode_pcm_device(data, 0, "cpu")
-    host = pdh.parse_mp3(data, 0)
+    host = pdh.parse_mp3(data, 0, defer_samples=False)
     want = pdp.decode_pcm(host, "float32", "cpu")
+    parsed = pdh.parse_mp3(data, 0)
+    n0 = len(P.spans())
+    with P.recording():
+        got = pdp.decode_pcm(parsed, "float32", "cpu")
+    if native.get_lib() is not None:
+        assert [s.name for s in P.spans()[n0:]].count("samples.device") == 1
     assert got.dtype == np.float32 and got.shape == want.shape
     assert got.tobytes() == want.tobytes()
     assert parsed.num_frames == host.num_frames
     assert vars(parsed.header) == vars(host.header)
 
 
-def test_decode_pcm_device_within_one_lsb_of_the_jax_package(streams):
+def test_decode_pcm_device_within_one_lsb_of_the_jax_package(
+        streams, scan_on_the_cpu):
     """Against the JAX package's ``decode_pcm_device`` on the CPU (as
     tests/test_huffman_device.py runs it): the float32 planes round apart
     (the JAX plane's linbits escapes go through exp2/log2), within 1 int16
     LSB."""
-    got, parsed = hd.decode_pcm_device(streams["fixture"], 0, "cpu")
+    parsed = pdh.parse_mp3(streams["fixture"], 0)
+    got = pdp.decode_pcm(parsed, "float32", "cpu")
     want, jparsed = jhd.decode_pcm_device(streams["fixture"], 0)
     assert got.shape == want.shape and want.dtype == np.float32
     assert float(np.abs(got - want).max()) <= 1 / 32768
     assert parsed.header.bit_rate == jparsed.header.bit_rate == 320000
-
-
-def test_decode_pcm_device_refuses_lsf_like_the_int16_entry(streams):
-    data = streams["torch_lsf_mpeg2_24k_64"]
-    with pytest.raises(ValueError) as want:
-        hd.decode_pcm_i16_device(data, 0, "cpu")
-    with pytest.raises(ValueError) as got:
-        hd.decode_pcm_device(data, 0, "cpu")
-    assert str(got.value) == str(want.value)

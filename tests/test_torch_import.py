@@ -85,15 +85,21 @@ with tempfile.TemporaryDirectory() as tmp:
                           device="cpu")
     with open(os.path.join(tmp, "st.mp3"), "rb") as f:
         assert f.read() == enc["mp3_bytes"].tobytes()
-    # the device Huffman engine (light parse + the scan's plain version)
-    from mp3stego_tpu_torch.models.decoder import Decoder
-    from mp3stego_tpu_torch.ops import huffman_device
-    os.environ["MP3STEGO_TPU_DEVICE_HUFFMAN"] = "1"
-    d = Decoder(mp3, os.path.join(tmp, "dh.wav"), precision="float32",
-                device="cpu")
-    d.decode()
-    del os.environ["MP3STEGO_TPU_DEVICE_HUFFMAN"]
-    assert "decode (device huffman)" in d.timer.times
+    # the scan route: the light parse, then the scan's plain version (the
+    # scan runs on a card only; a fake of scan_lanes lets it run here)
+    from mp3stego_tpu_torch.bitstream.decoder_host import parse_mp3
+    from mp3stego_tpu_torch.ops import decode_plane, huffman_device
+    from mp3stego_tpu_torch.utils.wav import write_wav
+    on_card = decode_plane.scan_lanes
+    decode_plane.scan_lanes = lambda p, device: p.lanes
+    with open(mp3, "rb") as f:
+        p = parse_mp3(f.read())
+    before = huffman_device.launches
+    write_wav(os.path.join(tmp, "dh.wav"), p.header.sampling_rate,
+              decode_plane.decode_pcm_i16(p, "cpu", "float32"))
+    decode_plane.scan_lanes = on_card
+    assert huffman_device.launches == before
+    assert p.lanes is None or p.samples_pending     # scanned, not filled
     s.decode_mp3_to_wav(mp3, os.path.join(tmp, "h32.wav"))
     with open(os.path.join(tmp, "dh.wav"), "rb") as a, \
             open(os.path.join(tmp, "h32.wav"), "rb") as b:
@@ -169,6 +175,10 @@ COUNTERPARTS = {
         ("ops/encode_plane.py", "analysis_interleaved"),
     ("ops/encode_plane.py", "run_analysis"):
         ("ops/encode_plane.py", "analysis_stream"),
+    ("ops/huffman_device.py", "decode_pcm_device"):
+        ("ops/decode_plane.py", "decode_pcm"),
+    ("ops/huffman_device.py", "decode_pcm_i16_device"):
+        ("ops/decode_plane.py", "decode_pcm_i16"),
     ("ops/huffman_device.py", "decode_samples_device"):
         ("ops/huffman_device.py", "decode_samples"),
     ("ops/huffman_device.py", "pack_descriptors"):

@@ -12,14 +12,14 @@
   equal the full native fill and the Python parse's samples;
 * a stream it does not read (free-format, LSF) or whose walk is
   inconsistent falls back as ``parse_mp3`` did: the samples filled at
-  parse time, as do ``defer_samples=False``, the other backends and
-  MP3STEGO_TPU_DEVICE_HUFFMAN=0;
+  parse time, as do ``defer_samples=False`` and the other backends;
 * the deferred fill runs once, under its own span, and the words past a
   short capacity are never written;
-* the device route through the light parse reads the host fill where an
-  intensity-stereo granule needs the right channel's samples, and drops a
-  VBR tag frame's silence and reports its average rate as the host route
-  does.
+* the scan route (``parse_mp3``, then ``decode_pcm_i16`` with the scan,
+  which ``scan_on_the_cpu`` lets run on the CPU) reads the host fill where
+  an intensity-stereo granule needs the right channel's samples, and drops
+  a VBR tag frame's silence as the host fill's route does; the façade's
+  ``Decoder`` reports the tag's average rate.
 
 Every JAX-package parse here names its Python engine (``backend="python"``),
 so nothing depends on whether the JAX package's native library loaded.
@@ -116,10 +116,21 @@ def _free_format(data: bytes) -> bytes:
     return bytes(b)
 
 
-@pytest.fixture(scope="module")
-def streams(fixture_mp3):
-    with open(fixture_mp3, "rb") as f:
-        fixture = f.read()
+def scan_here(p, device) -> tuple:
+    """``decode_plane.scan_lanes`` as it answers on a card, for any device:
+    the parse's lanes while its samples are pending. A test fake that runs
+    the scan route on the CPU (the scan's plain version)."""
+    return p.lanes if p.lanes is not None and p.samples_pending else None
+
+
+@pytest.fixture
+def scan_on_the_cpu(monkeypatch):
+    monkeypatch.setattr(pdp, "scan_lanes", scan_here)
+
+
+def make_streams(fixture: bytes) -> dict:
+    """The streams of ``STREAMS``, and a free-format and an LSF stream,
+    from the fixture's bytes and the goldens."""
     mr = np.load(os.path.join(GOLD, "multirate_golden.npz"))
     crafted = np.load(os.path.join(GOLD, "crafted_golden.npz"))
     lsf = np.load(os.path.join(GOLD, "torch_lsf_golden.npz"))
@@ -133,6 +144,12 @@ def streams(fixture_mp3):
                 for t in ("32000_64", "48000_320")})
     out.update({f"crafted_{n}": crafted[n].tobytes() for n in CRAFTED})
     return out
+
+
+@pytest.fixture(scope="module")
+def streams(fixture_mp3):
+    with open(fixture_mp3, "rb") as f:
+        return make_streams(f.read())
 
 
 def test_the_crafted_streams_are_what_they_claim(streams):
@@ -229,15 +246,12 @@ def test_an_inconsistent_light_walk_falls_back_to_the_full_fill(
                                       err_msg=k)
 
 
-@pytest.mark.parametrize("how", ["defer_samples=False", "python", "native",
-                                 "MP3STEGO_TPU_DEVICE_HUFFMAN=0"])
-def test_the_other_routes_fill_at_parse_time(how, streams, monkeypatch):
+@pytest.mark.parametrize("how", ["defer_samples=False", "python", "native"])
+def test_the_other_routes_fill_at_parse_time(how, streams):
     data = streams["fixture"]
     kw = {"defer_samples=False": dict(defer_samples=False),
           "python": dict(backend="python"),
-          "native": dict(backend="native")}.get(how, {})
-    if how.startswith("MP3STEGO"):
-        monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", "0")
+          "native": dict(backend="native")}[how]
     p = pdh.parse_mp3(data, 0, **kw)
     assert p.lanes is None and not p.samples_pending
     np.testing.assert_array_equal(
@@ -286,15 +300,21 @@ def test_words_past_a_short_capacity_are_never_written(streams, lib):
 
 @pytest.mark.parametrize("name", ["crafted_is_long", "crafted_is_ms_long",
                                   "crafted_is_ms_short"])
-def test_device_route_reads_the_host_fill_for_intensity_stereo(name,
-                                                               streams):
+def test_device_route_reads_the_host_fill_for_intensity_stereo(
+        name, streams, scan_on_the_cpu):
     """Intensity positions need the right channel's samples on the host:
-    the device route (light parse, scan) reads the deferred fill for them
-    and writes the host route's bytes."""
+    the scan route reads the deferred fill for them beside the scan and
+    writes the host fill's route's bytes."""
     data = streams[name]
-    got, parsed = hd.decode_pcm_i16_device(data, 0, "cpu", "float32")
     want = pdp.decode_pcm_i16(pdh.parse_mp3(data, 0, defer_samples=False),
                               "cpu", "float32")
+    parsed = pdh.parse_mp3(data, 0)
+    assert parsed.samples_pending
+    n0 = len(P.spans())
+    with P.recording():
+        got = pdp.decode_pcm_i16(parsed, "cpu", "float32")
+    names = [s.name for s in P.spans()[n0:]]
+    assert names.count("samples.device") == names.count("parse.fill") == 1
     assert not parsed.samples_pending
     assert got.tobytes() == want.tobytes()
 
@@ -320,24 +340,28 @@ def tagged_mp3():
 
 @pytest.mark.parametrize("precision", ["float32", "float64"])
 def test_device_route_drops_a_vbr_tag_frame_as_the_host_route(
-        precision, tagged_mp3, tmp_path, monkeypatch):
+        precision, tagged_mp3, tmp_path, scan_on_the_cpu):
+    from mp3stego_tpu_torch.bitstream import vbr
     from mp3stego_tpu_torch.models import decoder as pdec
+    from mp3stego_tpu_torch.utils.wav import write_wav
     data = tagged_mp3
     host = pdh.parse_mp3(data, 0, defer_samples=False)
     assert host.vbr_tag is not None and host.skip_first_pcm
-    got, parsed = hd.decode_pcm_i16_device(data, 0, "cpu", precision)
+    want = pdp.decode_pcm_i16(host, "cpu", precision)
+    parsed = pdh.parse_mp3(data, 0)
+    assert parsed.samples_pending
+    got = pdp.decode_pcm_i16(parsed, "cpu", precision)
+    assert parsed.samples_pending           # scanned, never filled
     assert parsed.skip_first_pcm and parsed.vbr_tag is not None
     assert (parsed.vbr_tag.kind, parsed.vbr_tag.frames) == \
         (host.vbr_tag.kind, host.vbr_tag.frames)
-    assert got.tobytes() == pdp.decode_pcm_i16(host, "cpu",
-                                               precision).tobytes()
+    assert got.tobytes() == want.tobytes()
     path = tmp_path / "v.mp3"
     path.write_bytes(data)
-    kbps, wavs = {}, {}
-    for engine in ("0", "1"):
-        monkeypatch.setenv("MP3STEGO_TPU_DEVICE_HUFFMAN", engine)
-        out = tmp_path / f"{engine}.wav"
-        kbps[engine] = pdec.Decoder(str(path), str(out), precision=precision,
-                                    device="cpu").decode()
-        wavs[engine] = out.read_bytes()
-    assert kbps["1"] == kbps["0"] and wavs["1"] == wavs["0"]
+    write_wav(str(tmp_path / "h.wav"), host.header.sampling_rate, want)
+    kbps = pdec.Decoder(str(path), str(tmp_path / "d.wav"),
+                        precision=precision, device="cpu").decode()
+    avg = vbr.avg_bitrate_kbps(host.vbr_tag, host.header)
+    assert avg is not None and kbps == avg
+    assert (tmp_path / "d.wav").read_bytes() == \
+        (tmp_path / "h.wav").read_bytes()

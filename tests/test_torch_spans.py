@@ -326,18 +326,21 @@ def test_parse_prepare_and_decode_record_their_parts(fixture_mp3):
                                  "d2h"]
 
 
-def test_the_scan_route_records_its_scan_and_no_fill(fixture_mp3):
-    """The device route through the light parse (here its plain scan on
-    the CPU): the scan is the span ``samples.device`` inside ``device
-    plane``, and no host fill runs."""
-    from mp3stego_tpu_torch.ops import huffman_device as hd
+def test_the_scan_route_records_its_scan_and_no_fill(fixture_mp3,
+                                                     monkeypatch):
+    """The scan route (``parse_mp3``, then ``decode_pcm_i16`` with the scan,
+    here its plain version on the CPU under a fake of ``scan_lanes``): the
+    scan is the span ``samples.device`` inside ``device plane``, and no
+    host fill runs."""
+    monkeypatch.setattr(dp, "scan_lanes", lambda p, device: p.lanes)
     with open(fixture_mp3, "rb") as f:
         data = f.read()
     timer = P.StageTimer()
     m = _mark()
     with P.recording():
-        pcm, p = hd.decode_pcm_i16_device(data, 0, CPU, "float64",
-                                          timer=timer)
+        with timer.stage("parse"):
+            p = dh.parse_mp3(data)
+        pcm = dp.decode_pcm_i16(p, CPU, "float64", timer=timer)
     assert p.samples_pending
     assert np.array_equal(pcm, dp.decode_pcm_i16(
         dh.parse_mp3(data, defer_samples=False), CPU, "float64"))
@@ -347,8 +350,9 @@ def test_the_scan_route_records_its_scan_and_no_fill(fixture_mp3):
     assert scan.counts == {"frames": p.num_frames}
     assert "parse.fill" not in by
     native, = by["parse.native"]
-    assert native.parent == by["light parse (host)"][0].id
-    assert list(timer.times) == ["light parse (host)", "host_prepare", "h2d",
+    assert native.parent == by["parse_mp3"][0].id
+    assert by["parse_mp3"][0].parent == by["parse"][0].id
+    assert list(timer.times) == ["parse", "host_prepare", "h2d",
                                  "device plane", "d2h"]
 
 

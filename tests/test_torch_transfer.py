@@ -164,3 +164,51 @@ def test_staging_is_filled_without_torchs_thread_pool(staging, monkeypatch):
     for a, t in zip(arrays, got):
         assert t.numpy().dtype == a.dtype
         np.testing.assert_array_equal(t.numpy(), a)
+
+
+@pytest.mark.parametrize("entry", ["decode_pcm", "Decoder", "MP3Encoder",
+                                   "cost_all_steps", "decode_files_batched",
+                                   "encode_files_batched",
+                                   "decode_file_streaming"])
+def test_every_entry_point_keeps_the_one_device_rule(entry, encode_golden,
+                                                     tmp_path, monkeypatch):
+    """``resolve_device`` is the port's one device rule: given no device
+    and no card, every entry point raises its error, word for word, which
+    names the CUDA device and the way to the CPU."""
+    from mp3stego_tpu_torch.bitstream import decoder_host as dh
+    from mp3stego_tpu_torch.models.decoder import Decoder
+    from mp3stego_tpu_torch.models.encoder import MP3Encoder
+    from mp3stego_tpu_torch.models.streaming import decode_file_streaming
+    from mp3stego_tpu_torch.ops import decode_plane as dp
+    from mp3stego_tpu_torch.ops import quant_batch as QB
+    from mp3stego_tpu_torch.parallel import (decode_files_batched,
+                                             encode_files_batched)
+    from mp3stego_tpu_torch.utils.wav import WavFile
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as want:
+        X.resolve_device()
+    assert "CUDA" in str(want.value) and "device='cpu'" in str(want.value)
+    assert X.resolve_device("cpu") == torch.device("cpu")
+    data = encode_golden["mp3_bytes"].tobytes()
+    mp3 = tmp_path / "e.mp3"
+    mp3.write_bytes(data)
+    pcm = np.zeros(2 * 1152, np.int16)
+    wav = WavFile(file_path="w.wav", bitrate=128, num_of_channels=2,
+                  samplerate=44100, bits_per_sample=16,
+                  num_of_samples=pcm.size, mpeg_mode=0, buffer=pcm)
+    calls = {
+        "decode_pcm": lambda: dp.decode_pcm(dh.parse_mp3(data), "float32"),
+        "Decoder": lambda: Decoder(str(mp3), str(tmp_path / "o.wav"),
+                                   precision="float32"),
+        "MP3Encoder": lambda: MP3Encoder(wav),
+        "cost_all_steps": lambda: QB.cost_all_steps(
+            np.zeros((1, 576), np.int32), 0),
+        "decode_files_batched": lambda: decode_files_batched([str(mp3)]),
+        "encode_files_batched": lambda: encode_files_batched(
+            [("a.wav", "a.mp3")]),
+        "decode_file_streaming": lambda: decode_file_streaming(
+            str(mp3), str(tmp_path / "s.wav"), 9),
+    }
+    with pytest.raises(RuntimeError) as got:
+        calls[entry]()
+    assert str(got.value) == str(want.value)
